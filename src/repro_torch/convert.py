@@ -1,0 +1,83 @@
+"""Carry a plan built elsewhere into the port: :func:`plan_from_arrays`.
+
+The port's planner is a copy of the JAX package's, and the tests hold the
+two equal array for array.  This module lets a caller go one step further
+and run the port on the reference's *own* plan, independently of the
+port's planner: the plan crosses as plain numpy arrays and scalars (no JAX
+object, no import of the JAX package), in the field names of
+``BlockPlan``:
+
+* scalars ``lane_width``, ``nnz``, ``out_len``, ``data_len``,
+  ``num_blocks``;
+* arrays ``window_ids``, ``lane_slot``, ``lane_offset``, ``seg_ids``,
+  ``gather_idx``, ``valid``, ``flat_perm``, ``head_pos``, ``head_rows``;
+* ``classes``, a sequence of ``(ls_flag, op_flag, stream, start, stop)``
+  tuples in exec order;
+* ``stats``, a dict of the ``PlanStats`` fields
+  (``dataclasses.asdict`` of the source plan's stats).
+
+The seed is the port's own (a ``CodeSeed`` with torch combines), passed
+beside the fields.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from repro_torch.core.plan import BlockPlan, PatternClass, PlanStats
+from repro_torch.core.seed import CodeSeed
+
+_SCALARS = ("lane_width", "nnz", "out_len", "data_len", "num_blocks")
+# field -> (dtype kinds accepted, lanes per block: None = (B, L) free width)
+_BLOCK_ARRAYS = {
+    "window_ids": ("i", None),
+    "lane_slot": ("u", "n"),
+    "lane_offset": ("u", "n"),
+    "seg_ids": ("i", "n"),
+    "gather_idx": ("i", "n"),
+    "valid": ("b", "n"),
+}
+
+
+def plan_from_arrays(fields: Mapping, seed: CodeSeed) -> BlockPlan:
+    """Build the port's :class:`BlockPlan` from a plan's fields handed over
+    as numpy arrays and scalars (see the module docstring).  Shapes, dtypes
+    and class ranges are checked; a malformed plan raises ``ValueError``."""
+    missing = [k for k in (*_SCALARS, *_BLOCK_ARRAYS, "flat_perm",
+                           "head_pos", "head_rows", "classes", "stats")
+               if k not in fields]
+    if missing:
+        raise ValueError(f"plan fields missing: {missing}")
+    sc = {k: int(fields[k]) for k in _SCALARS}
+    b, n = sc["num_blocks"], sc["lane_width"]
+    arrays = {}
+    for name, (kinds, width) in _BLOCK_ARRAYS.items():
+        a = np.ascontiguousarray(fields[name])
+        if a.dtype.kind not in kinds or a.ndim != 2 or a.shape[0] != b \
+                or (width == "n" and a.shape[1] != n):
+            raise ValueError(f"{name}: expected (num_blocks={b}, "
+                             f"{'N=' + str(n) if width else 'L'}) of kind "
+                             f"{kinds!r}, got {a.shape} {a.dtype}")
+        arrays[name] = a
+    flat_perm = np.asarray(fields["flat_perm"], dtype=np.int64)
+    head_pos = np.asarray(fields["head_pos"], dtype=np.int64)
+    head_rows = np.asarray(fields["head_rows"], dtype=np.int64)
+    if flat_perm.shape != (b * n,) or head_pos.shape != head_rows.shape:
+        raise ValueError("flat_perm must be (B*N,) and head_pos/head_rows "
+                         "of one length")
+    classes = [PatternClass(ls_flag=int(ls), op_flag=int(op),
+                            stream=bool(st), start=int(lo), stop=int(hi))
+               for ls, op, st, lo, hi in fields["classes"]]
+    pos = 0
+    for c in classes:
+        if c.start != pos or c.stop < c.start:
+            raise ValueError("classes must tile [0, num_blocks) in exec "
+                             "order")
+        pos = c.stop
+    if pos != b:
+        raise ValueError("classes must tile [0, num_blocks) in exec order")
+    return BlockPlan(seed=seed, classes=classes,
+                     flat_perm=flat_perm, head_pos=head_pos,
+                     head_rows=head_rows, stats=PlanStats(**fields["stats"]),
+                     **sc, **arrays)

@@ -1,0 +1,131 @@
+"""``repro_torch`` stands alone: it never imports JAX or the JAX package,
+and its entry points never carry on on the CPU unless asked to."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
+                    for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+SCANNED = PORT_FILES + ["chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("rel", SCANNED)
+def test_no_jax_or_reference_imports(rel):
+    """An AST scan of every module of the port and of chip_smoke.py: no
+    ``import jax`` and nothing of ``repro``."""
+    for name in _imported_modules(ROOT / rel):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{rel} imports {name}"
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys\n"
+            "import repro_torch.core.apps, repro_torch.convert\n"
+            "import repro_torch.kernels.unroll_spmv.ops\n"
+            "import repro_torch.sparse.generators\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists, so the default device is usable")
+
+
+def _coo():
+    rng = np.random.default_rng(0)
+    return (rng.integers(0, 10, 30), rng.integers(0, 10, 30),
+            rng.standard_normal(30).astype(np.float32), (10, 10))
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_default_device_raises_without_cuda(backend):
+    """Without ``device=`` the entry points ask for CUDA; with no CUDA
+    device they raise instead of running on the CPU."""
+    _no_cuda()
+    from repro_torch.core.apps import SpMV
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpMV.from_coo(*_coo(), backend=backend)
+    rows, cols, vals, shape = _coo()
+    order = np.lexsort((cols, rows))
+    indptr = np.r_[0, np.cumsum(np.bincount(rows, minlength=shape[0]))]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpMV.from_csr(indptr, cols[order], vals[order], shape,
+                      backend=backend)
+
+
+def test_executor_default_device_raises_without_cuda():
+    _no_cuda()
+    from repro_torch.core import engine as eng
+    from repro_torch.core.plan import CostModel, build_plan
+    from repro_torch.core.seed import spmv_seed
+    rows, cols, vals, shape = _coo()
+    plan = build_plan(spmv_seed(), {"row": rows, "col": cols}, *shape,
+                      CostModel(lane_width=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.make_executor(plan, {"value": vals}, backend="cuda")
+
+
+def test_kernel_wrappers_never_take_the_plain_path_on_other_devices():
+    """The plain version runs only for CPU tensors; anything else launches
+    the kernel or raises."""
+    from repro_torch.kernels.unroll_spmv import kernel as K
+    seg = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no stage-A kernel"):
+        K.window_stage_a(seg, [torch.ones(8, device="meta")], [], seg, seg,
+                         seg, op=0, stream=False, reduce="add")
+    with pytest.raises(ValueError, match="no stage-A kernel"):
+        K.dense_slice_stage_a(seg[0], [torch.ones(8, device="meta")], [],
+                              None, seg, op=0, reduce="add")
+
+
+def _run_smoke(script: Path, cwd: Path, fake_card: bool):
+    """Run ``chip_smoke.py`` as ``__main__``; ``fake_card`` makes
+    ``torch.cuda.is_available()`` report a card so the later checks run."""
+    pre = ("import torch; torch.cuda.is_available = lambda: True; "
+           if fake_card else "")
+    code = (f"{pre}import runpy; runpy.run_path({str(script)!r}, "
+            "run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No CUDA: non-zero exit and no result line."""
+    _no_cuda()
+    proc = _run_smoke(ROOT / "chip_smoke.py", ROOT, fake_card=False)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "is_available" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo
+    it fails before doing any work, even where a card exists."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = _run_smoke(alone, tmp_path, fake_card=True)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "repro_torch" in proc.stderr
