@@ -1,36 +1,52 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the ``repro_torch`` port: SpMV on the H100.
+"""On-card smoke run of the ``repro_torch`` port: SpMV and SpMM on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path — ``SpMV.from_coo(..., backend="cuda")``
-then ``.matvec(x)`` — on two SuiteSparse analogues at their published
-sizes (``sparse/generators.py``), and fails (non-zero exit, no result
-line) if any phase fails:
+It drives the port's main paths — ``SpMV.from_coo(..., backend="cuda")``
+then ``.matvec(x)`` and ``.matvec_many(xs)``, and ``SpMM.from_coo(...,
+backend="cuda")`` then ``.matmat(B)`` — on two SuiteSparse analogues at
+their published sizes (``sparse/generators.py``), and the entry points of
+the three standalone kernels at real sizes, and fails (non-zero exit, no
+result line) if any phase fails:
 
 1. device: CUDA present; prints the card's name and power limit on a line
    of their own, as ``nvidia-smi`` gives them;
-2. build: compiles the stage-A kernels from ``src/repro_torch`` with
-   ``nvcc`` for ``sm_90a`` into ``build/repro_torch`` and prints the time
-   and the compiler's register/spill report;
-3. kernel phases: every window / dense-slice launch of both matrices,
-   fused and per-class, coalesced and not, bitwise against the kernel's
-   plain torch version on the card, for add and mul on float32 and min
-   and max on int32;
-4. main path: ``matvec`` with ``fused=True`` and ``coalesce`` False and
-   True, against a float64 numpy oracle (max rel err <= 1e-5) and bitwise
-   against the port's ``"torch"`` backend; the launch counters, zeroed
-   just before, must show every kernel the lowering names;
-5. timings: ``matvec`` per matrix and mode, end to end (host clock
-   around the call and a synchronize, median of 20) and in device time
-   (CUDA events around 20 back-to-back calls queued behind a spin kernel,
-   so launch overhead leaves no gaps; median of 5 such measurements); a ``torch.profiler`` breakdown of
-   device time by kernel; each kernel's device time on the main path
-   beside its bytes bound (each distinct word once) and its plain
-   version; and cuSPARSE's SpMV
-   (``torch.sparse_csr_tensor(...) @ x``) as the end-to-end yardstick.
+2. build: compiles every kernel source of ``src/repro_torch`` with ``nvcc``
+   for ``sm_90a`` into ``build/repro_torch`` (one ``nvcc`` per source, all
+   at once) and prints the times and the compiler's register/spill report;
+3. stage-A kernel phases: every window / dense-slice launch of both
+   matrices, fused and per-class, coalesced and not, bitwise against the
+   kernel's plain torch version on the card, for add and mul on float32
+   and min and max on int32, at ``D`` 1 (``x`` a vector) and 16 (a dense
+   ``(n, 16)`` operand: trailing lane axes);
+4. main paths: ``matvec`` and ``matmat`` (``D = 16``) with ``fused=True``
+   and ``coalesce`` False and True, against a float64 numpy ``np.add.at``
+   oracle (max rel err <= 1e-5) and bitwise against the port's ``"torch"``
+   backend; ``matvec_many`` on the pwtk analogue (``S = 8``) bitwise
+   against 8 ``matvec`` calls; the launch counters, zeroed just before each
+   run and read just after, must show every kernel the lowering names;
+5. standalone kernels, each bitwise against its plain version on the card
+   and each driven once through its entry point with the counters zeroed:
+   ``segment_reduce_op`` on the pwtk plan's own blocks and combined terms
+   (op_flag 7 and FULL_REDUCE; add/mul f32, min/max i32, add f64; ``D`` 1
+   and 16), ``gather_vload_op`` on the webbase plan's window blocks (``ls``
+   1, 2, 4 and 32, and stream; f32 and i32; ``D`` 1 and 16) and
+   ``row_gather_op`` at the token dispatch of one qwen3-moe-235b-a22b layer
+   (4,096 tokens of ``d_model`` 4,096 plus a zero row, top-8 of 128
+   experts, so 32,768 row ids sorted by expert; bf16 and f32);
+6. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
+   clock around the call and a synchronize, median of 20) and in device
+   time (CUDA events around back-to-back calls queued behind a spin kernel,
+   so launch overhead leaves no gaps; median of 5 such measurements); a
+   ``torch.profiler`` breakdown of device time by kernel; each kernel's
+   device time beside its bound (each distinct input word read once, each
+   output word written once), its plain version's and, where one PyTorch
+   call computes the same function, that call's time (``index_select`` for
+   ``row_gather``, ``take`` for ``gather_vload``); and cuSPARSE's SpMV and
+   SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,13 +74,36 @@ MATRICES = {
     "pwtk": dict(kind="banded", n=217918, band=26),        # Boeing/pwtk
     "webbase-1M": dict(kind="power_law", n=1000005, avg_deg=3),
 }
-KERNEL_SOURCE = "src/repro_torch/kernels/unroll_spmv/csrc/stage_a.cu"
+SPMM_D = 16                    # SpMM's dense operand is (n, SPMM_D)
+MANY_S = 8                     # vectors of the matvec_many run
+# segment_reduce cases on the pwtk blocks: (reduce, dtype)
+SEGMENT_CASES = (("add", np.float32), ("mul", np.float32),
+                 ("min", np.int32), ("max", np.int32), ("add", np.float64))
+GATHER_LS = (1, 2, 4, 32)      # window counts of the gather_vload phase
+# one MoE layer of src/repro/configs/qwen3_moe_235b_a22b.py
+MOE = dict(tokens=4096, d_model=4096, num_experts=128, top_k=8, d_tile=512)
+SOURCES = {
+    "unroll_spmv.window":
+        "src/repro_torch/kernels/unroll_spmv/csrc/stage_a.cu",
+    "unroll_spmv.dense_slice":
+        "src/repro_torch/kernels/unroll_spmv/csrc/stage_a.cu",
+    "segment_reduce":
+        "src/repro_torch/kernels/segment_reduce/csrc/segment_reduce.cu",
+    "gather_vload":
+        "src/repro_torch/kernels/gather_vload/csrc/gather_vload.cu",
+    "row_gather": "src/repro_torch/kernels/moe_dispatch/csrc/row_gather.cu",
+}
 REPLACES = {
     "unroll_spmv.window":
         "src/repro/kernels/unroll_spmv/kernel.py:135 (class_stage_a; "
         "gpu_stage_a :357)",
     "unroll_spmv.dense_slice":
         "src/repro/kernels/unroll_spmv/kernel.py:255 (coalesced_stage_a)",
+    "segment_reduce":
+        "src/repro/kernels/segment_reduce/kernel.py:52 (segment_reduce)",
+    "gather_vload": "src/repro/kernels/gather_vload/kernel.py:37 "
+                    "(gather_vload)",
+    "row_gather": "src/repro/kernels/moe_dispatch/kernel.py:27 (row_gather)",
 }
 
 
@@ -159,28 +198,81 @@ def profile_breakdown(fn, reps: int = 5):
                                / reps, e.count // reps) for e in top]
 
 
+def log_profile(tag: str, what: str, fn) -> None:
+    prof = profile_breakdown(fn)
+    if prof is None:
+        log(f"[profile] {tag} {what}: no device time recorded (not "
+            "measured)")
+        return
+    wall_ms, busy_ms, top = prof
+    log(f"[profile] {tag} {what}: device busy {busy_ms:.4f} ms of "
+        f"{wall_ms:.4f} ms wall per call under the profiler (idle share <= "
+        f"{1 - busy_ms / wall_ms:.3f})")
+    for kname, kms, kcount in top:
+        log(f"[profile]   {kms:.4f} ms in {kcount} launches: {kname}")
+
+
 def make_matrix(G, spec):
     if spec["kind"] == "banded":
         return G.banded(spec["n"], band=spec["band"])
     return G.power_law(spec["n"], avg_deg=spec["avg_deg"])
 
 
-def data_for(m, dtype, seed=SEED):
+def data_for(m, dtype, d: int | None = None, seed=SEED):
+    """Values (nnz,) and a dense operand, (n,) or (n, d), from a seed."""
     rng = np.random.default_rng(seed)
+    shape = (m.shape[1],) if d is None else (m.shape[1], d)
     if np.issubdtype(np.dtype(dtype), np.integer):
         return (rng.integers(-5, 6, m.nnz).astype(dtype),
-                rng.integers(-5, 6, m.shape[1]).astype(dtype))
+                rng.integers(-5, 6, shape).astype(dtype))
     return (rng.standard_normal(m.nnz).astype(dtype),
-            rng.standard_normal(m.shape[1]).astype(dtype))
+            rng.standard_normal(shape).astype(dtype))
 
 
-def launch_bytes_ops(cm) -> tuple[int, int]:
+def add_at_oracle(m, vals, x) -> np.ndarray:
+    """float64 ``np.add.at`` product, one column at a time."""
+    v = vals.astype(np.float64)
+    x2 = x.reshape(x.shape[0], -1).astype(np.float64)
+    out = np.zeros((m.shape[0], x2.shape[1]), np.float64)
+    for c in range(x2.shape[1]):
+        np.add.at(out[:, c], m.rows, v * x2[m.cols, c])
+    return out.reshape((m.shape[0],) + x.shape[1:])
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.equal(a.view(view[a.element_size()]),
+                       b.view(view[b.element_size()]))
+
+
+def max_abs_diff(a, b) -> float:
+    """0.0 exactly when the two agree bit for bit; else the max abs
+    difference of the finite words, ``inf`` when only non-finite words
+    differ."""
+    if same_bits(a, b):
+        return 0.0
+    diff = (a.double() - b.double()).abs()
+    diff = diff[~diff.isnan()]
+    return float(diff.max()) if diff.numel() and diff.max() > 0 \
+        else float("inf")
+
+
+def bound(nbytes: float, nops: float = 0.0) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launch_bytes_ops(cm, d: int = 1) -> tuple[int, int]:
     """Least bytes a stage-A launch must move and the operations it must
-    do, from this launch's metadata: each distinct input word read once,
-    each output word written once (see the kernel source's header).  Of
-    ``x`` that is the distinct words the launch's lanes read, however many
-    lanes share one; of the window ids, those some lane of the block
-    selects."""
+    do, from this launch's metadata, for a gathered operand of ``d``
+    columns: each distinct input word read once, each output word written
+    once (see the kernel source's header).  Of ``x`` that is the distinct
+    rows the launch's lanes read, however many lanes share one; of the
+    window ids, those some lane of the block selects."""
     import torch
     from repro_torch.core import ir
     la = cm.launch
@@ -205,43 +297,603 @@ def launch_bytes_ops(cm) -> tuple[int, int]:
         head = int(used.sum()) * 4               # the window ids selected
     if cm.full is not None:
         head += bc * 4
-    x_words = int(torch.unique(idx).numel())
+    x_rows = int(torch.unique(idx).numel())
     steps = max(la.op_flag, 0)
     if la.op_flag < 0 or cm.full is not None:
         steps = max(steps, int(np.ceil(np.log2(max(n, 2)))))
-    ops = lanes * (1 + steps)                 # combine + ladder steps
-    return head + lanes * (per_lane + 1) * 4 + x_words * 4, ops
+    ops = lanes * d * (1 + steps)             # combine + ladder steps
+    return (head + lanes * per_lane * 4 + lanes * d * 4 + x_rows * d * 4,
+            ops)
 
 
-def compare_launch(K, ir, cm, xd, elem, reduce) -> tuple[str, float]:
+def run_launch_both(K, ir, cm, xd, elem, reduce):
     """One launch through its kernel and its plain version on the card;
-    returns the kernel's name and the max abs difference (0.0 exactly when
-    the two agree bit for bit, ``inf`` when they differ only in non-finite
-    words)."""
-    import torch
+    returns the kernel's name and both outputs."""
     la = cm.launch
     s = slice(la.start, la.stop)
     kw = dict(op=la.op_flag, reduce=reduce, full_flags=cm.full)
     if la.gather == ir.COALESCED:
         key = "unroll_spmv.dense_slice"
         args = (cm.starts, [xd], [elem[s]], cm.local, cm.seg)
-        got = K.dense_slice_stage_a(*args, **kw)
-        torch.cuda.synchronize()
-        want = K.dense_slice_stage_a_plain(*args, **kw)
-    else:
-        key = "unroll_spmv.window"
-        args = (cm.win, [xd], [elem[s]], cm.slot, cm.off, cm.seg)
-        kw["stream"] = la.stream
-        got = K.window_stage_a(*args, **kw)
-        torch.cuda.synchronize()
-        want = K.window_stage_a_plain(*args, **kw)
-    torch.cuda.synchronize()
-    if torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        return key, 0.0
-    diff = (got.double() - want.double()).abs()
-    diff = diff[torch.isfinite(diff)]
-    return key, float(diff.max()) if diff.numel() and diff.max() > 0 \
-        else float("inf")
+        return key, K.dense_slice_stage_a(*args, **kw), \
+            K.dense_slice_stage_a_plain(*args, **kw)
+    key = "unroll_spmv.window"
+    args = (cm.win, [xd], [elem[s]], cm.slot, cm.off, cm.seg)
+    kw["stream"] = la.stream
+    return key, K.window_stage_a(*args, **kw), \
+        K.window_stage_a_plain(*args, **kw)
+
+
+class Smoke:
+    """The phases, in order; ``run`` drives them all."""
+
+    def __init__(self, dev, card: str, kind: str):
+        import torch
+        from repro_torch.core import engine as eng
+        from repro_torch.core import ir
+        from repro_torch.core.apps import SpMV
+        from repro_torch.core.plan import CostModel, build_plan
+        from repro_torch.core.seed import spmv_seed
+        from repro_torch.core.spmm import SpMM
+        from repro_torch.kernels import build
+        from repro_torch.kernels.gather_vload import kernel as GV
+        from repro_torch.kernels.gather_vload import ops as gv_ops
+        from repro_torch.kernels.moe_dispatch import kernel as RG
+        from repro_torch.kernels.moe_dispatch import ops as rg_ops
+        from repro_torch.kernels.segment_reduce import kernel as SR
+        from repro_torch.kernels.segment_reduce import ops as sr_ops
+        from repro_torch.kernels.unroll_spmv import kernel as K
+        from repro_torch.kernels.unroll_spmv import ops
+        from repro_torch.sparse import generators as G
+        self.torch, self.eng, self.ir, self.ops, self.G = torch, eng, ir, ops, G
+        self.SpMV, self.SpMM = SpMV, SpMM
+        self.CostModel, self.build_plan, self.spmv_seed = \
+            CostModel, build_plan, spmv_seed
+        self.build, self.K, self.SR, self.GV, self.RG = build, K, SR, GV, RG
+        self.sr_op = sr_ops.segment_reduce_op
+        self.gv_op = gv_ops.gather_vload_op
+        self.rg_op = rg_ops.row_gather_op
+        self.dev, self.card, self.kind = dev, card, kind
+        self.tag = f"[{card}]"
+        # each kernel's launch counter, by the name the kernels line uses
+        self.wrappers = {
+            "unroll_spmv.window": K.window_stage_a,
+            "unroll_spmv.dense_slice": K.dense_slice_stage_a,
+            "segment_reduce": SR.segment_reduce,
+            "gather_vload": GV.gather_vload,
+            "row_gather": RG.row_gather}
+        self.main_counts = {k: 0 for k in self.wrappers}
+        self.max_err = {k: 0.0 for k in self.wrappers}
+        self.compared = {k: 0 for k in self.wrappers}
+        self.line = {}
+        self.mats, self.plans = {}, {}
+
+    # ------------------------------------------------------------ helpers
+    def zero_counts(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read_counts(self) -> dict:
+        self.torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in self.wrappers.items()}
+        for k, c in counts.items():
+            self.main_counts[k] += c
+        return counts
+
+    def held(self, key: str, got, want, what: str) -> None:
+        """Record one kernel-vs-plain comparison; fail unless bitwise."""
+        self.torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        self.max_err[key] = max(self.max_err[key], err)
+        self.compared[key] += 1
+        check(err == 0.0, f"{key} differs from its plain version ({what}; "
+              f"max abs err {err})")
+
+    def kernel_entry(self, key, ms, plain_ms, nbytes, nops, library_ms):
+        bound_ms, by = bound(nbytes, nops)
+        self.line[key] = {
+            "name": key, "route": "cuda", "source": SOURCES[key],
+            "replaces": REPLACES[key], "launches": self.main_counts[key],
+            "max_abs_err": self.max_err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+
+    # ------------------------------------------------------------- phases
+    def build_kernels(self) -> None:
+        libs = {"unroll_spmv": self.K.library,
+                "segment_reduce": self.SR.library,
+                "gather_vload": self.GV.library,
+                "row_gather": self.RG.library}
+        t0 = time.perf_counter()
+        self.build.build_all(libs.values())
+        log(f"[build] {len(libs)} kernel libraries ready in "
+            f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+        for name, lib in libs.items():
+            log(f"[build] {name}: nvcc {lib.build_seconds:.2f} s")
+            for line in lib.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build]   {line.strip()}")
+
+    def make_plans(self) -> None:
+        for name, spec in MATRICES.items():
+            t0 = time.perf_counter()
+            m = self.mats[name] = make_matrix(self.G, spec)
+            t1 = time.perf_counter()
+            p = self.plans[name] = self.build_plan(
+                self.spmv_seed(), {"row": m.rows, "col": m.cols},
+                m.shape[0], m.shape[1], self.CostModel(lane_width=128))
+            fb = sum(c.num_blocks for c in p.classes if c.ls_flag == 0)
+            log(f"[matrix] {name}: {m.shape[0]} rows, {m.nnz} nnz, "
+                f"{p.num_blocks} blocks ({fb} gather-fallback, "
+                f"{fb / p.num_blocks:.4f}), {p.stats.num_classes} classes; "
+                f"generate {t1 - t0:.2f} s, build_plan "
+                f"{time.perf_counter() - t1:.2f} s")
+            for fused in (True, False):
+                t = self.ir.lower(p, backend="cuda", fused=fused,
+                                  coalesce=True)
+                log(f"[matrix] {name}: cuda fused={fused} coalesce=True -> "
+                    f"{len(t.launches)} launches, coalesced fraction "
+                    f"{self.ir.coalesced_fraction(t):.4f}; torch form "
+                    f"{self.ir.coalesce_stats(p, fused=fused)}")
+
+    def kernel_launches(self, plan, fused, coalesce):
+        tree = self.ir.lower(plan, backend="cuda", fused=fused,
+                             coalesce=coalesce)
+        return [cm for cm in self.ops.stage_launch_meta(plan, tree.launches,
+                                                        self.dev)
+                if cm.launch.gather != self.ir.FALLBACK]
+
+    def stage_a_phase(self) -> None:
+        """Every kernel launch of both matrices against its plain version,
+        at D = 1 and D = SPMM_D."""
+        torch = self.torch
+        for name, plan in self.plans.items():
+            lowerings = {(f, c): self.kernel_launches(plan, f, c)
+                         for f in (True, False) for c in (False, True)}
+            for d in (1, SPMM_D):
+                for reduce, dtype in SEMIRINGS:
+                    vals, x = data_for(self.mats[name], dtype,
+                                       None if d == 1 else d)
+                    xd = torch.as_tensor(x, device=self.dev)
+                    elem = self.eng.reorder_elementwise(
+                        plan, vals, reduce=reduce, device=self.dev)
+                    for (fused, coalesce), metas in lowerings.items():
+                        for cm in metas:
+                            key, got, want = run_launch_both(
+                                self.K, self.ir, cm, xd, elem, reduce)
+                            self.held(key, got, want, f"{name} D={d} fused="
+                                      f"{fused} coalesce={coalesce} {reduce}/"
+                                      f"{np.dtype(dtype).name} launch "
+                                      f"[{cm.launch.start}, {cm.launch.stop})"
+                                      f" op={cm.launch.op_flag}")
+                        log(f"[kernels] {name} D={d} fused={fused} "
+                            f"coalesce={coalesce} {reduce}/"
+                            f"{np.dtype(dtype).name}: {len(metas)} kernel "
+                            "launches bitwise equal to the plain versions")
+
+    def check_named(self, app, counts, what) -> None:
+        """Each stage-A kernel the lowering names was launched."""
+        ir = self.ir
+        named = {"unroll_spmv.dense_slice" if la.gather == ir.COALESCED
+                 else "unroll_spmv.window"
+                 for la in app._run.tree.launches if la.gather != ir.FALLBACK}
+        for k in named:
+            check(counts[k] > 0, f"{k} named by the lowering of {what} but "
+                  "never launched")
+
+    def product_run(self, name, coalesce, d):
+        """One main-path run: ``matvec`` (d None) or ``matmat`` (d columns),
+        held to the float64 oracle and bitwise to the torch backend."""
+        torch = self.torch
+        m = self.mats[name]
+        vals, x = data_for(m, np.float32, d)
+        xd = torch.as_tensor(x, device=self.dev)
+        oracle = add_at_oracle(m, vals, x)
+        t0 = time.perf_counter()
+        if d is None:
+            app = self.SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                                     backend="cuda", fused=True,
+                                     coalesce=coalesce, device=self.dev)
+            call = app.matvec
+        else:
+            app = self.SpMM.from_coo(m.rows, m.cols, vals, m.shape,
+                                     backend="cuda", fused=True,
+                                     coalesce=coalesce, device=self.dev)
+            call = app.matmat
+        build_s = time.perf_counter() - t0
+        what = f"{name} coalesce={coalesce} " + \
+            ("matvec" if d is None else f"matmat D={d}")
+        self.zero_counts()
+        y = call(xd)
+        counts = self.read_counts()
+        self.check_named(app, counts, what)
+        check(tuple(y.shape) == oracle.shape and y.dtype == torch.float32,
+              f"{what}: bad output {tuple(y.shape)} {y.dtype}")
+        yh = y.cpu().numpy()
+        check(bool(np.isfinite(yh).all()), f"{what}: non-finite output")
+        rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
+        check(rel <= REL_ERR_LIMIT, f"{what}: rel err {rel:.3e} vs the "
+              "float64 oracle")
+        torch_run = self.eng.make_executor(
+            app.plan, {"value": vals}, backend="torch", fused=True,
+            coalesce=coalesce, device=self.dev)
+        y_torch = torch_run({"x": xd}, torch.zeros_like(y))
+        check(same_bits(y, y_torch), f"{what}: cuda backend differs from "
+              "the torch backend")
+        log(f"[main] {what} fused=True: {len(app._run.tree.launches)} "
+            f"launches, kernel launches "
+            f"{ {k: c for k, c in counts.items() if c} }, max rel err vs "
+            f"float64 oracle {rel:.3e}, bitwise equal to the torch backend; "
+            f"from_coo {build_s:.2f} s")
+        return dict(matrix=name, coalesce=coalesce, d=d, app=app, call=call,
+                    x=xd, vals=vals, counts=counts, rel_err=rel,
+                    torch_run=torch_run, build_s=build_s)
+
+    def main_paths(self) -> None:
+        self.runs = [self.product_run(name, coalesce, d)
+                     for d in (None, SPMM_D) for name in self.mats
+                     for coalesce in (False, True)]
+        for r in self.runs:
+            if r["matrix"] == "webbase-1M" and not r["coalesce"]:
+                check(r["counts"]["unroll_spmv.window"] > 0,
+                      "window kernel not launched on webbase-1M "
+                      "coalesce=False")
+            if r["matrix"] == "pwtk" and r["coalesce"]:
+                check(r["counts"]["unroll_spmv.dense_slice"] > 0,
+                      "dense-slice kernel not launched on pwtk coalesce=True")
+
+    def matvec_many_phase(self) -> None:
+        torch = self.torch
+        run = self.run_of("pwtk", True, None)
+        app = run["app"]
+        xs = torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+            (MANY_S, app.shape[1])).astype(np.float32), device=self.dev)
+        self.zero_counts()
+        ys = app.matvec_many(xs)
+        counts = self.read_counts()
+        self.check_named(app, counts, "pwtk matvec_many")
+        check(tuple(ys.shape) == (MANY_S, app.shape[0]),
+              f"matvec_many: bad output {tuple(ys.shape)}")
+        for i in range(MANY_S):
+            check(same_bits(ys[i], app.matvec(xs[i])),
+                  f"matvec_many row {i} differs from matvec(xs[{i}])")
+        many_ms = host_ms(lambda: app.matvec_many(xs))
+        many_dev = device_ms(lambda: app.matvec_many(xs))
+        loop_ms = host_ms(lambda: [app.matvec(xs[i]) for i in range(MANY_S)])
+        log(f"[main] pwtk coalesce=True matvec_many S={MANY_S}: kernel "
+            f"launches {counts['unroll_spmv.dense_slice']} dense-slice, "
+            f"rows bitwise equal to {MANY_S} matvec calls")
+        log(f"[time] {self.tag} pwtk coalesce=True matvec_many S={MANY_S}: "
+            f"{many_ms:.4f} ms end to end, {many_dev:.4f} ms of device time; "
+            f"{MANY_S} separate matvec calls {loop_ms:.4f} ms end to end")
+
+    def run_of(self, name, coalesce, d):
+        return next(r for r in self.runs if r["matrix"] == name
+                    and r["coalesce"] == coalesce and r["d"] == d)
+
+    def main_timings(self) -> None:
+        torch = self.torch
+        for r in self.runs:
+            app, xd, call = r["app"], r["x"], r["call"]
+            what = f"{r['matrix']} coalesce={r['coalesce']} " + \
+                ("matvec" if r["d"] is None else f"matmat D={r['d']}")
+            y0 = torch.zeros((app.shape[0],) + tuple(xd.shape[1:]),
+                             device=self.dev)
+            stage_a = app._run.sweep_body.stage_a
+            r["ms"] = host_ms(lambda: call(xd))
+            r["dev_ms"] = device_ms(lambda: call(xd))
+            r["stage_a_dev_ms"] = device_ms(lambda: stage_a({"x": xd}))
+            r["torch_ms"] = host_ms(lambda: r["torch_run"]({"x": xd}, y0))
+            log(f"[time] {self.tag} {what}: cuda {r['ms']:.4f} ms end to "
+                f"end, {r['dev_ms']:.4f} ms of device time (stage A "
+                f"{r['stage_a_dev_ms']:.4f} ms); torch backend "
+                f"{r['torch_ms']:.4f} ms end to end")
+            log_profile(self.tag, what, lambda: call(xd))
+        for name, m in self.mats.items():
+            indptr = np.r_[0, np.cumsum(np.bincount(m.rows,
+                                                    minlength=m.shape[0]))]
+            for d in (None, SPMM_D):
+                vals, x = data_for(m, np.float32, d)
+                a_csr = torch.sparse_csr_tensor(
+                    torch.as_tensor(indptr, device=self.dev),
+                    torch.as_tensor(m.cols, device=self.dev),
+                    torch.as_tensor(vals, device=self.dev), size=m.shape)
+                xd = torch.as_tensor(x, device=self.dev)
+                y_lib = (a_csr @ xd).cpu().numpy()
+                y_ref = self.run_of(name, False, d)["call"](xd).cpu().numpy()
+                check(np.allclose(y_lib, y_ref, rtol=1e-4, atol=1e-4),
+                      f"cuSPARSE disagrees with the port on {name} D={d}")
+                lib_dev = device_ms(lambda: a_csr @ xd)
+                lib_host = host_ms(lambda: a_csr @ xd)
+                what = "SpMV" if d is None else f"SpMM D={d}"
+                log(f"[time] {self.tag} {name}: cuSPARSE {what} "
+                    f"(torch.sparse_csr_tensor @ x, the yardstick) "
+                    f"{lib_dev:.4f} ms of device time, {lib_host:.4f} ms end "
+                    "to end")
+
+    def stage_a_kernel_times(self, key, name, coalesce, d):
+        """The kernel's launches of one main-path call, timed as a sequence,
+        beside the plain versions and the bound."""
+        torch, K, ir = self.torch, self.K, self.ir
+        run = self.run_of(name, coalesce, d)
+        app, xd = run["app"], run["x"]
+        plan = app.plan
+        elem = self.eng.reorder_elementwise(plan, run["vals"],
+                                            device=self.dev)
+        metas = [cm for cm in app._run.sweep_body.stage_a.launch_meta
+                 if cm.launch.gather != ir.FALLBACK
+                 and (cm.launch.gather == ir.COALESCED)
+                 == (key == "unroll_spmv.dense_slice")]
+        lanes = torch.empty((plan.num_blocks, plan.lane_width)
+                            + tuple(xd.shape[1:]), device=self.dev)
+
+        def run_all(plain=False):
+            for cm in metas:
+                s = slice(cm.launch.start, cm.launch.stop)
+                if not plain:
+                    self.ops.run_launch(plan, cm, [xd], [elem[s]],
+                                        out=lanes[s])
+                elif cm.launch.gather == ir.COALESCED:
+                    lanes[s] = K.dense_slice_stage_a_plain(
+                        cm.starts, [xd], [elem[s]], cm.local, cm.seg,
+                        op=cm.launch.op_flag, reduce="add",
+                        full_flags=cm.full)
+                else:
+                    lanes[s] = K.window_stage_a_plain(
+                        cm.win, [xd], [elem[s]], cm.slot, cm.off, cm.seg,
+                        op=cm.launch.op_flag, stream=cm.launch.stream,
+                        reduce="add", full_flags=cm.full)
+
+        ms = device_ms(run_all)
+        plain_ms = device_ms(lambda: run_all(plain=True), reps=3)
+        nbytes = nops = 0
+        for cm in metas:
+            b, o = launch_bytes_ops(cm, 1 if d is None else d)
+            nbytes += b
+            nops += o
+        return dict(ms=ms, plain_ms=plain_ms, nbytes=nbytes, nops=nops,
+                    launches=len(metas), main=run["counts"][key])
+
+    def stage_a_timings(self) -> None:
+        representative = {"unroll_spmv.window": ("webbase-1M", False),
+                          "unroll_spmv.dense_slice": ("pwtk", True)}
+        for key, (name, coalesce) in representative.items():
+            for d in (None, SPMM_D):
+                t = self.stage_a_kernel_times(key, name, coalesce, d)
+                bound_ms, by = bound(t["nbytes"], t["nops"])
+                what = "matvec" if d is None else f"matmat D={d}"
+                log(f"[time] {self.tag} {key} on {name} coalesce={coalesce} "
+                    f"{what}: {t['launches']} launches/call (main-path "
+                    f"counter {t['main']}), {t['ms']:.4f} ms vs bound "
+                    f"{bound_ms:.4f} ms ({t['nbytes']} B at "
+                    f"{HBM_BYTES_PER_S:.3g} B/s; {t['nops']} ops), "
+                    f"{bound_ms / t['ms']:.3f} of the bound; plain version "
+                    f"{t['plain_ms']:.4f} ms; no single PyTorch call "
+                    "computes it")
+                if d is None:           # the kernels line keeps matvec's
+                    self.kernel_entry(key, t["ms"], t["plain_ms"],
+                                      t["nbytes"], t["nops"], None)
+
+    def segment_reduce_phase(self) -> None:
+        torch, SR = self.torch, self.SR
+        m, plan = self.mats["pwtk"], self.plans["pwtk"]
+        seg = torch.as_tensor(plan.seg_ids, device=self.dev)
+        gidx = torch.as_tensor(plan.gather_idx, device=self.dev).long()
+        b, n = seg.shape
+        main = None
+        for reduce, dtype in SEGMENT_CASES:
+            for d in (1, SPMM_D):
+                vals, x = data_for(m, dtype, None if d == 1 else d)
+                elem = self.eng.reorder_elementwise(plan, vals, reduce=reduce,
+                                                    device=self.dev)
+                xg = torch.as_tensor(x, device=self.dev)[gidx]
+                term = elem * xg if d == 1 else elem[..., None] * xg
+                for op in (7, -1):
+                    got = SR.segment_reduce(term, seg, op, reduce)
+                    want = SR.segment_reduce_plain(term, seg, op, reduce)
+                    self.held("segment_reduce", got, want,
+                              f"pwtk blocks D={d} op={op} {reduce}/"
+                              f"{np.dtype(dtype).name}")
+                log(f"[kernels] segment_reduce pwtk blocks ({b} x {n}) D={d} "
+                    f"{reduce}/{np.dtype(dtype).name}: op_flag 7 and "
+                    "FULL_REDUCE bitwise equal to the plain version")
+                if (reduce, dtype) == ("add", np.float32):
+                    timing = self.segment_reduce_time(term, seg)
+                    if d == SPMM_D:
+                        main = term
+                del term, xg, elem
+        self.zero_counts()
+        out = self.sr_op(main, seg, 7, "add")
+        counts = self.read_counts()
+        check(counts["segment_reduce"] == 1 and out.shape == main.shape,
+              f"segment_reduce_op launched {counts['segment_reduce']} "
+              "kernels, expected 1")
+        self.kernel_entry("segment_reduce", *timing, None)   # D = 16's
+
+    def segment_reduce_time(self, term, seg):
+        SR = self.SR
+        ms = device_ms(lambda: SR.segment_reduce(term, seg, 7, "add"))
+        plain_ms = device_ms(
+            lambda: SR.segment_reduce_plain(term, seg, 7, "add"), reps=3)
+        es = term.element_size()
+        nbytes = 2 * term.numel() * es + seg.numel() * 4
+        nops = term.numel() * 7
+        bound_ms, by = bound(nbytes, nops)
+        log(f"[time] {self.tag} segment_reduce pwtk blocks "
+            f"{tuple(term.shape)} float32 add op_flag 7: {ms:.4f} ms vs "
+            f"bound {bound_ms:.4f} ms ({nbytes} B; {nops} ops), "
+            f"{bound_ms / ms:.3f} of the bound; plain version "
+            f"{plain_ms:.4f} ms; no single PyTorch call computes it")
+        return ms, plain_ms, nbytes, nops
+
+    def gather_cases(self):
+        """(metadata, ls, stream) of the webbase plan's window blocks: its
+        launches of ls 1, 2, 4 and 32 per class and fused (the fused section
+        runs at the section-wide ls 32), and the ls-1 launches once more in
+        stream mode (window 0 copied); and the fused section's metadata."""
+        ir, plan = self.ir, self.plans["webbase-1M"]
+        cases, section = [], None
+        for fused in (False, True):
+            for cm in self.kernel_launches(plan, fused, False):
+                la = cm.launch
+                if la.gather == ir.COALESCED or la.ls_flag not in GATHER_LS:
+                    continue
+                cases.append((cm, la.ls_flag, la.stream))
+                if la.ls_flag == 1 and not la.stream:
+                    cases.append((cm, 1, True))
+                if fused and (section is None or cm.seg.shape[0]
+                              > section.seg.shape[0]):
+                    section = cm
+        return cases, section
+
+    def gather_vload_phase(self) -> None:
+        torch, GV, ir = self.torch, self.GV, self.ir
+        m, plan = self.mats["webbase-1M"], self.plans["webbase-1M"]
+        n = plan.lane_width
+        cases, cm = self.gather_cases()
+        seen = {(ls, stream) for _, ls, stream in cases}
+        for ls in GATHER_LS:
+            check((ls, False) in seen, f"no webbase window launch of ls {ls}")
+        check((1, True) in seen, "no stream gather_vload case")
+        views = {}
+        for dtype in (np.float32, np.int32):
+            for d in (1, SPMM_D):
+                _, x = data_for(m, dtype, None if d == 1 else d)
+                xd = torch.as_tensor(x, device=self.dev)
+                view = self.eng._pad_gathered(plan, xd).contiguous()
+                views[dtype, d] = view
+                for cm, ls, stream in cases:
+                    got = GV.gather_vload(view, cm.win, cm.slot, cm.off,
+                                          ls=ls, stream=stream)
+                    want = GV.gather_vload_plain(view, cm.win, cm.slot,
+                                                 cm.off, ls=ls, stream=stream)
+                    self.held("gather_vload", got, want,
+                              f"webbase blocks ls={ls} stream={stream} D={d} "
+                              f"{np.dtype(dtype).name}")
+                log(f"[kernels] gather_vload webbase window blocks D={d} "
+                    f"{np.dtype(dtype).name}: {len(cases)} launches (ls "
+                    f"{sorted({c[1] for c in cases})}, stream) bitwise equal "
+                    "to the plain version")
+        # the entry point on the fused section (ls 32), float32, D = 1
+        check(cm is not None and cm.launch.ls_flag == max(GATHER_LS),
+              "no fused webbase window section of ls 32")
+        ls = max(GATHER_LS)
+        for d in (1, SPMM_D):
+            view = views[np.float32, d]
+            if d == 1:
+                self.zero_counts()
+                out = self.gv_op(view, cm.win, cm.slot, cm.off, ls)
+                counts = self.read_counts()
+                check(counts["gather_vload"] == 1
+                      and out.shape == cm.slot.shape,
+                      f"gather_vload_op launched {counts['gather_vload']} "
+                      "kernels, expected 1")
+            rows = (torch.gather(cm.win.long(), 1, cm.slot.long()) * n
+                    + cm.off.long())
+            flat = view.reshape((-1,) + tuple(view.shape[2:]))
+            if d == 1:
+                lib = lambda: torch.take(flat, rows)      # noqa: E731
+            else:
+                elems = (rows[..., None] * d
+                         + torch.arange(d, device=self.dev))
+                lib = lambda: torch.take(flat, elems)     # noqa: E731
+            check(same_bits(lib(), GV.gather_vload(view, cm.win, cm.slot,
+                                                   cm.off, ls=ls)),
+                  "torch.take disagrees with gather_vload")
+            ms = device_ms(lambda: GV.gather_vload(view, cm.win, cm.slot,
+                                                   cm.off, ls=ls))
+            plain_ms = device_ms(lambda: GV.gather_vload_plain(
+                view, cm.win, cm.slot, cm.off, ls=ls), reps=3)
+            lib_ms = device_ms(lib)
+            used = torch.zeros(cm.win.shape, dtype=torch.bool,
+                               device=self.dev).scatter_(1, cm.slot.long(),
+                                                         True)
+            lanes = cm.slot.numel()
+            nbytes = (int(used.sum()) * 4 + lanes * 8
+                      + int(torch.unique(rows).numel()) * d * 4
+                      + lanes * d * 4)
+            bound_ms, _ = bound(nbytes)
+            log(f"[time] {self.tag} gather_vload webbase fused section "
+                f"({cm.slot.shape[0]} blocks, ls {ls}) float32 D={d}: "
+                f"{ms:.4f} ms vs bound {bound_ms:.4f} ms ({nbytes} B), "
+                f"{bound_ms / ms:.3f} of the bound; plain version "
+                f"{plain_ms:.4f} ms; torch.take on the flat view "
+                f"(yardstick) {lib_ms:.4f} ms")
+            if d == 1:
+                self.kernel_entry("gather_vload", ms, plain_ms, nbytes, 0.0,
+                                  lib_ms)
+
+    def moe_row_ids(self) -> np.ndarray:
+        """Token ids of one MoE layer's dispatch, sorted by expert as
+        ``models/moe.py`` sorts them: top-k of random router logits."""
+        rng = np.random.default_rng(SEED)
+        t, e, k = MOE["tokens"], MOE["num_experts"], MOE["top_k"]
+        logits = rng.standard_normal((t, e)).astype(np.float32)
+        eidx = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+        order = np.argsort(eidx.reshape(-1), kind="stable")
+        return ((np.arange(t * k) // k)[order]).astype(np.int32)
+
+    def row_gather_phase(self) -> None:
+        torch, RG = self.torch, self.RG
+        t, dm, dtile = MOE["tokens"], MOE["d_model"], MOE["d_tile"]
+        ids = torch.as_tensor(self.moe_row_ids(), device=self.dev)
+        rng = np.random.default_rng(SEED + 2)
+        x = torch.as_tensor(rng.standard_normal((t, dm)).astype(np.float32),
+                            device=self.dev)
+        srcs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            src = torch.cat([x.to(dtype), torch.zeros((1, dm), dtype=dtype,
+                                                      device=self.dev)])
+            srcs[dtype] = src
+            got = RG.row_gather(src, ids, d_tile=dtile)
+            self.held("row_gather", got, RG.row_gather_plain(src, ids),
+                      f"qwen3-moe dispatch {dtype}")
+            log(f"[kernels] row_gather qwen3-moe-235b-a22b dispatch "
+                f"({ids.numel()} rows of {dm}, {dtype}): bitwise equal to the "
+                "plain version")
+        self.zero_counts()
+        out = self.rg_op(srcs[torch.bfloat16], ids, dtile)
+        counts = self.read_counts()
+        check(counts["row_gather"] == 1 and out.shape == (ids.numel(), dm),
+              f"row_gather_op launched {counts['row_gather']} kernels, "
+              "expected 1")
+        distinct = int(torch.unique(ids).numel())
+        for dtype, src in srcs.items():
+            ms = device_ms(lambda: RG.row_gather(src, ids, d_tile=dtile))
+            plain_ms = device_ms(lambda: RG.row_gather_plain(src, ids))
+            lib_ms = device_ms(lambda: torch.index_select(src, 0, ids))
+            check(same_bits(torch.index_select(src, 0, ids),
+                            RG.row_gather(src, ids, d_tile=dtile)),
+                  "index_select disagrees with row_gather")
+            es = src.element_size()
+            nbytes = ids.numel() * 4 + (distinct + ids.numel()) * dm * es
+            bound_ms, _ = bound(nbytes)
+            log(f"[time] {self.tag} row_gather qwen3-moe dispatch {dtype} "
+                f"({ids.numel()} x {dm}, d_tile {dtile}): {ms:.4f} ms vs "
+                f"bound {bound_ms:.4f} ms ({nbytes} B), {bound_ms / ms:.3f} "
+                f"of the bound; plain version {plain_ms:.4f} ms; "
+                f"index_select (yardstick) {lib_ms:.4f} ms")
+            if dtype == torch.bfloat16:
+                self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0,
+                                  lib_ms)
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        self.build_kernels()
+        self.make_plans()
+        self.stage_a_phase()
+        self.main_paths()
+        self.matvec_many_phase()
+        self.segment_reduce_phase()
+        self.gather_vload_phase()
+        self.row_gather_phase()
+        self.main_timings()
+        self.stage_a_timings()
+        for key, c in self.compared.items():
+            check(c > 0, f"{key} was never compared with its plain version")
+            check(self.main_counts[key] > 0,
+                  f"{key} was never launched on its main path")
+        log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"kernels": [self.line[k] for k in self.wrappers]}))
 
 
 def main() -> None:
@@ -254,19 +906,10 @@ def main() -> None:
              "CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.core import engine as eng
-        from repro_torch.core import ir
-        from repro_torch.core.apps import SpMV
-        from repro_torch.core.plan import CostModel, build_plan
-        from repro_torch.core.seed import spmv_seed
-        from repro_torch.kernels.unroll_spmv import kernel as K
-        from repro_torch.kernels.unroll_spmv import ops
-        from repro_torch.sparse import generators as G
+        import repro_torch.core.spmm  # noqa: F401
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script ({e})")
     dev = torch.device("cuda", torch.cuda.current_device())
-
-    # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -276,246 +919,7 @@ def main() -> None:
     log(card)
     log(f"[device] {kind}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; nvidia-smi: {card}")
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    K.library()
-    log(f"[build] stage-A kernels ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {K.library.build_seconds:.2f} s)")
-    for line in K.library.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-
-    # ---- matrices and plans (host)
-    mats, plans = {}, {}
-    for name, spec in MATRICES.items():
-        t0 = time.perf_counter()
-        m = mats[name] = make_matrix(G, spec)
-        t1 = time.perf_counter()
-        plans[name] = build_plan(spmv_seed(), {"row": m.rows, "col": m.cols},
-                                 m.shape[0], m.shape[1],
-                                 CostModel(lane_width=128))
-        p = plans[name]
-        fb = sum(c.num_blocks for c in p.classes if c.ls_flag == 0)
-        log(f"[matrix] {name}: {m.shape[0]} rows, {m.nnz} nnz, "
-            f"{p.num_blocks} blocks ({fb} gather-fallback, "
-            f"{fb / p.num_blocks:.4f}), {p.stats.num_classes} classes; "
-            f"generate {t1 - t0:.2f} s, build_plan "
-            f"{time.perf_counter() - t1:.2f} s")
-        for fused in (True, False):
-            t = ir.lower(p, backend="cuda", fused=fused, coalesce=True)
-            log(f"[matrix] {name}: cuda fused={fused} coalesce=True -> "
-                f"{len(t.launches)} launches, coalesced fraction "
-                f"{ir.coalesced_fraction(t):.4f}; torch form "
-                f"{ir.coalesce_stats(p, fused=fused)}")
-
-    # ---- 3. kernel phases: each kernel bitwise against its plain version
-    max_err = {k: 0.0 for k in K.KERNELS}
-    compared = {k: 0 for k in K.KERNELS}
-    for name, plan in plans.items():
-        lowerings = {}
-        for fused in (True, False):
-            for coalesce in (False, True):
-                tree = ir.lower(plan, backend="cuda", fused=fused,
-                                coalesce=coalesce)
-                lowerings[fused, coalesce] = [
-                    cm for cm in ops.stage_launch_meta(plan, tree.launches,
-                                                       dev)
-                    if cm.launch.gather != ir.FALLBACK]
-        for reduce, dtype in SEMIRINGS:
-            vals, x = data_for(mats[name], dtype)
-            xd = torch.as_tensor(x, device=dev)
-            elem = eng.reorder_elementwise(plan, vals, reduce=reduce,
-                                           device=dev)
-            for (fused, coalesce), metas in lowerings.items():
-                for cm in metas:
-                    key, err = compare_launch(K, ir, cm, xd, elem, reduce)
-                    max_err[key] = max(max_err[key], err)
-                    compared[key] += 1
-                    check(err == 0.0, f"{key} differs from its plain version "
-                          f"({name} fused={fused} coalesce={coalesce} "
-                          f"{reduce}/{np.dtype(dtype).name} launch "
-                          f"[{cm.launch.start}, {cm.launch.stop}) "
-                          f"op={cm.launch.op_flag}; max abs err {err})")
-                log(f"[kernels] {name} fused={fused} coalesce={coalesce} "
-                    f"{reduce}/{np.dtype(dtype).name}: {len(metas)} kernel "
-                    "launches bitwise equal to the plain versions")
-    for key in K.KERNELS:
-        check(compared[key] > 0, f"{key} was never compared")
-
-    # ---- 4. main path
-    apps, runs = {}, []
-    main_counts = {k: 0 for k in K.KERNELS}
-    for name, m in mats.items():
-        vals, x = data_for(m, np.float32)
-        xd = torch.as_tensor(x, device=dev)
-        oracle = np.zeros(m.shape[0], np.float64)
-        np.add.at(oracle, m.rows, vals.astype(np.float64)
-                  * x.astype(np.float64)[m.cols])
-        for coalesce in (False, True):
-            t0 = time.perf_counter()
-            app = SpMV.from_coo(m.rows, m.cols, vals, m.shape,
-                                backend="cuda", fused=True,
-                                coalesce=coalesce, device="cuda")
-            build_s = time.perf_counter() - t0
-            apps[name, coalesce] = app
-            for fn in K.KERNELS.values():
-                fn.launches = 0
-            y = app.matvec(xd)
-            torch.cuda.synchronize()
-            counts = {k: fn.launches for k, fn in K.KERNELS.items()}
-            for k, c in counts.items():
-                main_counts[k] += c
-            tree = app._run.tree
-            named = {"unroll_spmv.dense_slice" if la.gather == ir.COALESCED
-                     else "unroll_spmv.window"
-                     for la in tree.launches if la.gather != ir.FALLBACK}
-            for k in named:
-                check(counts[k] > 0, f"{k} named by the lowering of {name} "
-                      f"coalesce={coalesce} but never launched")
-            check(tuple(y.shape) == (m.shape[0],) and y.dtype ==
-                  torch.float32, f"bad output {tuple(y.shape)} {y.dtype}")
-            yh = y.cpu().numpy()
-            check(bool(np.isfinite(yh).all()), "non-finite output")
-            rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
-            check(rel <= REL_ERR_LIMIT, f"{name} coalesce={coalesce}: rel "
-                  f"err {rel:.3e} vs the float64 oracle")
-            torch_run = eng.make_executor(app.plan, {"value": vals},
-                                          backend="torch", fused=True,
-                                          coalesce=coalesce, device=dev)
-            y_torch = torch_run({"x": xd}, torch.zeros_like(y))
-            torch.cuda.synchronize()
-            check(torch.equal(y.view(torch.int32),
-                              y_torch.view(torch.int32)),
-                  f"{name} coalesce={coalesce}: cuda backend differs from "
-                  "the torch backend")
-            runs.append(dict(matrix=name, coalesce=coalesce,
-                             launches=len(tree.launches), counts=counts,
-                             rel_err=rel, build_s=build_s, x=xd,
-                             torch_run=torch_run))
-            log(f"[main] {name} fused=True coalesce={coalesce}: "
-                f"{len(tree.launches)} launches, kernel launches {counts}, "
-                f"max rel err vs float64 oracle {rel:.3e}, bitwise equal "
-                f"to the torch backend; from_coo {build_s:.2f} s")
-    for r in runs:
-        if r["matrix"] == "webbase-1M" and not r["coalesce"]:
-            check(r["counts"]["unroll_spmv.window"] > 0,
-                  "window kernel not launched on webbase-1M coalesce=False")
-        if r["matrix"] == "pwtk" and r["coalesce"]:
-            check(r["counts"]["unroll_spmv.dense_slice"] > 0,
-                  "dense-slice kernel not launched on pwtk coalesce=True")
-
-    # ---- 5. timings
-    tag = f"[{card}]"
-    for r in runs:
-        app = apps[r["matrix"], r["coalesce"]]
-        xd = r["x"]
-        y0 = torch.zeros(app.shape[0], device=dev)
-        stage_a = app._run.sweep_body.stage_a
-        r["matvec_ms"] = host_ms(lambda: app.matvec(xd))
-        r["matvec_dev_ms"] = device_ms(lambda: app.matvec(xd))
-        r["stage_a_dev_ms"] = device_ms(lambda: stage_a({"x": xd}))
-        r["torch_ms"] = host_ms(lambda: r["torch_run"]({"x": xd}, y0))
-        log(f"[time] {tag} {r['matrix']} coalesce={r['coalesce']}: "
-            f"matvec cuda {r['matvec_ms']:.4f} ms end to end, "
-            f"{r['matvec_dev_ms']:.4f} ms of device time (stage A "
-            f"{r['stage_a_dev_ms']:.4f} ms); torch backend "
-            f"{r['torch_ms']:.4f} ms end to end")
-        prof = profile_breakdown(lambda: app.matvec(xd))
-        if prof is None:
-            log(f"[profile] {tag} {r['matrix']} coalesce={r['coalesce']}: "
-                "no device time recorded (not measured)")
-            continue
-        wall_ms, busy_ms, top = prof
-        log(f"[profile] {tag} {r['matrix']} coalesce={r['coalesce']}: "
-            f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall per "
-            f"matvec under the profiler (idle share <= "
-            f"{1 - busy_ms / wall_ms:.3f})")
-        for kname, kms, kcount in top:
-            log(f"[profile]   {kms:.4f} ms in {kcount} launches: {kname}")
-    library_ms = {}
-    for name, m in mats.items():
-        vals, x = data_for(m, np.float32)
-        indptr = np.r_[0, np.cumsum(np.bincount(m.rows,
-                                                minlength=m.shape[0]))]
-        a_csr = torch.sparse_csr_tensor(
-            torch.as_tensor(indptr, device=dev),
-            torch.as_tensor(m.cols, device=dev),
-            torch.as_tensor(vals, device=dev), size=m.shape)
-        xd = torch.as_tensor(x, device=dev)
-        y_lib = (a_csr @ xd).cpu().numpy()
-        y_ref = apps[name, False].matvec(xd).cpu().numpy()
-        check(np.allclose(y_lib, y_ref, rtol=1e-4, atol=1e-4),
-              f"cuSPARSE disagrees with the port on {name}")
-        library_ms[name] = device_ms(lambda: a_csr @ xd)
-        lib_host = host_ms(lambda: a_csr @ xd)
-        log(f"[time] {tag} {name}: cuSPARSE SpMV (torch.sparse_csr_tensor "
-            f"@ x, the yardstick) {library_ms[name]:.4f} ms of device time, "
-            f"{lib_host:.4f} ms end to end")
-
-    # each kernel on the main path: its launches of one matvec, timed as a
-    # sequence, beside the plain versions and the bound
-    representative = {"unroll_spmv.window": ("webbase-1M", False),
-                      "unroll_spmv.dense_slice": ("pwtk", True)}
-    kernels_line = []
-    for key, (name, coalesce) in representative.items():
-        app = apps[name, coalesce]
-        plan = app.plan
-        xd = next(r["x"] for r in runs if r["matrix"] == name)
-        elem = eng.reorder_elementwise(plan, data_for(mats[name],
-                                                      np.float32)[0],
-                                       device=dev)
-        metas = [cm for cm in app._run.sweep_body.stage_a.launch_meta
-                 if cm.launch.gather != ir.FALLBACK
-                 and (cm.launch.gather == ir.COALESCED)
-                 == (key == "unroll_spmv.dense_slice")]
-        lanes = torch.empty((plan.num_blocks, plan.lane_width), device=dev)
-
-        def run_all(plain=False, metas=metas, lanes=lanes, xd=xd,
-                    elem=elem, plan=plan):
-            for cm in metas:
-                s = slice(cm.launch.start, cm.launch.stop)
-                if plain:
-                    lanes[s] = (K.dense_slice_stage_a_plain(
-                        cm.starts, [xd], [elem[s]], cm.local, cm.seg,
-                        op=cm.launch.op_flag, reduce="add",
-                        full_flags=cm.full)
-                        if cm.launch.gather == ir.COALESCED else
-                        K.window_stage_a_plain(
-                            cm.win, [xd], [elem[s]], cm.slot, cm.off,
-                            cm.seg, op=cm.launch.op_flag,
-                            stream=cm.launch.stream, reduce="add",
-                            full_flags=cm.full))
-                else:
-                    ops.run_launch(plan, cm, [xd], [elem[s]], out=lanes[s])
-
-        ms = device_ms(run_all)
-        plain_ms = device_ms(lambda: run_all(plain=True), reps=5)
-        nbytes = nops = 0
-        for cm in metas:
-            b, o = launch_bytes_ops(cm)
-            nbytes += b
-            nops += o
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_OPS_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        run = next(r for r in runs if r["matrix"] == name
-                   and r["coalesce"] == coalesce)
-        kernels_line.append({
-            "name": key, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[key], "launches": main_counts[key],
-            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        log(f"[time] {tag} {key} on {name} coalesce={coalesce}: "
-            f"{len(metas)} launches/matvec (main-path counter "
-            f"{run['counts'][key]}), {ms:.4f} ms vs bound {bound_ms:.4f} ms "
-            f"({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; {nops} ops), "
-            f"{bound_ms / ms:.3f} of the bound; plain version "
-            f"{plain_ms:.4f} ms; no single PyTorch call computes it")
-
-    log(json.dumps({"kernels": kernels_line}))
+    Smoke(dev, card, kind).run()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

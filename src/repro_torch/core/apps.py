@@ -2,14 +2,15 @@
 
 * :class:`SpMV` — COO sparse matrix-vector product (paper Alg. 5).  The plan
   is built once per matrix (access arrays immutable); ``matvec`` runs the
-  executor over the mutable ``x`` with a cached per-dtype zero ``y_init``.
+  executor over the mutable ``x`` with a cached per-dtype zero ``y_init``,
+  and ``matvec_many`` runs it once over ``S`` stacked vectors.
 
 A port of ``SpMV`` from the JAX package's ``core/apps.py``: ``from_coo``,
-``from_csr`` and ``matvec``.  The tuner (``backend="auto"`` / ``tune=True``),
-sharded execution (``mesh=`` / ``shards=``), the plan cache
-(``plan_cache_dir=``), ``matvec_many`` and ``report()`` are later slices of
-the port; asking for one raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+``from_csr``, ``matvec`` and ``matvec_many``.  The tuner (``backend="auto"``
+/ ``tune=True``), sharded execution (``mesh=`` / ``shards=``), the plan
+cache (``plan_cache_dir=``) and ``report()`` are later slices of the port;
+asking for one raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item.
 """
 from __future__ import annotations
 
@@ -22,12 +23,44 @@ from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
 from repro_torch.core.plan import BlockPlan, CostModel, build_plan
 from repro_torch.core.seed import spmv_seed
+from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
+
+# Batch-size bucket ladder of the batched entry points (the JAX package's
+# ``core/graphs.py`` ``BATCH_BUCKETS``): a batch of S rows is padded up to
+# the next rung by replicating its last row, so distinct arrival counts
+# share one batched shape.
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
+
+
+def _check_ported(backend, tune, mesh, shards, plan_cache_dir) -> None:
+    """Raise for the ``from_coo`` options that later slices port."""
+    if backend == "auto" or tune:
+        raise _not_ported("the tuner (backend='auto' / tune=True)",
+                          "queue 1, item 7")
+    if mesh is not None or shards is not None:
+        raise _not_ported("sharded execution (mesh= / shards=)",
+                          "queue 1, items 3.4 and 10")
+    if plan_cache_dir is not None:
+        raise _not_ported("the plan cache (plan_cache_dir=)",
+                          "queue 1, item 7")
+
+
+def bucket_size(n: int, ladder: tuple = BATCH_BUCKETS) -> int:
+    """Round a batch count up the bucket ladder; above the top rung, up to
+    a multiple of it."""
+    if n <= 0:
+        raise ValueError(f"batch count must be positive, got {n}")
+    for b in ladder:
+        if n <= b:
+            return int(b)
+    top = int(ladder[-1])
+    return ((n + top - 1) // top) * top
 
 
 @dataclasses.dataclass
@@ -42,6 +75,9 @@ class SpMV:
     # cached zero y_init per dtype: repeated matvecs share one device
     # tensor instead of allocating a fresh zeros per call
     _y0: dict = dataclasses.field(default_factory=dict, repr=False)
+    # distinct (S, dtype) shapes matvec_many has run
+    _batched_shapes: set = dataclasses.field(default_factory=set,
+                                             repr=False)
 
     @classmethod
     def from_coo(cls, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -66,15 +102,7 @@ class SpMV:
         indices or non-finite values, ``"repair"`` drops or combines them
         into a canonical matrix (report on ``.validation``), ``"off"`` skips
         the checks."""
-        if backend == "auto" or tune:
-            raise _not_ported("the tuner (backend='auto' / tune=True)",
-                              "queue 1, item 7")
-        if mesh is not None or shards is not None:
-            raise _not_ported("sharded execution (mesh= / shards=)",
-                              "queue 1, items 3.4 and 10")
-        if plan_cache_dir is not None:
-            raise _not_ported("the plan cache (plan_cache_dir=)",
-                              "queue 1, item 7")
+        _check_ported(backend, tune, mesh, shards, plan_cache_dir)
         dev = eng.resolve_device(device)
         with _trace.span("app.spmv.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
@@ -135,8 +163,36 @@ class SpMV:
                     self.shape[0], dtype=x.dtype, device=self.device)
         return self._run({"x": x}, y_init)
 
-    def matvec_many(self, xs, bucket: bool = True):
-        raise _not_ported("SpMV.matvec_many", "queue 1, item 3.2")
+    def matvec_many(self, xs, bucket: bool = True) -> torch.Tensor:
+        """Batched matvec ``(S, n) -> (S, m)``: ONE run of the executor with
+        the ``S`` vectors as a trailing lane axis (``x`` as ``(n, S)``, the
+        SpMM program), where the reference vmaps the 1-D program.  Every
+        lane of column ``i`` runs exactly the arithmetic of ``matvec(xs[i])``
+        in the same order, so row ``i`` is bitwise equal to it.
+        ``bucket=True`` pads ``S`` up :data:`BATCH_BUCKETS` by replicating
+        the last row (sliced off the result); each distinct padded shape
+        counts once in the ``spmv.batched_shapes`` counter."""
+        if isinstance(xs, torch.Tensor):
+            if xs.device != self.device:
+                raise ValueError(f"xs is on {xs.device}, the SpMV on "
+                                 f"{self.device}")
+        else:
+            xs = torch.as_tensor(np.asarray(xs), device=self.device)
+        if xs.ndim != 2 or xs.shape[1] != self.shape[1]:
+            raise ValueError(
+                f"matvec_many expects (S, {self.shape[1]}) inputs, "
+                f"got {tuple(xs.shape)}")
+        n = xs.shape[0]
+        if bucket and bucket_size(n) > n:
+            xs = torch.cat([xs, xs[-1:].expand(bucket_size(n) - n, -1)])
+        key = (xs.shape[0], xs.dtype)
+        if key not in self._batched_shapes:
+            self._batched_shapes.add(key)
+            _metrics.inc("spmv.batched_shapes")
+        x = xs.T.contiguous()
+        y0 = torch.zeros((self.shape[0], xs.shape[0]), dtype=x.dtype,
+                         device=self.device)
+        return self._run({"x": x}, y0).T[:n].contiguous()
 
     def report(self):
         raise _not_ported("SpMV.report()", "queue 1, item 3.5")

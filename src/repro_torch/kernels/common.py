@@ -107,11 +107,13 @@ def ladder_tail(term: torch.Tensor, seg: torch.Tensor, op_flag: int,
                 reduce: str, full_flags: torch.Tensor | None) -> torch.Tensor:
     """The tail every stage-A form shares: the masked ladder of depth
     ``op_flag`` (or the halving-tree full reduce), then, in a fused mixed
-    section, the full reduce where a block's ``full_flags`` entry is set."""
+    section, the full reduce where a block's ``full_flags`` entry is set.
+    The (Bc,) flags select whole blocks, over every trailing lane axis."""
     red = segmented_reduce_lanes(term, seg, op_flag, reduce)
     if full_flags is not None:
         native = segmented_reduce_lanes(term, seg, FULL_REDUCE, reduce)
-        red = torch.where((full_flags != 0)[:, None], native, red)
+        red = torch.where(expand_trailing(full_flags != 0, term.ndim),
+                          native, red)
     return red
 
 

@@ -1,7 +1,8 @@
 """Stage A of the ``"cuda"`` backend: walk the lowered launch list.
 
 ``make_stage_a(plan, elem_exec, device, launches=...)`` returns
-``fn(mutable) -> (B, N)`` lanes in exec-block order, as the JAX package's
+``fn(mutable) -> (B, N, ...)`` lanes in exec-block order (the gathered
+arrays' trailing lane axes ride along), as the JAX package's
 ``kernels/unroll_spmv/ops.py::make_stage_a`` does for its Pallas backend:
 
 * gather-fallback launches stay torch ops: the native gather, the combine,
@@ -88,15 +89,17 @@ def stage_launch_meta(plan: BlockPlan, launches: list[ir.Launch],
 def run_launch(plan: BlockPlan, cm: LaunchMeta, gathered: list,
                elem: list, out: torch.Tensor | None = None,
                rows_per_step: int = 1) -> torch.Tensor:
-    """Stage A of one launch into ``out`` (its (Bc, N) rows of the lanes
-    tensor).  ``gathered`` are the flat mutable arrays in seed order,
-    ``elem`` the launch's (Bc, N) elementwise blocks."""
+    """Stage A of one launch into ``out`` (its (Bc, N, ...) rows of the
+    lanes tensor).  ``gathered`` are the (data_len, ...) mutable arrays in
+    seed order, ``elem`` the launch's (Bc, N) elementwise blocks."""
     seed = plan.seed
     launch = cm.launch
     if launch.gather == ir.FALLBACK and seed.gather_index is not None:
         # native gather + ladder as torch ops (the reference's XLA segment)
         vals = {g: arr[cm.gidx] for g, arr in zip(seed.gathered, gathered)}
-        vals.update(zip(seed.elementwise, elem))
+        rank = max(v.ndim for v in vals.values())
+        vals.update((e, common.expand_trailing(v, rank))
+                    for e, v in zip(seed.elementwise, elem))
         return common.write_out(common.ladder_tail(
             seed.combine(vals), cm.seg, launch.op_flag, seed.reduce, cm.full),
             out)
@@ -128,8 +131,9 @@ def make_stage_a(plan: BlockPlan, elem_exec, device: torch.device,
         dtype = functools.reduce(torch.promote_types, [
             *(g.dtype for g in gathered),
             *(elem_exec[e].dtype for e in seed.elementwise)])
-        lanes = torch.empty((plan.num_blocks, plan.lane_width), dtype=dtype,
-                            device=device)
+        trailing = tuple(gathered[0].shape[1:]) if gathered else ()
+        lanes = torch.empty((plan.num_blocks, plan.lane_width) + trailing,
+                            dtype=dtype, device=device)
         for cm in launch_meta:
             s = slice(cm.launch.start, cm.launch.stop)
             elem = [elem_exec[e][s] for e in seed.elementwise]

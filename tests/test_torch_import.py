@@ -38,7 +38,11 @@ def test_no_jax_or_reference_imports(rel):
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys\n"
             "import repro_torch.core.apps, repro_torch.convert\n"
+            "import repro_torch.core.spmm\n"
             "import repro_torch.kernels.unroll_spmv.ops\n"
+            "import repro_torch.kernels.segment_reduce.ops\n"
+            "import repro_torch.kernels.gather_vload.ops\n"
+            "import repro_torch.kernels.moe_dispatch.ops\n"
             "import repro_torch.sparse.generators\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -66,8 +70,11 @@ def test_default_device_raises_without_cuda(backend):
     device they raise instead of running on the CPU."""
     _no_cuda()
     from repro_torch.core.apps import SpMV
+    from repro_torch.core.spmm import SpMM
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SpMV.from_coo(*_coo(), backend=backend)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpMM.from_coo(*_coo(), backend=backend, reduce="min")
     rows, cols, vals, shape = _coo()
     order = np.lexsort((cols, rows))
     indptr = np.r_[0, np.cumsum(np.bincount(rows, minlength=shape[0]))]
@@ -99,6 +106,20 @@ def test_kernel_wrappers_never_take_the_plain_path_on_other_devices():
     with pytest.raises(ValueError, match="no stage-A kernel"):
         K.dense_slice_stage_a(seg[0], [torch.ones(8, device="meta")], [],
                               None, seg, op=0, reduce="add")
+
+
+def test_standalone_wrappers_never_take_the_plain_path_on_other_devices():
+    from repro_torch.kernels.gather_vload.ops import gather_vload_op
+    from repro_torch.kernels.moe_dispatch.ops import row_gather_op
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce_op
+    idx = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    x = torch.ones((2, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="no segment_reduce kernel"):
+        segment_reduce_op(x, idx, 1)
+    with pytest.raises(ValueError, match="no gather_vload kernel"):
+        gather_vload_op(x, idx[:, :1], idx, idx, ls=1)
+    with pytest.raises(ValueError, match="no row_gather kernel"):
+        row_gather_op(x[0], idx[0])
 
 
 def _run_smoke(script: Path, cwd: Path, fake_card: bool):

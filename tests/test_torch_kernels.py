@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.core import engine as reng
+from repro.core import feature_table as rft
 from repro.core import ir as rir
 from repro.core.plan import CostModel as RCostModel
 from repro.core.plan import build_plan as rbuild_plan
@@ -32,6 +33,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import ir
 from repro_torch.core.plan import CostModel, build_plan
 from repro_torch.core.seed import CodeSeed, spmv_seed
+from repro_torch.kernels import common
 from repro_torch.kernels.unroll_spmv import kernel as K
 from repro_torch.kernels.unroll_spmv import ops
 
@@ -205,10 +207,46 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="one dtype"):
         K.window_stage_a(win, [x], [torch.ones((2, 8), dtype=torch.int32)],
                          idx, idx, seg, op=0, stream=False, reduce="add")
-    with pytest.raises(NotImplementedError, match="trailing lane axes"):
-        K.window_stage_a(win, [torch.ones((8, 3))], [], idx, idx, seg, op=0,
-                         stream=False, reduce="add")
+    with pytest.raises(ValueError, match="one trailing lane shape"):
+        K.window_stage_a(win, [torch.ones((8, 3)), torch.ones((8, 4))], [],
+                         idx, idx, seg, op=0, stream=False, reduce="add")
     with pytest.raises(TypeError, match="float32 or int32"):
         K.dense_slice_stage_a(torch.zeros(2, dtype=torch.int32),
                               [x.double()], [], None, seg, op=0,
                               reduce="add")
+
+
+def _random_segments(rng, b, n):
+    seg = np.zeros((b, n), dtype=np.int32)
+    for bi in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, n), size=3, replace=False))
+        for c in cuts:
+            seg[bi, c:] += 1
+    return seg
+
+
+@pytest.mark.parametrize("reduce,dtype", [("add", np.int32),
+                                          ("min", np.int32),
+                                          ("add", np.float32)])
+@pytest.mark.parametrize("bc,n,d", [(4, 8, 3), (8, 8, 3), (16, 16, 1)])
+def test_ladder_tail_full_flags_select_whole_blocks(bc, n, d, reduce, dtype):
+    """A fused mixed section's (Bc,) full flags select whole blocks of
+    (Bc, N, D) lanes, over every trailing column: the reference's rule
+    (``kernels/unroll_spmv/ops.py``, the full mask expanded to the term's
+    rank).  Both ``Bc != N`` and ``Bc == N``."""
+    rng = np.random.default_rng(bc * n * d)
+    shape = (bc, n) + ((d,) if d > 1 else ())
+    term = (rng.integers(-5, 6, shape) if dtype == np.int32
+            else rng.standard_normal(shape)).astype(dtype)
+    seg = _random_segments(rng, bc, n)
+    flags = (np.arange(bc) % 3 == 1).astype(np.int32)
+    red = reng.segmented_reduce(jnp.asarray(term), jnp.asarray(seg), 2,
+                                reduce)
+    native = reng.segmented_reduce(jnp.asarray(term), jnp.asarray(seg),
+                                   rft.FULL_REDUCE, reduce)
+    want = np.asarray(jnp.where(
+        reng._expand_trailing(jnp.asarray(flags != 0)[:, None], term.ndim),
+        native, red))
+    got = common.ladder_tail(torch.as_tensor(term), torch.as_tensor(seg), 2,
+                             reduce, torch.as_tensor(flags)).numpy()
+    _assert_rule(got, want, reduce, dtype)

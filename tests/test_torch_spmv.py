@@ -290,8 +290,6 @@ def test_not_yet_ported_options_raise():
         with pytest.raises(NotImplementedError, match=item):
             SpMV.from_coo(*_args(m), device="cpu", **kw)
     sp = SpMV.from_coo(*_args(m), lane_width=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        sp.matvec_many(np.zeros((2, m.shape[1]), np.float32))
     with pytest.raises(NotImplementedError, match="item 3.5"):
         sp.report()
 
