@@ -46,14 +46,20 @@ result line) if any phase fails:
    output word written once), its plain version's and, where one PyTorch
    call computes the same function, that call's time (``index_select`` for
    ``row_gather``, ``take`` for ``gather_vload``); and cuSPARSE's SpMV and
-   SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks.
+   SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
+7. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+   (every kernel bitwise against its plain version at the edges of the
+   ladder's shapes) in a child process.
 
-The line before the last is the kernels JSON line; the last line is
-``{"ok": true, "device": {...}}``.
+The build phase prints, per kernel, the registers, stack and spilled bytes
+of the compiler's report.  The line before the last is the kernels JSON
+line; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +73,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 REL_ERR_LIMIT = 1e-5
+CARD_TESTS_S = 900             # time limit of the card-test phase
 SEMIRINGS = (("add", np.float32), ("mul", np.float32), ("min", np.int32),
              ("max", np.int32))
 # the two SuiteSparse analogues of the paper's evaluation
@@ -260,6 +267,34 @@ def max_abs_diff(a, b) -> float:
         else float("inf")
 
 
+def ptxas_report(build_log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, stack bytes, spill store + load bytes) per
+    kernel of an ``nvcc -Xptxas -v`` log; the ladder kernels' mangled names
+    are shortened to body, type, reduce, lanes per thread and index."""
+    out, name, stack, spill = [], "?", 0, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"(rows|cols)_kernelI([fid])Li(\d)ELi(\d+)E"
+                              r"\w*?((?:Dense|Window|Rows)Index)", name)
+            if short:
+                body, ty, red, lanes, index = short.groups()
+                red = ("add", "mul", "max", "min")[int(red)]
+                name = f"{body}_kernel<{ty}, {red}, L={lanes}, {index}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), stack, spill))
+            stack = spill = 0
+    return out
+
+
 def bound(nbytes: float, nops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
@@ -408,10 +443,14 @@ class Smoke:
         log(f"[build] {len(libs)} kernel libraries ready in "
             f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
         for name, lib in libs.items():
-            log(f"[build] {name}: nvcc {lib.build_seconds:.2f} s")
-            for line in lib.build_log.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build]   {line.strip()}")
+            kernels = ptxas_report(lib.build_log)
+            regs = [k[1] for k in kernels] or [0]
+            log(f"[build] {name}: nvcc {lib.build_seconds:.2f} s, "
+                f"{len(kernels)} kernels, {min(regs)}-{max(regs)} registers, "
+                f"{sum(k[3] > 0 for k in kernels)} with spills")
+            for kname, nregs, stack, spill in kernels:
+                log(f"[build]   {kname}: {nregs} registers, {stack} B stack, "
+                    f"{spill} B spilled")
 
     def make_plans(self) -> None:
         for name, spec in MATRICES.items():
@@ -876,6 +915,24 @@ class Smoke:
                 self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0,
                                   lib_ms)
 
+    def card_tests(self) -> None:
+        """The ``cuda``-marked tests of ``tests/test_torch_cuda.py`` on this
+        card, in a child process (the kernels are already built)."""
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
+             "no:cacheprovider", "tests/test_torch_cuda.py"], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=CARD_TESTS_S)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0:
+            for line in lines[-40:]:
+                log(f"[tests]   {line}")
+        check(proc.returncode == 0, "tests/test_torch_cuda.py failed on the "
+              f"card (pytest exit {proc.returncode})")
+        log(f"[tests] tests/test_torch_cuda.py on the card: "
+            f"{lines[-1] if lines else '?'} ({time.perf_counter() - t0:.1f} s)")
+
     def run(self) -> None:
         t0 = time.perf_counter()
         self.build_kernels()
@@ -892,6 +949,7 @@ class Smoke:
             check(c > 0, f"{key} was never compared with its plain version")
             check(self.main_counts[key] > 0,
                   f"{key} was never launched on its main path")
+        self.card_tests()
         log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"kernels": [self.line[k] for k in self.wrappers]}))
 

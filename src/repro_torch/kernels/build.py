@@ -4,7 +4,12 @@ Each kernel source (``*/csrc/*.cu``) compiles with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -I kernels/csrc -o lib<name>_<hash>.so
+         -Xcompiler -fPIC -split-compile=0 -Xptxas -v -I kernels/csrc \\
+         -o lib<name>_<hash>.so
+
+``-split-compile=0`` optimises a source's kernels in parallel on every core:
+the ladder sources instantiate a few hundred kernels (type x reduce x lanes
+per thread x index form x D = 1 or not), and it halves their build.
 
 A :class:`Library` is only a description until it is first called: nothing
 is built when a module is imported.  The first call builds (once per hash of
@@ -32,7 +37,8 @@ INCLUDE_DIR = Path(__file__).with_name("csrc")
 # repo-root/build/repro_torch, listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
+              "-Xptxas", "-v")
 
 # ctypes argument codes of the C interfaces
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -8,6 +8,7 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -31,6 +32,10 @@ pytestmark = pytest.mark.cuda
 
 SEMIRINGS = [("add", np.float32), ("mul", np.float32), ("min", np.int32),
              ("max", np.int32)]
+# lane widths: one warp or part of one, a warp and one lane, widths that are
+# not powers of two, and every register count of the ladder up to 1024
+LANES = [8, 16, 24, 32, 33, 64, 96, 128, 256, 1024]
+ROWS = (1, 3, 8)
 
 
 def _cuda() -> torch.device:
@@ -67,7 +72,7 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("reduce,dtype", SEMIRINGS)
-@pytest.mark.parametrize("lane", [16, 24, 128])
+@pytest.mark.parametrize("lane", LANES)
 @pytest.mark.parametrize("gen", ["banded", "powerlaw", "dense"])
 def test_kernels_bitwise_vs_plain(gen, lane, reduce, dtype):
     """Every kernel launch of the fused and per-class lowerings, coalesced
@@ -98,7 +103,7 @@ def test_kernels_bitwise_vs_plain(gen, lane, reduce, dtype):
                     kw["stream"] = la.stream
                     kernel, plain = K.window_stage_a, K.window_stage_a_plain
                 want = plain(*args, **kw)
-                for rows in (1, 3, 8):
+                for rows in ROWS:
                     got = kernel(*args, rows_per_step=rows, **kw)
                     torch.cuda.synchronize()
                     assert torch.equal(_bits(got), _bits(want)), \
@@ -107,14 +112,15 @@ def test_kernels_bitwise_vs_plain(gen, lane, reduce, dtype):
     assert seen, "no kernel launch in the lowering"
 
 
-@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("d", [3, 4, 16, 17, 64])
 @pytest.mark.parametrize("reduce,dtype", SEMIRINGS)
-@pytest.mark.parametrize("lane", [16, 24, 128])
+@pytest.mark.parametrize("lane", LANES)
 @pytest.mark.parametrize("gen", ["banded", "powerlaw"])
 def test_kernels_bitwise_vs_plain_trailing(gen, lane, reduce, dtype, d):
     """Trailing lane axes: every kernel launch of both lowerings on an
-    (n, d) operand against the plain version, and column ``c`` of the
-    launch bitwise equal to the launch on column ``c`` alone."""
+    (n, d) operand against the plain version for several
+    ``rows_per_step`` values, and column ``c`` of the launch bitwise equal
+    to the launch on column ``c`` alone."""
     dev = _cuda()
     plan = _plan(gen, lane)
     m = _matrix(gen)
@@ -145,11 +151,12 @@ def test_kernels_bitwise_vs_plain_trailing(gen, lane, reduce, dtype, d):
                                 cm.seg)
                     kw["stream"] = la.stream
                     kernel, plain = K.window_stage_a, K.window_stage_a_plain
-                got = kernel(*args(xd), rows_per_step=3, **kw)
                 want = plain(*args(xd), **kw)
-                torch.cuda.synchronize()
-                assert torch.equal(_bits(got), _bits(want)), \
-                    (la.gather, la.start, la.op_flag)
+                for rows in ROWS:
+                    got = kernel(*args(xd), rows_per_step=rows, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(got), _bits(want)), \
+                        (la.gather, la.start, la.op_flag, rows)
                 assert got.shape == (la.stop - la.start, lane, d)
                 for c in (0, d - 1):
                     one = kernel(*args(xd[:, c].contiguous()), **kw)
@@ -243,30 +250,108 @@ def _segments(rng, b, n):
     return seg
 
 
-@pytest.mark.parametrize("op_flag", [0, 3, 7, common.FULL_REDUCE])
-@pytest.mark.parametrize("trailing", [(), (3,), (16,)])
+def _depths(n):
+    """Every ladder depth from 0 to ceil(log2 n) (and up to 7, the main
+    path's, where that is deeper), then FULL_REDUCE."""
+    return [*range(max(math.ceil(math.log2(n)), 7) + 1), common.FULL_REDUCE]
+
+
+TRAILING = [(), (3,), (4,), (16,), (17,), (64,)]
+
+
+@pytest.mark.parametrize("trailing", TRAILING)
 @pytest.mark.parametrize("reduce,dtype", [("add", torch.float32),
                                           ("mul", torch.float32),
                                           ("min", torch.int32),
                                           ("max", torch.int32),
                                           ("add", torch.float64)])
-@pytest.mark.parametrize("n", [16, 24, 128])
-def test_segment_reduce_bitwise_vs_plain(n, reduce, dtype, trailing,
-                                         op_flag):
+@pytest.mark.parametrize("n", LANES)
+def test_segment_reduce_bitwise_vs_plain(n, reduce, dtype, trailing):
+    """Every depth and ``rows_per_step`` value, bitwise against the plain
+    version."""
     dev = _cuda()
     rng = np.random.default_rng(n)
-    b = 40
+    b = 24
     x = rng.standard_normal((b, n) + trailing)
     x = torch.as_tensor(np.rint(x * 3) if dtype == torch.int32 else x,
                         dtype=dtype, device=dev)
     seg = torch.as_tensor(_segments(rng, b, n), device=dev)
-    want = SR.segment_reduce_plain(x, seg, op_flag, reduce)
     before = SR.segment_reduce.launches
-    for rows in (1, 3, 8):
-        got = SR.segment_reduce(x, seg, op_flag, reduce, rows_per_step=rows)
-        torch.cuda.synchronize()
-        assert torch.equal(_bits(got), _bits(want)), rows
-    assert SR.segment_reduce.launches == before + 3
+    depths = _depths(n)
+    for op_flag in depths:
+        want = SR.segment_reduce_plain(x, seg, op_flag, reduce)
+        for rows in ROWS:
+            got = SR.segment_reduce(x, seg, op_flag, reduce,
+                                    rows_per_step=rows)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want)), (op_flag, rows)
+    assert SR.segment_reduce.launches == before + len(ROWS) * len(depths)
+
+
+def _stage_a_case(form, rng, bc, n, d, dtype, dev, two, local):
+    """Random operands of one stage-A launch: the kernel's positional
+    arguments, less the keyword ones."""
+    rows = bc * n + 3 * n
+    shape = (rows,) if d == 1 else (rows, d)
+
+    def values(shape):
+        v = (rng.integers(-3, 4, shape) if dtype == np.int32
+             else rng.standard_normal(shape)).astype(dtype)
+        return torch.as_tensor(v, device=dev)
+
+    gathered = [values(shape)] + ([values(shape)] if two else [])
+    elem = [values((bc, n))]
+    seg = torch.as_tensor(_segments(rng, bc, n), device=dev)
+    i32 = functools.partial(torch.as_tensor, dtype=torch.int32, device=dev)
+    if form == "dense":
+        starts = i32(rng.integers(0, rows - n + 1, bc))
+        perm = i32(np.stack([rng.permutation(n) for _ in range(bc)])) \
+            if local else None
+        return (starts, gathered, elem, perm, seg)
+    nwin = rows // n
+    win = i32(rng.integers(0, nwin, (bc, 4)))
+    slot = i32(rng.integers(0, 4, (bc, n)))
+    off = i32(rng.integers(0, n, (bc, n)))
+    return (win, gathered, elem, slot, off, seg)
+
+
+@pytest.mark.parametrize("reduce,dtype", SEMIRINGS)
+@pytest.mark.parametrize("form", ["dense", "window"])
+@pytest.mark.parametrize("d", [1, 3, 4, 16, 17, 64])
+@pytest.mark.parametrize("n", [8, 24, 32, 33, 64, 96, 128, 256, 1024])
+def test_stage_a_every_depth_bitwise_vs_plain(n, d, form, reduce, dtype):
+    """Both stage-A kernels on random operands: every depth from 0 to
+    ceil(log2 n) and FULL_REDUCE, with and without the fused mixed
+    section's per-block full flags, one and two gathered operands,
+    permuted and identity slices (dense form), window and stream launches
+    (window form), each ``rows_per_step`` value, bitwise against the plain
+    version."""
+    dev = _cuda()
+    rng = np.random.default_rng(n * 100 + d)
+    bc = 24
+    kernel, plain = {"dense": (K.dense_slice_stage_a,
+                               K.dense_slice_stage_a_plain),
+                     "window": (K.window_stage_a,
+                                K.window_stage_a_plain)}[form]
+    full = torch.as_tensor((rng.random(bc) < 0.3).astype(np.int32),
+                           device=dev)
+    before = kernel.launches
+    launched = 0
+    for variant in (False, True):   # two operands; permuted / stream
+        args = _stage_a_case(form, rng, bc, n, d, dtype, dev, variant,
+                             variant)
+        extra = {"stream": variant} if form == "window" else {}
+        for op in _depths(n):
+            for flags in (None, full):
+                kw = dict(op=op, reduce=reduce, full_flags=flags, **extra)
+                want = plain(*args, **kw)
+                for rows in ROWS:
+                    got = kernel(*args, rows_per_step=rows, **kw)
+                    torch.cuda.synchronize()
+                    launched += 1
+                    assert torch.equal(_bits(got), _bits(want)), \
+                        (variant, op, flags is not None, rows)
+    assert kernel.launches == before + launched
 
 
 @pytest.mark.parametrize("stream", [False, True])
