@@ -36,7 +36,10 @@ result line) if any phase fails:
    1, 2, 4 and 32, and stream; f32 and i32; ``D`` 1 and 16) and
    ``row_gather_op`` at the token dispatch of one qwen3-moe-235b-a22b layer
    (4,096 tokens of ``d_model`` 4,096 plus a zero row, top-8 of 128
-   experts, so 32,768 row ids sorted by expert; bf16 and f32);
+   experts, so 32,768 row ids sorted by expert; bf16 and f32); the timed
+   ``gather_vload`` cases (the fused section at ``D`` 1 and 16 in f32, and
+   16 in bf16) are also held bitwise to their plain version and to
+   ``torch.take``;
 6. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
    clock around the call and a synchronize, median of 20) and in device
    time (CUDA events around back-to-back calls queued behind a spin kernel,
@@ -45,7 +48,8 @@ result line) if any phase fails:
    device time beside its bound (each distinct input word read once, each
    output word written once), its plain version's and, where one PyTorch
    call computes the same function, that call's time (``index_select`` for
-   ``row_gather``, ``take`` for ``gather_vload``); and cuSPARSE's SpMV and
+   ``row_gather``, ``take`` for ``gather_vload``), and for ``row_gather``
+   the time the card takes to write its output alone; and cuSPARSE's SpMV and
    SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
 7. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
@@ -270,7 +274,8 @@ def max_abs_diff(a, b) -> float:
 def ptxas_report(build_log: str) -> list[tuple[str, int, int, int]]:
     """(kernel, registers, stack bytes, spill store + load bytes) per
     kernel of an ``nvcc -Xptxas -v`` log; the ladder kernels' mangled names
-    are shortened to body, type, reduce, lanes per thread and index."""
+    are shortened to body, type, reduce, lanes per thread and index, the
+    row copy's to word size and index policy."""
     out, name, stack, spill = [], "?", 0, 0
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -278,10 +283,17 @@ def ptxas_report(build_log: str) -> list[tuple[str, int, int, int]]:
             name = m.group(1)
             short = re.search(r"(rows|cols)_kernelI([fid])Li(\d)ELi(\d+)E"
                               r"\w*?((?:Dense|Window|Rows)Index)", name)
+            copy = re.search(r"copy_rows_kernelI(h|t|j|5uint2|5uint4)"
+                             r"\w*?(IdRows|WindowLanes)", name)
             if short:
                 body, ty, red, lanes, index = short.groups()
                 red = ("add", "mul", "max", "min")[int(red)]
                 name = f"{body}_kernel<{ty}, {red}, L={lanes}, {index}>"
+            elif copy:
+                word, rows = copy.groups()
+                word = {"h": "1 B", "t": "2 B", "j": "4 B", "5uint2": "8 B",
+                        "5uint4": "16 B"}[word]
+                name = f"copy_rows_kernel<{word} words, {rows}>"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -816,8 +828,11 @@ class Smoke:
         check(cm is not None and cm.launch.ls_flag == max(GATHER_LS),
               "no fused webbase window section of ls 32")
         ls = max(GATHER_LS)
-        for d in (1, SPMM_D):
-            view = views[np.float32, d]
+        views[torch.bfloat16, SPMM_D] = \
+            views[np.float32, SPMM_D].to(torch.bfloat16)
+        for dtype, d in ((np.float32, 1), (np.float32, SPMM_D),
+                         (torch.bfloat16, SPMM_D)):
+            view = views[dtype, d]
             if d == 1:
                 self.zero_counts()
                 out = self.gv_op(view, cm.win, cm.slot, cm.off, ls)
@@ -826,6 +841,12 @@ class Smoke:
                       and out.shape == cm.slot.shape,
                       f"gather_vload_op launched {counts['gather_vload']} "
                       "kernels, expected 1")
+            else:
+                self.held("gather_vload", GV.gather_vload(
+                    view, cm.win, cm.slot, cm.off, ls=ls),
+                    GV.gather_vload_plain(view, cm.win, cm.slot, cm.off,
+                                          ls=ls),
+                    f"webbase fused section D={d} {view.dtype}")
             rows = (torch.gather(cm.win.long(), 1, cm.slot.long()) * n
                     + cm.off.long())
             flat = view.reshape((-1,) + tuple(view.shape[2:]))
@@ -846,13 +867,13 @@ class Smoke:
             used = torch.zeros(cm.win.shape, dtype=torch.bool,
                                device=self.dev).scatter_(1, cm.slot.long(),
                                                          True)
-            lanes = cm.slot.numel()
+            lanes, es = cm.slot.numel(), view.element_size()
             nbytes = (int(used.sum()) * 4 + lanes * 8
-                      + int(torch.unique(rows).numel()) * d * 4
-                      + lanes * d * 4)
+                      + int(torch.unique(rows).numel()) * d * es
+                      + lanes * d * es)
             bound_ms, _ = bound(nbytes)
             log(f"[time] {self.tag} gather_vload webbase fused section "
-                f"({cm.slot.shape[0]} blocks, ls {ls}) float32 D={d}: "
+                f"({cm.slot.shape[0]} blocks, ls {ls}) {view.dtype} D={d}: "
                 f"{ms:.4f} ms vs bound {bound_ms:.4f} ms ({nbytes} B), "
                 f"{bound_ms / ms:.3f} of the bound; plain version "
                 f"{plain_ms:.4f} ms; torch.take on the flat view "
@@ -906,11 +927,15 @@ class Smoke:
             es = src.element_size()
             nbytes = ids.numel() * 4 + (distinct + ids.numel()) * dm * es
             bound_ms, _ = bound(nbytes)
+            out = torch.empty((ids.numel(), dm), dtype=dtype, device=self.dev)
+            write_ms = device_ms(out.zero_)
             log(f"[time] {self.tag} row_gather qwen3-moe dispatch {dtype} "
                 f"({ids.numel()} x {dm}, d_tile {dtile}): {ms:.4f} ms vs "
                 f"bound {bound_ms:.4f} ms ({nbytes} B), {bound_ms / ms:.3f} "
                 f"of the bound; plain version {plain_ms:.4f} ms; "
-                f"index_select (yardstick) {lib_ms:.4f} ms")
+                f"index_select (yardstick) {lib_ms:.4f} ms; writing the "
+                f"output alone (Tensor.zero_) {write_ms:.4f} ms")
+            del out
             if dtype == torch.bfloat16:
                 self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0,
                                   lib_ms)

@@ -29,10 +29,12 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-# headers shared by several kernel sources (the segmented ladder)
+# headers shared by several kernel sources (the segmented ladder, the row
+# copy of the gather kernels)
 INCLUDE_DIR = Path(__file__).with_name("csrc")
 # repo-root/build/repro_torch, listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -52,6 +54,29 @@ def largest_divisor(b: int, r: int) -> int:
     while b % r:
         r -= 1
     return r
+
+
+class RowCopyShape(NamedTuple):
+    """Launch shape of the row copy of ``kernels/csrc/row_copy.cuh``."""
+    width: int      # bytes per access: 16, 8, 4, 2 or 1
+    log_tpl: int    # log2 of the threads that share one row (at most a warp)
+
+
+def row_copy_shape(elem_bytes: int, row_elems: int, *addresses: int
+                   ) -> RowCopyShape:
+    """Shape of a copy of rows of ``row_elems`` elements of ``elem_bytes``
+    bytes between the given base addresses: the widest access that divides
+    the row's bytes and every address, and the least power of two of
+    threads covering a row's words, at most a warp (longer rows are moved
+    in strips of a warp's words)."""
+    row_bytes = elem_bytes * row_elems
+    width = 16
+    while width > 1 and (row_bytes % width
+                         or any(a % width for a in addresses)):
+        width //= 2
+    words = max(1, row_bytes // width)
+    log_tpl = min(5, (words - 1).bit_length())
+    return RowCopyShape(width, log_tpl)
 
 
 def _nvcc() -> str:

@@ -9,8 +9,10 @@ with trailing axes riding along (each lane then takes a whole value row, the
 shape of an embedding-row lookup); stream launches copy window 0.
 
 Where the TPU loads the ``ls`` whole windows and selects with a one-hot
-matmul, each output word here reads its one word of the view; the plain
-version beside it loads the windows and selects
+matmul, each lane here reads its one row of the view, a warp taking the
+lanes of one block (the row copy of ``kernels/csrc/row_copy.cuh``, in the
+access width and shape of :func:`repro_torch.kernels.build.row_copy_shape`);
+the plain version beside it loads the windows and selects
 (:func:`repro_torch.kernels.common.permute_onehot`).  Both move words, so
 they agree bit for bit in every dtype.
 
@@ -31,7 +33,7 @@ P, I, LL = build.P, build.I, build.LL
 
 library = build.Library(
     "gather_vload", Path(__file__).with_name("csrc") / "gather_vload.cu",
-    {"gather_vload": [I, P, P, LL, I, P, P, P, I, I, LL, P]})
+    {"gather_vload": [P, P, LL, I, I, P, P, P, I, I, LL, I, I, P]})
 
 
 def gather_vload_plain(x_view: torch.Tensor, win_ids: torch.Tensor,
@@ -71,18 +73,20 @@ def gather_vload(x_view: torch.Tensor, win_ids: torch.Tensor,
     build.check_operand("slot", slot, dev, torch.int32, (b, n))
     build.check_operand("off", off, dev, torch.int32, (b, n))
     if win_ids.device != dev or win_ids.dtype != torch.int32 \
-            or win_ids.stride(1) != 1:
+            or (win_ids.stride(1) != 1 and win_ids.numel()):
         raise ValueError("win_ids must be int32 on the launch device with "
                          "contiguous rows")
     out = torch.empty((b, n) + tuple(x_view.shape[2:]), dtype=x_view.dtype,
                       device=dev)
     if out.numel() == 0:
         return out
+    es, d = x_view.element_size(), math.prod(x_view.shape[2:])
+    row = n * d if stream else d      # a stream launch copies whole windows
+    shape = build.row_copy_shape(es, row, x_view.data_ptr(), out.data_ptr())
     build.check_launch(library().gather_vload(
-        x_view.element_size(), x_view.data_ptr(), win_ids.data_ptr(),
-        win_ids.stride(0), int(stream), slot.data_ptr(), off.data_ptr(),
-        out.data_ptr(), b, n, math.prod(x_view.shape[2:]),
-        build.stream_of(x_view)), "gather_vload")
+        x_view.data_ptr(), win_ids.data_ptr(), win_ids.stride(0), ls,
+        int(stream), slot.data_ptr(), off.data_ptr(), out.data_ptr(), b, n,
+        row * es, *shape, build.stream_of(x_view)), "gather_vload")
     gather_vload.launches += 1
     return out
 

@@ -5,75 +5,37 @@
 //       out[i, :] = src[row_ids[i], :] for src (T, D), row_ids (R,) int32.
 //
 // The TPU runs a grid of (R, D / d_tile) steps whose scalar-prefetched row
-// id drives one row-tile DMA each.  Here one CTA copies one (row, d_tile)
-// tile: it reads its row id once and moves the tile's bytes with the widest
-// accesses the tile's byte count and the pointers' alignment allow (16, 8,
-// 4, 2 or 1 bytes per thread).  The copy is dtype-agnostic (bf16, float32
-// and any element size).
+// id drives one row-tile DMA each.  Here the CUDA grid does not depend on
+// d_tile: the copy is the row copy of ../../csrc/row_copy.cuh, in which a
+// warp moves a 2 KB strip of one row (a row of D = 4,096 bf16 is 8 KB, four
+// strips), 4 16-byte words per thread, strips the slow axis of the grid.
+// The copy is dtype-agnostic (bf16, float32 and any element size).
 //
-// Bound on this card: bytes.  The function must read the R row ids and R
-// rows of D elements and write R rows; it does no arithmetic.  Neighbouring
-// threads move neighbouring 16-byte words of one row, so every warp access
-// is a full, aligned line.
+// Bound on this card: bytes.  The function must read the R row ids, each
+// distinct source row once and write R rows; it does no arithmetic.  A tile
+// per CTA (the parent design: 64-thread CTAs moving one 16-byte word per
+// thread at the qwen3-moe dispatch, 262,144 of them) was paced by CTA
+// scheduling and the id -> load -> store chain.  Here each thread keeps 4
+// independent 16-byte loads in flight before its stores; the warps in
+// flight read one strip of the source (4,097 tokens x 2 KB), which stays in
+// L2 while each token is read top-k times, where a whole f32 source (67 MB)
+// would not; the stores are streaming (__stcs).
+//
+// Measured share of the bound, and the parent kernel's: PERF.md, section 6
+// (NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // The entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-template <typename V>
-__global__ void row_gather_kernel(const V* src, const int32_t* row_ids,
-                                  V* out, long long row_words,
-                                  int tile_words) {
-  const long long i = blockIdx.x;
-  const long long r = row_ids[i];
-  const long long base = (long long)blockIdx.y * tile_words;
-  const V* from = src + r * row_words + base;
-  V* to = out + i * row_words + base;
-  for (int k = threadIdx.x; k < tile_words; k += blockDim.x) to[k] = from[k];
-}
-
-template <typename V>
-int launch_typed(const void* src, const int32_t* row_ids, void* out, int r,
-                 long long row_bytes, long long tile_bytes,
-                 cudaStream_t stream) {
-  const long long tile_words = tile_bytes / (long long)sizeof(V);
-  const long long row_words = row_bytes / (long long)sizeof(V);
-  if (tile_words > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  int threads = (int)(tile_words < 1024 ? tile_words : 1024);
-  threads = (threads + 31) / 32 * 32;
-  const dim3 grid((unsigned)r, (unsigned)(row_bytes / tile_bytes));
-  row_gather_kernel<V><<<grid, threads, 0, stream>>>(
-      static_cast<const V*>(src), row_ids, static_cast<V*>(out), row_words,
-      (int)tile_words);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "row_copy.cuh"
 
 // src (T, row_bytes) and out (R, row_bytes) as raw bytes; row_ids (R,).
-// tile_bytes divides row_bytes; row_bytes / tile_bytes <= 65535.
+// width and log_tpl are the row copy's shape (row_copy.cuh).
 extern "C" int row_gather(const void* src, const void* row_ids, void* out,
-                          int r, long long row_bytes, long long tile_bytes,
+                          int r, long long row_bytes, int width, int log_tpl,
                           void* stream) {
-  if (r < 0 || row_bytes < 1 || tile_bytes < 1 ||
-      row_bytes % tile_bytes != 0 || row_bytes / tile_bytes > 65535 || !src ||
-      !row_ids || !out)
-    return (int)cudaErrorInvalidValue;
-  if (r == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* ids = static_cast<const int32_t*>(row_ids);
-  const uintptr_t align = (uintptr_t)src | (uintptr_t)out;
-  if (tile_bytes % 16 == 0 && align % 16 == 0)
-    return launch_typed<uint4>(src, ids, out, r, row_bytes, tile_bytes, s);
-  if (tile_bytes % 8 == 0 && align % 8 == 0)
-    return launch_typed<uint2>(src, ids, out, r, row_bytes, tile_bytes, s);
-  if (tile_bytes % 4 == 0 && align % 4 == 0)
-    return launch_typed<uint32_t>(src, ids, out, r, row_bytes, tile_bytes, s);
-  if (tile_bytes % 2 == 0 && align % 2 == 0)
-    return launch_typed<uint16_t>(src, ids, out, r, row_bytes, tile_bytes, s);
-  return launch_typed<uint8_t>(src, ids, out, r, row_bytes, tile_bytes, s);
+  if (r < 0 || !row_ids) return (int)cudaErrorInvalidValue;
+  return row_copy::launch(
+      row_copy::IdRows{static_cast<const int32_t*>(row_ids), 1, r, 0}, src,
+      out, row_bytes, width, log_tpl, static_cast<cudaStream_t>(stream));
 }

@@ -5,11 +5,13 @@
 ``sm_90a``), which replaces the JAX package's
 ``kernels/moe_dispatch/kernel.py`` ``row_gather``: ``out[i, :] =
 src[row_ids[i], :]`` for ``src (T, D)`` (token activations, with a zero row
-appended for padding slots) and ``row_ids (R,)`` int32.  One CTA copies one
-``(row, d_tile)`` tile; ``d_tile`` is realized as the largest divisor of
-``D`` not above it, as the reference does, so results never depend on it.
-The copy moves bytes (16 at a time where the tile and the pointers allow),
-so it takes bfloat16, float32 and every other dtype alike.
+appended for padding slots) and ``row_ids (R,)`` int32.  A warp copies a
+strip of a row (the row copy of ``kernels/csrc/row_copy.cuh``, in the access
+width and shape of :func:`repro_torch.kernels.build.row_copy_shape`); the
+reference's ``d_tile`` bounds its VMEM row tile, and the CUDA grid does not
+depend on it, so it is accepted and has no effect on the launch or the
+result.  The copy moves bytes (16 at a time where the row and the pointers
+allow), so it takes bfloat16, float32 and every other dtype alike.
 
 The plain version is ``src[row_ids.long()]``.  The wrapper runs it for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.  On
@@ -29,7 +31,7 @@ P, I, LL = build.P, build.I, build.LL
 
 library = build.Library(
     "row_gather", Path(__file__).with_name("csrc") / "row_gather.cu",
-    {"row_gather": [P, P, P, I, LL, LL, P]})
+    {"row_gather": [P, P, P, I, LL, I, I, P]})
 
 
 def row_gather_plain(src: torch.Tensor, row_ids: torch.Tensor
@@ -50,19 +52,16 @@ def row_gather(src: torch.Tensor, row_ids: torch.Tensor, d_tile: int = 512
     if dev.type != "cuda":
         raise ValueError(f"no row_gather kernel for device {dev}")
     r, (_, d) = row_ids.shape[0], src.shape
-    dt = build.largest_divisor(d, d_tile)
-    if d // dt > 65535:
-        raise ValueError(f"D / d_tile = {d // dt} tiles per row; the kernel "
-                         "takes at most 65535")
     build.check_operand("src", src, dev)
     build.check_operand("row_ids", row_ids, dev, torch.int32)
     out = torch.empty((r, d), dtype=src.dtype, device=dev)
     if out.numel() == 0:
         return out
     es = src.element_size()
+    shape = build.row_copy_shape(es, d, src.data_ptr(), out.data_ptr())
     build.check_launch(library().row_gather(
         src.data_ptr(), row_ids.data_ptr(), out.data_ptr(), r, d * es,
-        dt * es, build.stream_of(src)), "row_gather")
+        *shape, build.stream_of(src)), "row_gather")
     row_gather.launches += 1
     return out
 

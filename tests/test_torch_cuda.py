@@ -20,7 +20,7 @@ from repro_torch.core.apps import SpMV
 from repro_torch.core.plan import CostModel, build_plan
 from repro_torch.core.seed import spmv_seed
 from repro_torch.core.spmm import SpMM
-from repro_torch.kernels import common
+from repro_torch.kernels import build, common
 from repro_torch.kernels.gather_vload import kernel as GV
 from repro_torch.kernels.moe_dispatch import kernel as RG
 from repro_torch.kernels.segment_reduce import kernel as SR
@@ -67,8 +67,8 @@ def _data(m, dtype):
 
 
 def _bits(t):
-    return t.view(torch.int32) if t.element_size() == 4 else \
-        t.view(torch.int16 if t.element_size() == 2 else torch.int64)
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 @pytest.mark.parametrize("reduce,dtype", SEMIRINGS)
@@ -394,3 +394,140 @@ def test_row_gather_bitwise_vs_plain(dtype, d, d_tile):
     got = RG.row_gather(src[:, 1:].contiguous(), rows, d_tile=d_tile)
     assert torch.equal(_bits(got),
                        _bits(RG.row_gather_plain(src[:, 1:], rows)))
+
+
+@pytest.mark.parametrize("n", [8, 32, 128, 256])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 16, 17, 64])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_gather_vload_row_copy_bitwise_vs_plain(dtype, d, n):
+    """Every access width and shape of the row copy: 1- to 8-byte elements,
+    rows of 1 to 64 elements, 8 to 256 lanes; a view that starts one element
+    into its buffer (no 16-byte access is legal); 0, 1 and 37 blocks (not a
+    multiple of a CTA's items); window ids wider than ``ls``, and ``ls``
+    past 32 (window ids loaded, not shuffled); and the stream form."""
+    dev = _cuda()
+    rng = np.random.default_rng(100 * n + d)
+    nwin = 40
+    trailing = () if d == 1 else (d,)
+    buf = torch.as_tensor(rng.standard_normal(nwin * n * d + 1) * 9,
+                          device=dev).to(dtype)
+    for shift in (0, 1):
+        x_view = buf[shift:shift + nwin * n * d].view((nwin, n) + trailing)
+        for b in (0, 1, 37):
+            for ls in (1, 32, 40):
+                win = torch.as_tensor(rng.integers(0, nwin, (b, ls + 5))
+                                      .astype(np.int32), device=dev)
+                slot = torch.as_tensor(rng.integers(0, ls, (b, n))
+                                       .astype(np.int32), device=dev)
+                off = torch.as_tensor(rng.integers(0, n, (b, n))
+                                      .astype(np.int32), device=dev)
+                for stream in (False, True):
+                    kw = dict(ls=ls, stream=stream)
+                    got = GV.gather_vload(x_view, win, slot, off, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(got), _bits(
+                        GV.gather_vload_plain(x_view, win, slot, off, **kw))
+                    ), (shift, b, ls, stream)
+
+
+@pytest.mark.parametrize("d", [1, 7, 8, 100, 4096])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32,
+                                   torch.float64])
+def test_row_gather_row_copy_bitwise_vs_plain(dtype, d):
+    """No rows and one row; repeated, sorted ids and the appended zero row;
+    sources that start one element and one row into their buffer."""
+    dev = _cuda()
+    rng = np.random.default_rng(d)
+    t = 50
+    buf = torch.as_tensor(rng.standard_normal((t + 1) * d + 1) * 9,
+                          device=dev).to(dtype)
+    zero = torch.zeros((1, d), dtype=dtype, device=dev)
+    srcs = [torch.cat([buf[:t * d].view(t, d), zero]),
+            buf[1:1 + t * d].view(t, d), buf[d:d + t * d].view(t, d)]
+    for src in srcs:
+        for ids in ([], [3], np.sort(rng.integers(0, src.shape[0], 300)),
+                    [src.shape[0] - 1] * 40 + [0] * 3):
+            rows = torch.as_tensor(np.asarray(ids, dtype=np.int32),
+                                   device=dev)
+            got = RG.row_gather(src, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got),
+                               _bits(RG.row_gather_plain(src, rows)))
+
+
+def test_row_gather_source_past_2_31_bytes():
+    """A 4.3 GB bf16 source gathered in reverse: source and output row
+    offsets pass 2^31 bytes."""
+    dev = _cuda()
+    t, d = 2 ** 19 + 1, 4096
+    src = torch.empty((t, d), dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for start in range(0, t, 1 << 16):
+        part = src[start:start + (1 << 16)]
+        part.copy_(torch.randn(part.shape, generator=gen, device=dev))
+    rows = torch.arange(t - 1, -1, -1, dtype=torch.int32, device=dev)
+    got = RG.row_gather(src, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(src.flip(0)))
+    del got
+    tail = torch.tensor([t - 1, 0, t - 2, t - 1], dtype=torch.int32,
+                        device=dev)
+    assert torch.equal(_bits(RG.row_gather(src, tail)),
+                       _bits(RG.row_gather_plain(src, tail)))
+
+
+@pytest.mark.parametrize("log_tpl", [0, 2, 3, 5])
+def test_row_copy_shape_is_neutral_on_card(log_tpl):
+    """Any number of threads per row gives the same bits (rows of 10 words
+    go the long-row way below 16 threads); only the access width must suit
+    the pointers."""
+    dev = _cuda()
+    rng = np.random.default_rng(log_tpl)
+    src = torch.as_tensor(rng.standard_normal((30, 40)).astype(np.float32),
+                          device=dev)
+    rows = torch.as_tensor(rng.integers(0, 30, 77).astype(np.int32),
+                           device=dev)
+    out = torch.empty((77, 40), device=dev)
+    assert RG.library().row_gather(
+        src.data_ptr(), rows.data_ptr(), out.data_ptr(), 77, 160, 16,
+        log_tpl, build.stream_of(src)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, RG.row_gather_plain(src, rows))
+    view = src.view(20, 6, 10)
+    win = torch.as_tensor(rng.integers(0, 20, (9, 4)).astype(np.int32),
+                          device=dev)
+    slot = torch.as_tensor(rng.integers(0, 4, (9, 6)).astype(np.int32),
+                           device=dev)
+    off = torch.as_tensor(rng.integers(0, 6, (9, 6)).astype(np.int32),
+                          device=dev)
+    out = torch.empty((9, 6, 10), device=dev)
+    assert GV.library().gather_vload(
+        view.data_ptr(), win.data_ptr(), 4, 4, 0, slot.data_ptr(),
+        off.data_ptr(), out.data_ptr(), 9, 6, 40, 8, log_tpl,
+        build.stream_of(src)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, GV.gather_vload_plain(view, win, slot, off, ls=4))
+
+
+def test_row_copy_rejects_widths_the_pointers_do_not_allow():
+    """The C entry points return cudaErrorInvalidValue (1) for an access
+    width that does not divide the row or a pointer, and for a shape out of
+    range, and launch nothing."""
+    dev = _cuda()
+    src = torch.zeros((4, 8), device=dev)
+    out = torch.full((2, 8), 7.0, device=dev)
+    ids = torch.zeros(2, dtype=torch.int32, device=dev)
+    st = build.stream_of(src)
+    lib = RG.library()
+    p, o, i = src.data_ptr(), out.data_ptr(), ids.data_ptr()
+    assert lib.row_gather(p + 4, i, o, 2, 32, 16, 1, st) == 1
+    assert lib.row_gather(p, i, o + 8, 2, 32, 16, 1, st) == 1
+    assert lib.row_gather(p, i, o, 2, 24, 16, 1, st) == 1
+    assert lib.row_gather(p, i, o, 2, 32, 3, 1, st) == 1
+    assert lib.row_gather(p, i, o, 2, 32, 16, 6, st) == 1
+    assert lib.row_gather(p, i, o, 2, 32, 16, -1, st) == 1
+    assert GV.library().gather_vload(
+        p + 4, i, 1, 1, 0, i, i, o, 1, 2, 16, 16, 0, st) == 1
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())

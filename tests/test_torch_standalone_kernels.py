@@ -31,7 +31,7 @@ from repro.kernels.segment_reduce.kernel import \
     segment_reduce as rsegment_reduce
 from repro.kernels.segment_reduce.ref import segment_reduce_reference
 
-from repro_torch.kernels import common
+from repro_torch.kernels import build, common
 from repro_torch.kernels.gather_vload.ops import gather_vload_op
 from repro_torch.kernels.moe_dispatch.ops import row_gather_op
 from repro_torch.kernels.segment_reduce.ops import segment_reduce_op
@@ -239,3 +239,86 @@ def test_row_gather_d_tile_is_neutral(d_tile):
     rows = torch.as_tensor(rng.integers(0, 9, 20).astype(np.int32))
     assert torch.equal(row_gather_op(src, rows, d_tile=d_tile),
                        row_gather_op(src, rows))
+
+
+# ------------------------------------------- more dtypes and row widths
+def _exact_values(rng, shape, dtype):
+    """Small integers: exact in int8, bfloat16 and float64, and in the
+    float32 that JAX makes of float64 here (x64 is off)."""
+    return torch.as_tensor(rng.integers(-100, 100, shape).astype(np.float32)
+                           ).to(getattr(torch, dtype))
+
+
+def _to_jax(t):
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("d", [2, 3, 16, 17])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float64"])
+def test_gather_vload_dtypes_and_row_widths_vs_reference(dtype, d):
+    """1-, 2- and 8-byte elements and rows of 2-17 elements (8 to 136 bytes:
+    every access width of the kernel's row copy), lane and stream form."""
+    rng = np.random.default_rng(d)
+    n, ls, b, nwin = 32, 3, 7, 10
+    x_view = _exact_values(rng, (nwin, n, d), dtype)
+    win = rng.integers(0, nwin, size=(b, ls)).astype(np.int32)
+    slot = rng.integers(0, ls, size=(b, n)).astype(np.int32)
+    off = rng.integers(0, n, size=(b, n)).astype(np.int32)
+    for stream in (False, True):
+        got = gather_vload_op(x_view, torch.as_tensor(win),
+                              torch.as_tensor(slot), torch.as_tensor(off),
+                              ls=ls, stream=stream)
+        ref = np.asarray(rgather_vload(_to_jax(x_view), jnp.asarray(win),
+                                       jnp.asarray(slot), jnp.asarray(off),
+                                       ls=ls, stream=stream, interpret=True))
+        assert got.dtype == x_view.dtype and got.shape == (b, n, d)
+        np.testing.assert_array_equal(got.double().numpy(),
+                                      ref.astype(np.float64))
+        want = x_view[win[:, 0]] if stream else x_view.reshape(-1, d)[
+            torch.as_tensor(win[np.arange(b)[:, None], slot] * n + off)]
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [6, 7, 10])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_row_gather_dtypes_and_ragged_rows_vs_reference(dtype, d):
+    """Odd rows and rows that are no multiple of 16 bytes (6 to 40 bytes),
+    repeated ids and the appended zero row."""
+    rng = np.random.default_rng(d)
+    t = 20
+    src = torch.cat([_exact_values(rng, (t, d), dtype),
+                     torch.zeros((1, d), dtype=getattr(torch, dtype))])
+    rows = np.sort(rng.integers(0, t + 1, size=50)).astype(np.int32)
+    got = row_gather_op(src, torch.as_tensor(rows))
+    ref = np.asarray(rrow_gather(_to_jax(src), jnp.asarray(rows),
+                                 interpret=True))
+    assert got.dtype == src.dtype and got.shape == (50, d)
+    np.testing.assert_array_equal(got.double().numpy(), ref.astype(np.float64))
+    assert torch.equal(got, src[torch.as_tensor(rows).long()])
+
+
+# ------------------------------------------------------- row copy shape
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("row_elems", [1, 3, 16, 17, 4096])
+@pytest.mark.parametrize("elem_bytes", [1, 2, 4, 8])
+def test_row_copy_shape(elem_bytes, row_elems, shift):
+    """The access width and shape both kernels launch with: the widest
+    access (at most 16 bytes) dividing the row's bytes and both addresses
+    (one of them ``shift`` elements past a 256-byte boundary), never 16
+    bytes for a row or pointer off 16-byte alignment; and the least power
+    of two of threads covering a row's words, at most a warp."""
+    base = 1 << 20
+    addrs = (base + shift * elem_bytes, base + 4096)
+    shape = build.row_copy_shape(elem_bytes, row_elems, *addrs)
+    row_bytes = elem_bytes * row_elems
+    assert shape.width in (1, 2, 4, 8, 16)
+    assert all(v % shape.width == 0 for v in (row_bytes,) + addrs)
+    wider = 2 * shape.width
+    assert shape.width == 16 or any(v % wider for v in (row_bytes,) + addrs)
+    if row_bytes % 16 or addrs[0] % 16:
+        assert shape.width < 16
+    words = row_bytes // shape.width
+    tpl = 1 << shape.log_tpl
+    assert tpl >= min(words, 32) and (tpl == 1 or tpl // 2 < words)
