@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the ``repro_torch`` port: SpMV and SpMM on the H100.
+"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM and the graph
+apps on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -40,7 +41,24 @@ result line) if any phase fails:
    ``gather_vload`` cases (the fused section at ``D`` 1 and 16 in f32, and
    16 in bf16) are also held bitwise to their plain version and to
    ``torch.take``;
-6. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
+6. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
+   ``ConnectedComponents`` (on the symmetrized edges) and ``PageRank`` (20
+   iterations, damping 0.85) through ``from_edges(..., backend="cuda",
+   lane_width=128, fused=True)`` on the soc-Pokec analogue
+   (``G.graph_case("powerlaw", 1632803, avg_deg=19)``, ~30.9M edges, not
+   cut), each run with both drivers and held bitwise (state and
+   ``ConvergenceReport``) to the ``"torch"`` backend on the same plan and
+   to ``scipy.sparse.csgraph``: BFS levels equal to
+   ``shortest_path(unweighted=True)``, SSSP within 1e-5 relative of
+   float64 Dijkstra, CC's partition and min labels equal to
+   ``connected_components``, PageRank within 1e-5 (max abs error over max
+   rank) of a float64 power iteration; ``run_multi`` with 8 sources
+   (``D = 8`` on the kernels) row for row bitwise ``run``; the stage-A
+   counters, zeroed before each run, must grow on every ``"cuda"`` run.
+   Per app it prints the plan build time, the fallback share of blocks, the
+   sweeps, end-to-end ms with each driver, device ms per sweep, the idle
+   share and the top kernels under ``torch.profiler``;
+7. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
    clock around the call and a synchronize, median of 20) and in device
    time (CUDA events around back-to-back calls queued behind a spin kernel,
    so launch overhead leaves no gaps; median of 5 such measurements); a
@@ -51,7 +69,9 @@ result line) if any phase fails:
    ``row_gather``, ``take`` for ``gather_vload``), and for ``row_gather``
    the time the card takes to write its output alone; and cuSPARSE's SpMV and
    SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
-7. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+   the ``"mul_all"`` dense-slice time at ``D = 16`` beside the number of
+   its design before the ``"add_all"`` combine (``PERF.md``);
+8. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
    ladder's shapes) in a child process.
 
@@ -61,6 +81,7 @@ line; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -93,6 +114,14 @@ SEGMENT_CASES = (("add", np.float32), ("mul", np.float32),
 GATHER_LS = (1, 2, 4, 32)      # window counts of the gather_vload phase
 # one MoE layer of src/repro/configs/qwen3_moe_235b_a22b.py
 MOE = dict(tokens=4096, d_model=4096, num_experts=128, top_k=8, d_tile=512)
+# the soc-Pokec analogue (SNAP soc-Pokec: 1,632,803 nodes, 30,622,564
+# edges), named among the paper's graphs in sparse/generators.py
+GRAPH = dict(kind="powerlaw", n=1632803, avg_deg=19)
+GRAPH_S = 8                    # sources of the run_multi runs (D = 8)
+PAGERANK_ITERS = 20
+# the "mul_all" dense slice at D = 16 on pwtk before the kernels gained the
+# "add_all" combine (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_DENSE_D16_MS = 0.6030
 SOURCES = {
     "unroll_spmv.window":
         "src/repro_torch/kernels/unroll_spmv/csrc/stage_a.cu",
@@ -377,8 +406,8 @@ class Smoke:
     def __init__(self, dev, card: str, kind: str):
         import torch
         from repro_torch.core import engine as eng
-        from repro_torch.core import ir
-        from repro_torch.core.apps import SpMV
+        from repro_torch.core import graphs, ir
+        from repro_torch.core.apps import PageRank, SpMV
         from repro_torch.core.plan import CostModel, build_plan
         from repro_torch.core.seed import spmv_seed
         from repro_torch.core.spmm import SpMM
@@ -394,6 +423,7 @@ class Smoke:
         from repro_torch.sparse import generators as G
         self.torch, self.eng, self.ir, self.ops, self.G = torch, eng, ir, ops, G
         self.SpMV, self.SpMM = SpMV, SpMM
+        self.graphs, self.PageRank = graphs, PageRank
         self.CostModel, self.build_plan, self.spmv_seed = \
             CostModel, build_plan, spmv_seed
         self.build, self.K, self.SR, self.GV, self.RG = build, K, SR, GV, RG
@@ -720,6 +750,11 @@ class Smoke:
                     f"{bound_ms / t['ms']:.3f} of the bound; plain version "
                     f"{t['plain_ms']:.4f} ms; no single PyTorch call "
                     "computes it")
+                if key == "unroll_spmv.dense_slice" and d == SPMM_D:
+                    log(f"[time] {self.tag} {key} \"mul_all\" D={d}: "
+                        f"{t['ms']:.4f} ms with the \"add_all\" form in the "
+                        f"kernel, {PARENT_DENSE_D16_MS:.4f} ms before it "
+                        "(PERF.md, an earlier call)")
                 if d is None:           # the kernels line keeps matvec's
                     self.kernel_entry(key, t["ms"], t["plain_ms"],
                                       t["nbytes"], t["nops"], None)
@@ -940,6 +975,181 @@ class Smoke:
                 self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0,
                                   lib_ms)
 
+    # ------------------------------------------------------- graph apps
+    def graph_phase(self) -> None:
+        """The four graph apps on the soc-Pokec analogue (see the module
+        docstring, phase 6)."""
+        from scipy.sparse import csr_matrix
+        t0 = time.perf_counter()
+        c = self.G.graph_case(GRAPH["kind"], GRAPH["n"],
+                              avg_deg=GRAPH["avg_deg"])
+        log(f"[graph] soc-Pokec analogue: {c.num_nodes} nodes, "
+            f"{c.num_edges} edges; generate {time.perf_counter() - t0:.2f} s")
+        n = c.num_nodes
+        adj = csr_matrix((np.ones(c.num_edges), (c.src, c.dst)),
+                         shape=(n, n))
+        # the GRAPH_S nodes of most out-edges (run() starts at the first)
+        sources = np.argsort(-np.bincount(c.src, minlength=n),
+                             kind="stable")[:GRAPH_S]
+        apps = {"bfs": (self.graphs.BFS, (c.src, c.dst, n), {}),
+                "sssp": (self.graphs.SSSP, (c.src, c.dst, c.weight, n),
+                         {"weight": np.asarray(c.weight, np.float32)}),
+                "cc": (self.graphs.ConnectedComponents, (c.src, c.dst, n),
+                       {}),
+                "pagerank": (self.PageRank, (c.src, c.dst, n), {})}
+        for name, (cls, edges, static) in apps.items():
+            self.graph_app(name, cls, edges, static, c, adj, sources)
+
+    def graph_app(self, name, cls, edges, static, c, adj, sources) -> None:
+        torch, ir = self.torch, self.ir
+        t0 = time.perf_counter()
+        app = cls.from_edges(*edges, lane_width=128, backend="cuda",
+                             fused=True, device=self.dev)
+        build_s = time.perf_counter() - t0
+        plan = app.plan
+        fb = sum(k.num_blocks for k in plan.classes if k.ls_flag == 0)
+        torch_app = dataclasses.replace(app, _run=self.eng.make_executor(
+            plan, static, backend="torch", fused=True, device=self.dev))
+        kernels = {"unroll_spmv.dense_slice" if la.gather == ir.COALESCED
+                   else "unroll_spmv.window"
+                   for la in app._run.tree.launches
+                   if la.gather != ir.FALLBACK}
+        log(f"[graph] {name}: {plan.nnz} edges in {plan.num_blocks} blocks, "
+            f"fallback share {fb / max(plan.num_blocks, 1):.4f}, "
+            f"{len(app._run.tree.launches)} launches per sweep; from_edges "
+            f"(validation, build_plan, staging) {build_s:.2f} s")
+        pagerank = name == "pagerank"
+
+        def run(a, driver):
+            a.driver = driver
+            if pagerank:
+                return a.run(iters=PAGERANK_ITERS), None
+            out = a.run() if name == "cc" else a.run(int(sources[0]))
+            return out, a.convergence
+
+        results = {}
+        for backend, a in (("cuda", app), ("torch", torch_app)):
+            for driver in ("resident", "host"):
+                if backend == "torch" and driver == "host":
+                    continue
+                self.zero_counts()
+                out, report = run(a, driver)
+                counts = self.read_counts()
+                if backend == "cuda":
+                    for k in kernels:
+                        check(counts[k] > 0, f"{name} {driver}: {k} named "
+                              "by the lowering but never launched")
+                results[backend, driver] = (out, report, counts)
+        out, report, counts = results["cuda", "resident"]
+        for key, (o, r, _) in results.items():
+            check(same_bits(o, out) and r == report, f"{name}: {key} "
+                  "differs from the cuda resident run")
+        self.graph_oracle(name, out.cpu().numpy(), c, adj, sources[0])
+        launched = {k: v for k, v in counts.items() if v}
+        sweeps = PAGERANK_ITERS if pagerank else report.sweeps
+        log(f"[graph] {name}: {report or f'{PAGERANK_ITERS} iterations'}; "
+            f"kernel launches {launched} per run; cuda == torch backend "
+            "bitwise, resident == host bitwise, oracle held")
+        if name in ("bfs", "sssp"):
+            self.graph_multi(name, app, torch_app, sources)
+        e2e = {}
+        for driver in ("resident", "host"):
+            app.driver = driver
+            e2e[driver] = host_ms(lambda: run(app, driver), warmup=1, reps=3)
+        state = out if not pagerank else torch.full(
+            (app.num_nodes,), 1.0 / app.num_nodes, device=self.dev)
+        sweep_ms = device_ms(
+            (lambda: app._step(state)) if pagerank
+            else (lambda: app.sweep(state)), reps=5, repeats=3)
+        log(f"[time] {self.tag} graph {name}: {sweeps} sweeps; "
+            f"{e2e['resident']:.4f} ms end to end with the resident driver, "
+            f"{e2e['host']:.4f} ms with the host driver; {sweep_ms:.4f} ms of "
+            f"device time per sweep ({sweeps * sweep_ms:.4f} ms for the "
+            f"sweeps); build {build_s:.2f} s")
+        app.driver = "resident"
+        log_profile(self.tag, f"graph {name} resident run",
+                    lambda: run(app, "resident"))
+
+    def graph_multi(self, name, app, torch_app, sources) -> None:
+        """``run_multi`` of GRAPH_S sources with both drivers: rows bitwise
+        ``run``, and bitwise the torch backend's."""
+        app.driver = torch_app.driver = "resident"
+        self.zero_counts()
+        multi = app.run_multi(sources)
+        counts = self.read_counts()
+        check(sum(counts.values()) > 0, f"{name} run_multi: no kernel launch")
+        report = app.convergence
+        check(same_bits(multi, torch_app.run_multi(sources)),
+              f"{name} run_multi: cuda differs from the torch backend")
+        for i, s in enumerate(sources):
+            check(same_bits(multi[i], app.run(int(s))),
+                  f"{name} run_multi row {i} differs from run({s})")
+        app.driver = "host"
+        self.zero_counts()
+        host = app.run_multi(sources)
+        self.read_counts()
+        check(same_bits(multi, host) and app.convergence == report,
+              f"{name} run_multi: the host driver differs from the resident")
+        app.driver = "resident"
+        ms = host_ms(lambda: app.run_multi(sources), warmup=1, reps=3)
+        log(f"[graph] {name} run_multi S={len(sources)}: {report}; rows "
+            f"bitwise equal to run(), to the host driver and to the torch "
+            f"backend; kernel "
+            f"launches {counts['unroll_spmv.window']} window, "
+            f"{counts['unroll_spmv.dense_slice']} dense-slice")
+        log(f"[time] {self.tag} graph {name} run_multi S={len(sources)}: "
+            f"{ms:.4f} ms end to end (resident driver)")
+
+    def graph_oracle(self, name, got, c, adj, source) -> None:
+        """Hold one app's result to scipy.sparse.csgraph / a float64 power
+        iteration."""
+        from scipy.sparse import csgraph, csr_matrix
+        n = c.num_nodes
+        if name == "bfs":
+            hops = csgraph.shortest_path(adj, method="D", unweighted=True,
+                                         indices=int(source))
+            want = np.where(np.isinf(hops), -1, hops).astype(np.int32)
+            check(np.array_equal(got, want), "bfs levels differ from "
+                  "scipy shortest_path(unweighted=True)")
+        elif name == "sssp":
+            # parallel edges: keep the least weight per (src, dst) pair
+            order = np.lexsort((c.weight, c.dst, c.src))
+            s, d, w = c.src[order], c.dst[order], c.weight[order]
+            first = np.ones(s.size, bool)
+            first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
+            m = csr_matrix((w[first].astype(np.float64),
+                            (s[first], d[first])), shape=(n, n))
+            want = csgraph.shortest_path(m, method="D", indices=int(source))
+            fin = np.isfinite(want)
+            check(np.array_equal(np.isfinite(got), fin),
+                  "sssp: reachable set differs from Dijkstra")
+            rel = float(np.max(np.abs(got[fin] - want[fin])
+                               / np.maximum(np.abs(want[fin]), 1e-30)))
+            check(rel <= REL_ERR_LIMIT, f"sssp: rel err {rel:.3e} vs "
+                  "float64 Dijkstra")
+            log(f"[graph] sssp: max rel err vs float64 Dijkstra {rel:.3e}")
+        elif name == "cc":
+            ncomp, comp = csgraph.connected_components(adj, directed=False)
+            mins = np.full(ncomp, n, np.int64)
+            np.minimum.at(mins, comp, np.arange(n))
+            check(np.array_equal(got, mins[comp]), "cc labels differ from "
+                  "the min node id of scipy's components")
+            log(f"[graph] cc: {ncomp} components, labels equal to scipy's")
+        else:
+            deg = np.bincount(c.src, minlength=n).astype(np.float64)
+            inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+            push = csr_matrix((np.ones(c.num_edges), (c.dst, c.src)),
+                              shape=(n, n))
+            rank = np.full(n, 1.0 / n)
+            for _ in range(PAGERANK_ITERS):
+                rank = (1 - 0.85) / n + 0.85 * (push @ (rank * inv)
+                                                + rank[deg == 0].sum() / n)
+            err = float(np.abs(got - rank).max() / np.abs(rank).max())
+            check(err <= REL_ERR_LIMIT, f"pagerank: err {err:.3e} vs the "
+                  "float64 power iteration")
+            log(f"[graph] pagerank: max abs err / max rank vs float64 "
+                f"power iteration {err:.3e}")
+
     def card_tests(self) -> None:
         """The ``cuda``-marked tests of ``tests/test_torch_cuda.py`` on this
         card, in a child process (the kernels are already built)."""
@@ -968,6 +1178,7 @@ class Smoke:
         self.segment_reduce_phase()
         self.gather_vload_phase()
         self.row_gather_phase()
+        self.graph_phase()
         self.main_timings()
         self.stage_a_timings()
         for key, c in self.compared.items():

@@ -9,10 +9,11 @@ Optimizer (plan) and the Data Transfer module (engine ingest) take it from
 there.
 
 ``combine`` is a function of torch tensors, used by the plain torch
-emitter.  ``kernel_combine`` names the same function as one of the forms
-the hand-written CUDA stage-A kernels implement (:data:`KERNEL_COMBINES`);
-a seed without one cannot run on the ``"cuda"`` backend, which raises
-rather than silently staying on the torch emitter.
+emitter.  ``kernel_combine`` (with ``kernel_addend``) names the same
+function as one of the forms the hand-written CUDA stage-A kernels
+implement (:data:`KERNEL_COMBINES`); a seed without one cannot run on the
+``"cuda"`` backend, which raises rather than silently staying on the torch
+emitter.
 
 Example (paper Alg. 5)::
 
@@ -39,10 +40,11 @@ REDUCE_OPS = {
     "min": (torch.minimum, float("inf")),
 }
 
-# Combines the CUDA stage-A kernels implement.  ``"mul_all"``: the product
-# of every gathered operand (in ``gathered`` order) and then every
-# elementwise operand — at most two gathered and one elementwise.
-KERNEL_COMBINES = ("mul_all",)
+# Combines the CUDA stage-A kernels implement, over at most two gathered
+# operands (in ``gathered`` order) and then one elementwise operand:
+# ``"mul_all"``, their product; ``"add_all"``, their sum and then the seed's
+# ``kernel_addend`` where it has one.
+KERNEL_COMBINES = ("mul_all", "add_all")
 
 
 def numpy_dtype(dtype) -> np.dtype:
@@ -91,6 +93,7 @@ class CodeSeed:
     combine: Callable[[Mapping[str, torch.Tensor]], torch.Tensor]
     reduce: str = "add"
     kernel_combine: str | None = None
+    kernel_addend: int | float | None = None
 
     def __post_init__(self):
         if self.reduce not in REDUCE_OPS:
@@ -107,8 +110,11 @@ class CodeSeed:
                     f"supported: {KERNEL_COMBINES}")
             if len(self.gathered) > 2 or len(self.elementwise) > 1:
                 raise ValueError(
-                    "kernel_combine 'mul_all' takes at most two gathered "
-                    "and one elementwise operand")
+                    f"kernel_combine {self.kernel_combine!r} takes at most "
+                    "two gathered and one elementwise operand")
+        if self.kernel_addend is not None \
+                and self.kernel_combine != "add_all":
+            raise ValueError("kernel_addend needs kernel_combine 'add_all'")
 
     @property
     def reduce_op(self):
@@ -142,6 +148,34 @@ def pagerank_seed() -> CodeSeed:
                     elementwise=(),
                     combine=lambda v: v["rank"] * v["inv_nneighbor"],
                     reduce="add", kernel_combine="mul_all")
+
+
+def bfs_seed() -> CodeSeed:
+    """Level relaxation: ``level[dst] = min(level[dst], level[src] + 1)``."""
+    return CodeSeed(name="bfs_relax", output="level", out_index="dst",
+                    gather_index="src", gathered=("level",),
+                    elementwise=(),
+                    combine=lambda v: v["level"] + 1,
+                    reduce="min", kernel_combine="add_all", kernel_addend=1)
+
+
+def sssp_seed() -> CodeSeed:
+    """(min, +) semiring edge relaxation (Bellman-Ford inner loop)."""
+    return CodeSeed(name="sssp_relax", output="dist", out_index="dst",
+                    gather_index="src", gathered=("dist",),
+                    elementwise=("weight",),
+                    combine=lambda v: v["dist"] + v["weight"],
+                    reduce="min", kernel_combine="add_all")
+
+
+def cc_seed() -> CodeSeed:
+    """Min-label propagation: ``label[dst] = min(label[dst], label[src])``
+    (the kernels' ``"add_all"`` over the one operand is the identity)."""
+    return CodeSeed(name="cc_propagate", output="label", out_index="dst",
+                    gather_index="src", gathered=("label",),
+                    elementwise=(),
+                    combine=lambda v: v["label"],
+                    reduce="min", kernel_combine="add_all")
 
 
 _INDEX_REDUCE = {"mul": "prod", "max": "amax", "min": "amin"}

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.apps import _check_ported, _not_ported
+from repro_torch.core.graphs import check_ported, not_ported
 from repro_torch.core.plan import BlockPlan, CostModel, build_plan
 from repro_torch.core.seed import reduce_identity_for, spmv_seed
 from repro_torch.obs import trace as _trace
@@ -61,7 +61,7 @@ class SpMM:
         is ``"torch"`` or ``"cuda"``; ``reduce`` picks the semiring, and
         ``validate="repair"`` combines duplicate entries with it (DESIGN.md
         §9)."""
-        _check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        check_ported(backend, tune, mesh, shards, plan_cache_dir)
         dev = eng.resolve_device(device)
         with _trace.span("app.spmm.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
@@ -86,7 +86,10 @@ class SpMM:
                ) -> torch.Tensor:
         """``Y = y_init (+) A B`` for ``B`` of shape ``(n, D)`` (a numpy
         array, copied to the device, or a tensor already there);
-        ``y_init`` defaults to the reduce's identity."""
+        ``y_init`` defaults to the reduce's identity in ``B``'s dtype.
+        Dtypes follow :meth:`~repro_torch.core.apps.SpMV.matvec`: the
+        product runs in ``torch.promote_types(values, B)`` and the result
+        has ``y_init``'s dtype, by default ``B``'s."""
         if isinstance(bmat, torch.Tensor):
             if bmat.device != self.device:
                 raise ValueError(f"B is on {bmat.device}, the SpMM on "
@@ -101,4 +104,4 @@ class SpMM:
         return self._run({"x": bmat.contiguous()}, y_init)
 
     def report(self):
-        raise _not_ported("SpMM.report()", "queue 1, item 8")
+        raise not_ported("SpMM.report()", "queue 1, item 8")

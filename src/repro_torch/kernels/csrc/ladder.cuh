@@ -58,6 +58,18 @@
 // of fewer CTAs than SMs, which takes one CTA's latency: there each warp
 // takes two columns.
 //
+// The combine (stage A only) is one of two forms, fixed per launch:
+// "mul_all" g0 * g1 * e0 and "add_all" g0 + g1 + e0 (+ c), each over the
+// operands present, in that order, where c is a scalar addend of the
+// launch (BFS's level + 1).  The form is a run-time argument, tested once
+// per row (D = 1) or per pass of rows (D > 1) around a loop compiled for
+// each form, so neither form's loop carries the other's branch and the
+// kernel count stays that of one form.  At D = 1 every operand is loaded
+// before that test and before the step masks' shuffles, which overlap the
+// loads' latency.  Lanes past N hold the reduce identity and are
+// never combined: for int32 min that identity is INT32_MAX, which + 1
+// would wrap.
+//
 // Exactness: float and double products and sums use the _rn intrinsics,
 // which nvcc never contracts into an FMA (a contracted value*x + t differs
 // from the separate torch ops by up to 1 ulp); int32 add/mul wrap through
@@ -81,6 +93,8 @@ constexpr size_t kShmemBudget = 48 * 1024;   // no opt-in attribute needed
 constexpr unsigned kAllLanes = 0xffffffffu;
 
 enum Reduce { kAdd = 0, kMul = 1, kMax = 2, kMin = 3 };
+// the combine forms; kAddAllConst is "add_all" with the launch's addend
+enum Combine { kMulAll = 0, kAddAll = 1, kAddAllConst = 2 };
 
 template <typename T, int R> struct Ops;
 
@@ -92,6 +106,7 @@ template <int R> struct Ops<float, R> {
     return __int_as_float(0x7f800000);
   }
   __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
+  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
   __device__ static float op(float a, float b) {
     if (R == kAdd) return __fadd_rn(a, b);
     if (R == kMul) return __fmul_rn(a, b);
@@ -108,6 +123,7 @@ template <int R> struct Ops<double, R> {
     return __longlong_as_double(0x7ff0000000000000LL);
   }
   __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
+  __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
   __device__ static double op(double a, double b) {
     if (R == kAdd) return __dadd_rn(a, b);
     if (R == kMul) return __dmul_rn(a, b);
@@ -125,6 +141,9 @@ template <int R> struct Ops<int32_t, R> {
   }
   __device__ static int32_t mul(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a * (uint32_t)b);
+  }
+  __device__ static int32_t add(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a + (uint32_t)b);
   }
   __device__ static int32_t op(int32_t a, int32_t b) {
     if (R == kAdd) return (int32_t)((uint32_t)a + (uint32_t)b);
@@ -159,6 +178,8 @@ struct Operands {
   const int32_t* seg;        // (Bc, N) segment ids
   const int32_t* full;       // (Bc,) native-reduce flags, or null
   void* out;                 // (Bc, N, D)
+  int combine;               // a Combine form
+  double addend;             // c of kAddAllConst, exact in the value type
 };
 
 // The shape of a launch, fixed on the host.
@@ -364,13 +385,43 @@ __device__ __forceinline__ bool row_full(const Plan& p, const Operands& o,
   return p.op == kFullReduce || (o.full != nullptr && o.full[b] != 0);
 }
 
-// g0 * g1 * e0 for lane li, the operands present, in that order.
-template <typename T, int R>
+// a * b for "mul_all" (F = kMulAll), a + b for "add_all"
+template <typename T, int R, int F>
+__device__ __forceinline__ T apply(T a, T b) {
+  return F == kMulAll ? Ops<T, R>::mul(a, b) : Ops<T, R>::add(a, b);
+}
+
+// Form F's combine of lane li's g0 value x with g1[src] and e0[li], the
+// operands present, in that order, then + c where `with_c` ("add_all").
+template <typename T, int R, int F>
 __device__ __forceinline__ T combine(T x, const T* g1, long long src,
-                                     const T* e0, long long li) {
-  if (g1) x = Ops<T, R>::mul(x, g1[src]);
-  if (e0) x = Ops<T, R>::mul(x, e0[li]);
+                                     const T* e0, long long li, bool with_c,
+                                     T c) {
+  if (g1) x = apply<T, R, F>(x, g1[src]);
+  if (e0) x = apply<T, R, F>(x, e0[li]);
+  if (F != kMulAll && with_c) x = Ops<T, R>::add(x, c);
   return x;
+}
+
+// Form F's combine of a thread's L lanes, their g1 values y and
+// elementwise values e already loaded (lanes past n keep the identity:
+// they are never combined).
+template <typename T, int R, int F, int L>
+__device__ __forceinline__ void combine_row(T (&v)[L], const T (&y)[L],
+                                            const T (&e)[L], bool has_g1,
+                                            bool has_e0, int n, int t,
+                                            const Operands& o) {
+  const bool with_c = o.combine == kAddAllConst;
+  const T c = static_cast<T>(o.addend);
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (i * kWarp + t >= n) continue;
+    T x = v[i];
+    if (has_g1) x = apply<T, R, F>(x, y[i]);
+    if (has_e0) x = apply<T, R, F>(x, e[i]);
+    if (F != kMulAll && with_c) x = Ops<T, R>::add(x, c);
+    v[i] = x;
+  }
 }
 
 // D = 1: warp w takes rows w, w + warps, ... of the CTA's `rows`.
@@ -389,11 +440,12 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
     const long long b = (long long)blockIdx.x * p.rows + r;
     const bool full = row_full(p, o, b);
     const int steps = row_steps(p, full);
-    // the lanes' metadata, then the gathers it indexes, then the step
-    // masks, which only need seg and so overlap the gathers' latency
+    // the lanes' metadata, then the gathers it indexes and the elementwise
+    // operand, then the step masks, which only need seg and so overlap the
+    // loads' latency
     long long src[L];
     int sg[L];
-    T v[1][L], orig[L];
+    T v[1][L], y[L], e[L], orig[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       const int lane = i * kWarp + t;
@@ -402,17 +454,21 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
       sg[i] = lane < n ? o.seg[li] : kSegPad;
     }
 #pragma unroll
-    for (int i = 0; i < L; ++i)
-      v[0][i] = i * kWarp + t < n ? g0[src[i]] : ident;
-    uint32_t m[kSteps<L>];
-    step_masks<L>(sg, n, steps, full, t, m);
-#pragma unroll
     for (int i = 0; i < L; ++i) {
       const int lane = i * kWarp + t;
-      if (lane < n)
-        v[0][i] = combine<T, R>(v[0][i], g1, src[i], e0, b * n + lane);
-      orig[i] = v[0][i];
+      const bool real = lane < n;
+      v[0][i] = real ? g0[src[i]] : ident;
+      y[i] = real && g1 ? g1[src[i]] : ident;
+      e[i] = real && e0 ? e0[b * n + lane] : ident;
     }
+    uint32_t m[kSteps<L>];
+    step_masks<L>(sg, n, steps, full, t, m);
+    if (o.combine == kMulAll)
+      combine_row<T, R, kMulAll, L>(v[0], y, e, g1, e0, n, t, o);
+    else
+      combine_row<T, R, kAddAll, L>(v[0], y, e, g1, e0, n, t, o);
+#pragma unroll
+    for (int i = 0; i < L; ++i) orig[i] = v[0][i];
     run_ladder<T, R, L, 1>(v, m, steps, t);
 #pragma unroll
     for (int i = 0; i < L; ++i) {
@@ -425,6 +481,50 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
 template <typename T> struct __align__(16) Vec16 {
   T e[16 / sizeof(T)];
 };
+
+// Phase (2) of cols_kernel for combine form F: thread (g, lane0) loads
+// column group g of lanes lane0, lane0 + lstride, ... of the pass's nr rows
+// from block b0 on, combines and transposes them into
+// vals[(r * dt + c) * pitch + lane].
+template <typename T, int R, int F, class Index>
+__device__ __forceinline__ void load_pass(const Index& ix, const Operands& o,
+                                          const Plan& p, T* vals,
+                                          long long b0, int nr, int g,
+                                          int lane0, int lstride,
+                                          long long c0) {
+  constexpr int VW = 16 / sizeof(T);
+  const int n = p.n, dt = p.dt, pitch = p.pitch;
+  const T* g0 = static_cast<const T*>(o.g0);
+  const T* g1 = static_cast<const T*>(o.g1);
+  const T* e0 = static_cast<const T*>(o.e0);
+  const bool with_c = o.combine == kAddAllConst;
+  const T c = static_cast<T>(o.addend);
+  for (int r = 0; r < nr; ++r) {
+    const long long b = b0 + r;
+    T* const row = vals + (size_t)r * dt * pitch;
+    for (int lane = lane0; lane < n; lane += lstride) {
+      const long long li = b * n + lane;
+      const long long src = ix(b, lane, li) * p.d + c0 + (long long)g * p.vec;
+      T* const dst = row + (size_t)g * p.vec * pitch + lane;
+      if (p.vec > 1) {
+        const Vec16<T> a = *reinterpret_cast<const Vec16<T>*>(g0 + src);
+        Vec16<T> y = {};
+        if (g1) y = *reinterpret_cast<const Vec16<T>*>(g1 + src);
+        const T ev = e0 ? e0[li] : Ops<T, R>::identity();
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          T x = a.e[e];
+          if (g1) x = apply<T, R, F>(x, y.e[e]);
+          if (e0) x = apply<T, R, F>(x, ev);
+          if (F != kMulAll && with_c) x = Ops<T, R>::add(x, c);
+          dst[(size_t)e * pitch] = x;
+        }
+      } else {
+        dst[0] = combine<T, R, F>(g0[src], g1, src, e0, li, with_c, c);
+      }
+    }
+  }
+}
 
 // D > 1: dt columns (grid axis y walks the column tiles) of `rows` rows,
 // in passes of ny rows; see the header for the four phases.
@@ -447,11 +547,7 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   // idle in those phases)
   const int lstride = p.warps * kWarp / groups;
   const int g = tid % groups, lane0 = tid / groups;
-  const T* g0 = static_cast<const T*>(o.g0);
-  const T* g1 = static_cast<const T*>(o.g1);
-  const T* e0 = static_cast<const T*>(o.e0);
   T* out = static_cast<T*>(o.out);
-  const T ident = Ops<T, R>::identity();
   const size_t buf_elems = (size_t)p.ny * dt * pitch;
   T* const vals0 = reinterpret_cast<T*>(smem);
   uint32_t* const masks = reinterpret_cast<uint32_t*>(vals0 + p.nbuf * buf_elems);
@@ -480,30 +576,12 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
     }
     // (2) load, combine and transpose into vals[(r * dt + c) * pitch + lane]
     if (lane0 < lstride) {
-      for (int r = 0; r < nr; ++r) {
-        const long long b = b0 + r;
-        T* const row = vals + (size_t)r * dt * pitch;
-        for (int lane = lane0; lane < n; lane += lstride) {
-          const long long li = b * n + lane;
-          const long long src = ix(b, lane, li) * d + c0 + (long long)g * p.vec;
-          T* const dst = row + (size_t)g * p.vec * pitch + lane;
-          if (p.vec > 1) {
-            const Vec16<T> a = *reinterpret_cast<const Vec16<T>*>(g0 + src);
-            Vec16<T> c = {};
-            if (g1) c = *reinterpret_cast<const Vec16<T>*>(g1 + src);
-            const T ev = e0 ? e0[li] : ident;
-#pragma unroll
-            for (int e = 0; e < VW; ++e) {
-              T x = a.e[e];
-              if (g1) x = Ops<T, R>::mul(x, c.e[e]);
-              if (e0) x = Ops<T, R>::mul(x, ev);
-              dst[(size_t)e * pitch] = x;
-            }
-          } else {
-            dst[0] = combine<T, R>(g0[src], g1, src, e0, li);
-          }
-        }
-      }
+      if (o.combine == kMulAll)
+        load_pass<T, R, kMulAll>(ix, o, p, vals, b0, nr, g, lane0, lstride,
+                                 c0);
+      else
+        load_pass<T, R, kAddAll>(ix, o, p, vals, b0, nr, g, lane0, lstride,
+                                 c0);
     }
     __syncthreads();
     // (3) the ladders: warp w takes a run of (row, column) pairs,
@@ -594,6 +672,7 @@ int launch(int reduce, const Index& ix, const Operands& o, long long blocks,
            int n, long long d, int op, int rows, cudaStream_t s) {
   if (n < 1 || n > kMaxLanes || rows < 1 || blocks < 0 || d < 1 ||
       op < kFullReduce || !o.g0 || !o.seg || !o.out ||
+      o.combine < kMulAll || o.combine > kAddAllConst ||
       (blocks > 0 && blocks % rows != 0))
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaSuccess;

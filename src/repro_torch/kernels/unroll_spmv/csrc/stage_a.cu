@@ -1,7 +1,7 @@
 // Stage A of the Intelligent-Unroll SpMV program for Hopper (sm_90a).
 //
 // Two kernels share one body, templated over the value type (float,
-// int32_t) and the reduce (add, mul, max, min):
+// double, int32_t) and the reduce (add, mul, max, min):
 //
 //   unroll_window_stage_a       replaces the JAX package's
 //       kernels/unroll_spmv/kernel.py::class_stage_a (TPU window form) and
@@ -18,11 +18,14 @@
 //       stays in global memory.
 //
 // The two differ only in the index policy below; the body is the register
-// ladder of ../../csrc/ladder.cuh.  Per lane and column: the "mul_all"
-// combine (product of up to two gathered operands, then one elementwise
-// operand), then the segmented ladder; a FULL_REDUCE block (op == -1, or
-// full[b] != 0 in a fused mixed section, over every column of the block)
-// runs the halving tree instead.
+// ladder of ../../csrc/ladder.cuh.  Per lane and column: the seed's combine
+// of up to two gathered operands and then one elementwise operand, as the
+// reference's _combine_lanes evaluates it in its kernels, in one of two
+// forms chosen per launch: "mul_all", their product (SpMV, SpMM,
+// PageRank), or "add_all", their sum plus an optional scalar addend (BFS
+// level + 1, SSSP dist + weight, CC's label alone); then the segmented
+// ladder.  A FULL_REDUCE block (op == -1, or full[b] != 0 in a fused mixed
+// section, over every column of the block) runs the halving tree instead.
 //
 // Trailing lane axes (SpMM): a gathered operand is (data_len, D), row
 // contiguous, and the output (Bc, N, D); the elementwise operand and the lane
@@ -83,11 +86,14 @@ int launch(int dtype, int reduce, const Index& ix, const ladder::Operands& o,
     return ladder::launch<float>(reduce, ix, o, bc, n, d, op, rows, s);
   if (dtype == 1)
     return ladder::launch<int32_t>(reduce, ix, o, bc, n, d, op, rows, s);
+  if (dtype == 2)
+    return ladder::launch<double>(reduce, ix, o, bc, n, d, op, rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
-ladder::Operands operands(const void* g0, const void* g1, const void* e0,
-                          const void* seg, const void* full, void* out) {
+ladder::Operands operands(int combine, double addend, const void* g0,
+                          const void* g1, const void* e0, const void* seg,
+                          const void* full, void* out) {
   ladder::Operands o = {};
   o.g0 = g0;
   o.g1 = g1;
@@ -95,17 +101,21 @@ ladder::Operands operands(const void* g0, const void* g1, const void* e0,
   o.seg = static_cast<const int32_t*>(seg);
   o.full = static_cast<const int32_t*>(full);
   o.out = out;
+  o.combine = combine;
+  o.addend = addend;
   return o;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 int32.  reduce: 0 add, 1 mul, 2 max, 3 min.
+// dtype: 0 float32, 1 int32, 2 float64.  reduce: 0 add, 1 mul, 2 max, 3 min.
+// combine: 0 "mul_all", 1 "add_all", 2 "add_all" plus `addend`.
 extern "C" int unroll_window_stage_a(
-    int dtype, int reduce, const void* win, long long win_ld, int stream_form,
-    const void* slot, const void* off, const void* g0, const void* g1,
-    const void* e0, const void* seg, const void* full, void* out, int bc,
-    int n, long long d, int op, int rows, void* stream) {
+    int dtype, int reduce, int combine, double addend, const void* win,
+    long long win_ld, int stream_form, const void* slot, const void* off,
+    const void* g0, const void* g1, const void* e0, const void* seg,
+    const void* full, void* out, int bc, int n, long long d, int op, int rows,
+    void* stream) {
   WindowIndex ix = {};
   ix.win = static_cast<const int32_t*>(win);
   ix.win_ld = win_ld;
@@ -115,19 +125,21 @@ extern "C" int unroll_window_stage_a(
   ix.n = n;
   if (!win || (!stream_form && (!slot || !off)))
     return (int)cudaErrorInvalidValue;
-  return launch(dtype, reduce, ix, operands(g0, g1, e0, seg, full, out), bc,
-                n, d, op, rows, stream);
+  return launch(dtype, reduce, ix,
+                operands(combine, addend, g0, g1, e0, seg, full, out), bc, n,
+                d, op, rows, stream);
 }
 
 extern "C" int unroll_dense_slice_stage_a(
-    int dtype, int reduce, const void* starts, const void* local_off,
-    const void* g0, const void* g1, const void* e0, const void* seg,
-    const void* full, void* out, int bc, int n, long long d, int op, int rows,
-    void* stream) {
+    int dtype, int reduce, int combine, double addend, const void* starts,
+    const void* local_off, const void* g0, const void* g1, const void* e0,
+    const void* seg, const void* full, void* out, int bc, int n, long long d,
+    int op, int rows, void* stream) {
   DenseIndex ix = {};
   ix.starts = static_cast<const int32_t*>(starts);
   ix.local_off = static_cast<const int32_t*>(local_off);
   if (!starts) return (int)cudaErrorInvalidValue;
-  return launch(dtype, reduce, ix, operands(g0, g1, e0, seg, full, out), bc,
-                n, d, op, rows, stream);
+  return launch(dtype, reduce, ix,
+                operands(combine, addend, g0, g1, e0, seg, full, out), bc, n,
+                d, op, rows, stream);
 }

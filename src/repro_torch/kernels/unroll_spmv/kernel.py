@@ -14,6 +14,14 @@ plain C interface, loaded with ``ctypes``):
   form of coalesced launches): lane ``j`` reads
   ``flat[starts[b] + local_off[b, j]]`` (``+ j`` for identity runs).
 
+Both evaluate the seed's combine in the kernel, as the reference's
+``_combine_lanes`` does, in one of two forms (``combine=``): ``"mul_all"``,
+the product of the gathered operands and then the elementwise one (SpMV,
+SpMM, PageRank), and ``"add_all"``, their sum and then an optional scalar
+``addend`` (BFS ``level + 1``, SSSP ``dist + weight``, CC's ``label``).  Every
+operand has one dtype, float32, float64 or int32; the caller casts them to
+their promoted dtype first.
+
 Both are bound by bytes on the card; the source's header counts them and
 says what the design does about it.  Beside each wrapper sits its plain
 torch version, the same arithmetic in the same order, and a launch counter
@@ -42,36 +50,46 @@ import torch
 
 from repro_torch.kernels import build, common
 
-_DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.float64: 2}
 _REDUCE_CODE = {"add": 0, "mul": 1, "max": 2, "min": 3}
+# the combine forms; "add_all" with an addend is code 2
+COMBINES = ("mul_all", "add_all")
 _MAX_THREADS = 1024
 _largest_divisor = build.largest_divisor
-P, I, LL = build.P, build.I, build.LL
+P, I, LL, F64 = build.P, build.I, build.LL, build.F64
 
 library = build.Library(
     "unroll_stage_a", Path(__file__).with_name("csrc") / "stage_a.cu", {
-        "unroll_window_stage_a": [I, I, P, LL, I, P, P, P, P, P, P, P, P, I,
-                                  I, LL, I, I, P],
-        "unroll_dense_slice_stage_a": [I, I, P, P, P, P, P, P, P, P, I, I,
-                                       LL, I, I, P],
+        "unroll_window_stage_a": [I, I, I, F64, P, LL, I, P, P, P, P, P, P,
+                                  P, P, I, I, LL, I, I, P],
+        "unroll_dense_slice_stage_a": [I, I, I, F64, P, P, P, P, P, P, P, P,
+                                       I, I, LL, I, I, P],
     })
 
 
 # ---------------------------------------------------------- shared checks
-def _term_struct(gathered, elem) -> tuple[torch.dtype, tuple]:
-    """dtype and trailing lane shape of the ``mul_all`` combine (the only
-    one the kernels implement): every operand shares the dtype, float32 or
-    int32 (the kernels' two instantiations), and every gathered operand the
-    trailing shape.  Raises otherwise, on the CPU too, so the plain path
+def _term_struct(gathered, elem, combine, addend) -> tuple[torch.dtype, tuple]:
+    """dtype and trailing lane shape of the combine: one or two gathered
+    operands and at most one elementwise, every operand of one dtype,
+    float32, float64 or int32 (the kernels' three instantiations), every
+    gathered operand of one trailing shape, and an addend only with
+    ``"add_all"``.  Raises otherwise, on the CPU too, so the plain path
     accepts exactly what the kernel does."""
+    if combine not in COMBINES:
+        raise ValueError(f"unknown combine {combine!r}; the kernels "
+                         f"implement {COMBINES}")
+    if addend is not None and combine != "add_all":
+        raise ValueError(f"an addend needs combine 'add_all', not "
+                         f"{combine!r}")
     if not 1 <= len(gathered) <= 2 or len(elem) > 1:
-        raise ValueError("mul_all takes one or two gathered operands and at "
-                         f"most one elementwise (got {len(gathered)}, "
+        raise ValueError(f"{combine} takes one or two gathered operands and "
+                         f"at most one elementwise (got {len(gathered)}, "
                          f"{len(elem)})")
     dtypes = {t.dtype for t in (*gathered, *elem)}
     if len(dtypes) != 1 or next(iter(dtypes)) not in _DTYPE_CODE:
-        raise TypeError("stage-A kernels take operands of one dtype, float32 "
-                        f"or int32; got {sorted(map(str, dtypes))}")
+        raise TypeError("stage-A kernels take operands of one dtype, "
+                        "float32, float64 or int32; got "
+                        f"{sorted(map(str, dtypes))}")
     trailing = {tuple(g.shape[1:]) for g in gathered}
     if len(trailing) != 1 or any(g.ndim < 1 for g in gathered):
         raise ValueError("gathered operands must share one trailing lane "
@@ -109,14 +127,28 @@ def _launch_output(seg, gathered, elem, dtype, trailing, out, meta: dict):
     return out
 
 
-def _mul_all(operands):
-    """``g0 * g1 * e0`` in that order; the (Bc, N) elementwise operand
-    broadcasts over the gathered rank (the §8 rank rule)."""
+def _combine(operands, combine: str, addend):
+    """``g0 * g1 * e0`` (``"mul_all"``) or ``g0 + g1 + e0 + addend``
+    (``"add_all"``), the operands present, in that order; the (Bc, N)
+    elementwise operand broadcasts over the gathered rank (the §8 rank
+    rule)."""
+    op = torch.mul if combine == "mul_all" else torch.add
     rank = operands[0].ndim
     term = operands[0]
     for o in operands[1:]:
-        term = term * common.expand_trailing(o, rank)
+        term = op(term, common.expand_trailing(o, rank))
+    if addend is not None:
+        term = term + torch.tensor(addend, dtype=term.dtype,
+                                   device=term.device)
     return term
+
+
+def _combine_args(dtype, combine: str, addend) -> tuple[int, float]:
+    """The C entry points' combine code and addend (as a double, exact
+    for every value of the operand dtype)."""
+    if addend is None:
+        return COMBINES.index(combine), 0.0
+    return 2, float(torch.tensor(addend, dtype=dtype).item())
 
 
 def _pad_flat(g: torch.Tensor, n: int) -> torch.Tensor:
@@ -130,7 +162,8 @@ def _pad_flat(g: torch.Tensor, n: int) -> torch.Tensor:
 # ------------------------------------------------------------ window form
 def window_stage_a_plain(win_ids, gathered, elem, slot, off, seg, *,
                          op: int, stream: bool, reduce: str,
-                         full_flags=None) -> torch.Tensor:
+                         full_flags=None, combine: str = "mul_all",
+                         addend=None) -> torch.Tensor:
     """Plain torch version of the window kernel: load the ``ls`` windows of
     each gathered array, select ``concat(windows)[slot * N + off]`` per
     lane (window 0 as it is for stream launches), combine, ladder."""
@@ -143,12 +176,13 @@ def window_stage_a_plain(win_ids, gathered, elem, slot, off, seg, *,
             vals.append(view[win[:, 0]])
         else:
             vals.append(common.permute_onehot(view[win], slot, off))
-    return common.ladder_tail(_mul_all(vals + list(elem)), seg, op, reduce,
-                              full_flags)
+    return common.ladder_tail(_combine(vals + list(elem), combine, addend),
+                              seg, op, reduce, full_flags)
 
 
 def window_stage_a(win_ids, gathered, elem, slot, off, seg, *, op: int,
                    stream: bool, reduce: str, full_flags=None,
+                   combine: str = "mul_all", addend=None,
                    rows_per_step: int = 1,
                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage A for one window / stream launch or fused section.
@@ -160,17 +194,20 @@ def window_stage_a(win_ids, gathered, elem, slot, off, seg, *, op: int,
     slot/off    (Bc, N) int32 per-lane window slot and offset
     seg         (Bc, N) int32 segment ids
     full_flags  (Bc,) int32 native-reduce flags of a fused mixed section
+    combine     "mul_all" or "add_all"; addend: a scalar of "add_all", or
+                None
     rows_per_step  exec blocks per CTA (upper bound; the realized value is
                    the largest divisor of Bc, so results never depend on it)
     out         optional (Bc, N, ...) contiguous destination
     returns     (Bc, N, ...) post-ladder lanes in the combine's dtype
     """
     bc, n = seg.shape
-    dtype, trailing = _term_struct(gathered, elem)
+    dtype, trailing = _term_struct(gathered, elem, combine, addend)
     if seg.device.type == "cpu":
         return common.write_out(window_stage_a_plain(
             win_ids, gathered, elem, slot, off, seg, op=op, stream=stream,
-            reduce=reduce, full_flags=full_flags), out)
+            reduce=reduce, full_flags=full_flags, combine=combine,
+            addend=addend), out)
     out = _launch_output(seg, gathered, elem, dtype, trailing, out, {
         "slot": (slot, "lanes"), "off": (off, "lanes"),
         "full_flags": (full_flags, "blocks")})
@@ -185,7 +222,8 @@ def window_stage_a(win_ids, gathered, elem, slot, off, seg, *, op: int,
     g1 = gathered[1] if len(gathered) > 1 else None
     e0 = elem[0] if elem else None
     build.check_launch(library().unroll_window_stage_a(
-        _DTYPE_CODE[dtype], _REDUCE_CODE[reduce], win_ids.data_ptr(),
+        _DTYPE_CODE[dtype], _REDUCE_CODE[reduce],
+        *_combine_args(dtype, combine, addend), win_ids.data_ptr(),
         win_ids.stride(0), int(stream), slot.data_ptr(), off.data_ptr(),
         gathered[0].data_ptr(), _ptr(g1), _ptr(e0), seg.data_ptr(),
         _ptr(full_flags), out.data_ptr(), bc, n, math.prod(trailing), op,
@@ -199,8 +237,9 @@ window_stage_a.launches = 0
 
 # ------------------------------------------------------- dense-slice form
 def dense_slice_stage_a_plain(starts, gathered, elem, local_off, seg, *,
-                              op: int, reduce: str,
-                              full_flags=None) -> torch.Tensor:
+                              op: int, reduce: str, full_flags=None,
+                              combine: str = "mul_all",
+                              addend=None) -> torch.Tensor:
     """Plain torch version of the dense-slice kernel: one N-row slice
     ``flat[starts[b]:starts[b] + N]`` per block, permuted in the tile by
     ``local_off`` for strided runs, then combine and ladder."""
@@ -214,12 +253,14 @@ def dense_slice_stage_a_plain(starts, gathered, elem, local_off, seg, *,
                 tiles, common.expand_trailing(local_off.long(), tiles.ndim),
                 dim=1)
         vals.append(tiles)
-    return common.ladder_tail(_mul_all(vals + list(elem)), seg, op, reduce,
-                              full_flags)
+    return common.ladder_tail(_combine(vals + list(elem), combine, addend),
+                              seg, op, reduce, full_flags)
 
 
 def dense_slice_stage_a(starts, gathered, elem, local_off, seg, *, op: int,
-                        reduce: str, full_flags=None, rows_per_step: int = 1,
+                        reduce: str, full_flags=None,
+                        combine: str = "mul_all", addend=None,
+                        rows_per_step: int = 1,
                         out: torch.Tensor | None = None) -> torch.Tensor:
     """Stage A for one COALESCED launch.
 
@@ -228,11 +269,11 @@ def dense_slice_stage_a(starts, gathered, elem, local_off, seg, *, op: int,
     the rest as in :func:`window_stage_a`
     """
     bc, n = seg.shape
-    dtype, trailing = _term_struct(gathered, elem)
+    dtype, trailing = _term_struct(gathered, elem, combine, addend)
     if seg.device.type == "cpu":
         return common.write_out(dense_slice_stage_a_plain(
             starts, gathered, elem, local_off, seg, op=op, reduce=reduce,
-            full_flags=full_flags), out)
+            full_flags=full_flags, combine=combine, addend=addend), out)
     out = _launch_output(seg, gathered, elem, dtype, trailing, out, {
         "starts": (starts, "blocks"), "local_off": (local_off, "lanes"),
         "full_flags": (full_flags, "blocks")})
@@ -242,7 +283,8 @@ def dense_slice_stage_a(starts, gathered, elem, local_off, seg, *, op: int,
     g1 = gathered[1] if len(gathered) > 1 else None
     e0 = elem[0] if elem else None
     build.check_launch(library().unroll_dense_slice_stage_a(
-        _DTYPE_CODE[dtype], _REDUCE_CODE[reduce], starts.data_ptr(),
+        _DTYPE_CODE[dtype], _REDUCE_CODE[reduce],
+        *_combine_args(dtype, combine, addend), starts.data_ptr(),
         _ptr(local_off), gathered[0].data_ptr(), _ptr(g1), _ptr(e0),
         seg.data_ptr(), _ptr(full_flags), out.data_ptr(), bc, n,
         math.prod(trailing), op, rows, build.stream_of(seg)),

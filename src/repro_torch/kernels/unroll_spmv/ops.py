@@ -15,6 +15,16 @@ Each launch writes its rows of one preallocated lanes tensor, so stage A
 makes no concatenation copy.  All per-launch metadata is staged to the
 device once, here, at build time.
 
+The kernels take operands of one dtype.  Each call casts the gathered
+arrays and the elementwise constants to the promoted dtype of them all,
+once, before the launch loop (each constant once per promoted dtype, at
+the first call that needs it), so every launch, the torch-op fallback
+ones included, sees one dtype, and the lanes come back in it: float32
+values with a float64 ``x`` run the float64 kernels, with a float16 or
+int32 ``x`` the float32 ones, exactly the arithmetic of torch's own
+promotion in the ``"torch"`` backend.  A promoted dtype the kernels have
+no instantiation for (float16 throughout, int64) raises.
+
 Kernel knobs (``kernel_params``): ``rows_per_step`` is honoured by both
 kernels (realized as the largest divisor of the launch's block count, so
 every value gives bit-identical lanes).  ``meta_prefetch`` sizes the TPU
@@ -103,16 +113,15 @@ def run_launch(plan: BlockPlan, cm: LaunchMeta, gathered: list,
         return common.write_out(common.ladder_tail(
             seed.combine(vals), cm.seg, launch.op_flag, seed.reduce, cm.full),
             out)
-    require_kernel_combine(seed)
+    kw = dict(op=launch.op_flag, reduce=seed.reduce, full_flags=cm.full,
+              combine=require_kernel_combine(seed),
+              addend=seed.kernel_addend, rows_per_step=rows_per_step,
+              out=out)
     if launch.gather == ir.COALESCED:
-        return dense_slice_stage_a(
-            cm.starts, gathered, elem, cm.local, cm.seg, op=launch.op_flag,
-            reduce=seed.reduce, full_flags=cm.full,
-            rows_per_step=rows_per_step, out=out)
-    return window_stage_a(
-        cm.win, gathered, elem, cm.slot, cm.off, cm.seg, op=launch.op_flag,
-        stream=launch.stream, reduce=seed.reduce, full_flags=cm.full,
-        rows_per_step=rows_per_step, out=out)
+        return dense_slice_stage_a(cm.starts, gathered, elem, cm.local,
+                                   cm.seg, **kw)
+    return window_stage_a(cm.win, gathered, elem, cm.slot, cm.off, cm.seg,
+                          stream=launch.stream, **kw)
 
 
 def make_stage_a(plan: BlockPlan, elem_exec, device: torch.device,
@@ -125,20 +134,25 @@ def make_stage_a(plan: BlockPlan, elem_exec, device: torch.device,
     if launches is None:
         launches = ir.lower(plan, backend="cuda").launches
     launch_meta = stage_launch_meta(plan, launches, device)
+    elem_dtypes = [elem_exec[e].dtype for e in seed.elementwise]
+    elem_cast = {}      # promoted dtype -> the elementwise constants in it
 
     def stage_a(mutable):
         gathered = [mutable[g] for g in seed.gathered]
         dtype = functools.reduce(torch.promote_types, [
-            *(g.dtype for g in gathered),
-            *(elem_exec[e].dtype for e in seed.elementwise)])
+            *(g.dtype for g in gathered), *elem_dtypes])
+        gathered = [g.to(dtype) for g in gathered]
+        elem = elem_cast.get(dtype)
+        if elem is None:
+            elem = elem_cast[dtype] = [elem_exec[e].to(dtype)
+                                       for e in seed.elementwise]
         trailing = tuple(gathered[0].shape[1:]) if gathered else ()
         lanes = torch.empty((plan.num_blocks, plan.lane_width) + trailing,
                             dtype=dtype, device=device)
         for cm in launch_meta:
             s = slice(cm.launch.start, cm.launch.stop)
-            elem = [elem_exec[e][s] for e in seed.elementwise]
-            run_launch(plan, cm, gathered, elem, out=lanes[s],
-                       rows_per_step=rows_per_step)
+            run_launch(plan, cm, gathered, [e[s] for e in elem],
+                       out=lanes[s], rows_per_step=rows_per_step)
         return lanes
 
     stage_a.launch_meta = launch_meta

@@ -354,6 +354,163 @@ def test_stage_a_every_depth_bitwise_vs_plain(n, d, form, reduce, dtype):
     assert kernel.launches == before + launched
 
 
+def _edge_values(rng, shape, dtype, dev):
+    """Random operand values with the edges of each type mixed in: NaN and
+    +-inf for floats, INT32_MAX / INT32_MIN and their neighbours for
+    int32 (where + and * wrap)."""
+    if dtype == np.int32:
+        edges = np.array([2 ** 31 - 1, 2 ** 31 - 2, -(2 ** 31),
+                          -(2 ** 31) + 1, 1 << 30], np.int64)
+        v = rng.integers(-3, 4, shape)
+    else:
+        edges = np.array([np.nan, np.inf, -np.inf])
+        v = rng.standard_normal(shape)
+    pick = rng.random(shape) < 0.05
+    v = np.where(pick, edges[rng.integers(0, edges.size, shape)], v)
+    return torch.as_tensor(v.astype(dtype), device=dev)
+
+
+def _same_bits(got, want) -> bool:
+    """Bitwise equal, except that a float64 NaN equals any NaN in the same
+    word: the card keeps float64 NaN signs and payloads, and which operand's
+    a sum or product of two NaNs carries is the compiler's choice (float32
+    NaN results are canonical, so float32 stays bit for bit)."""
+    if got.dtype == torch.float64:
+        nan = got.isnan()
+        if not torch.equal(nan, want.isnan()):
+            return False
+        got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
+    return torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64],
+                         ids=lambda t: t.__name__)
+@pytest.mark.parametrize("reduce", ["add", "mul", "max", "min"])
+@pytest.mark.parametrize("form", ["dense", "window"])
+@pytest.mark.parametrize("d", [1, 4, 17, 64])
+@pytest.mark.parametrize("n", [8, 33, 128, 1024])
+def test_add_all_every_depth_bitwise_vs_plain(n, d, form, reduce, dtype):
+    """The ``"add_all"`` combine in both stage-A kernels, with and without
+    its addend, over one gathered operand plus an elementwise one (SSSP,
+    BFS), two gathered ones, and one alone (CC), on values with NaN, +-inf
+    and int32 extremes: every depth, with and without the fused mixed
+    section's flags, permuted and identity slices, window and stream
+    launches, two ``rows_per_step`` values, bitwise against the plain
+    version (float64 NaN words as NaN: :func:`_same_bits`); float64 also
+    runs ``"mul_all"``."""
+    dev = _cuda()
+    rng = np.random.default_rng(n * 7 + d)
+    bc = 16
+    kernel, plain = {"dense": (K.dense_slice_stage_a,
+                               K.dense_slice_stage_a_plain),
+                     "window": (K.window_stage_a,
+                                K.window_stage_a_plain)}[form]
+    full = torch.as_tensor((rng.random(bc) < 0.3).astype(np.int32),
+                           device=dev)
+    addend = 1 if dtype == np.int32 else 0.25
+    combines = [("add_all", addend), ("add_all", None)]
+    if dtype == np.float64:
+        combines.append(("mul_all", None))
+    for variant in range(3):    # g0 + e0; g0 + g1 (permuted / stream); g0
+        args = list(_stage_a_case(form, rng, bc, n, d, dtype, dev,
+                                  variant == 1, variant == 1))
+        args[1] = [_edge_values(rng, tuple(g.shape), dtype, dev)
+                   for g in args[1]]
+        args[2] = [] if variant else [_edge_values(rng, (bc, n), dtype, dev)]
+        extra = {"stream": variant == 1} if form == "window" else {}
+        for combine, c in combines:
+            for op in _depths(n):
+                for flags in (None, full):
+                    kw = dict(op=op, reduce=reduce, full_flags=flags,
+                              combine=combine, addend=c, **extra)
+                    want = plain(*args, **kw)
+                    for rows in (1, 8):
+                        got = kernel(*args, rows_per_step=rows, **kw)
+                        torch.cuda.synchronize()
+                        assert _same_bits(got, want), \
+                            (variant, combine, c, op, flags is not None,
+                             rows)
+
+
+@pytest.mark.parametrize("xdtype", [np.float64, np.float16, np.int32],
+                         ids=lambda t: t.__name__)
+@pytest.mark.parametrize("coalesce", [False, True])
+@pytest.mark.parametrize("gen", ["banded", "dense"])
+def test_cuda_backend_takes_every_x_dtype_on_card(gen, coalesce, xdtype):
+    """Float32 values with a float64, float16 or int32 ``x`` (and a float64
+    ``B``) on the card: the kernels run in the promoted dtype, bitwise equal
+    to the torch backend."""
+    dev = _cuda()
+    m = _matrix(gen)
+    vals = np.asarray(m.vals, np.float32)
+    rng = np.random.default_rng(3)
+    x = (rng.integers(-5, 6, m.shape[1]) if xdtype == np.int32
+         else rng.standard_normal(m.shape[1])).astype(xdtype)
+    xd = torch.as_tensor(x, device=dev)
+    bd = torch.as_tensor(rng.standard_normal((m.shape[1], 4)), device=dev)
+    ys = {}
+    for backend in ("torch", "cuda"):
+        for fn in K.KERNELS.values():
+            fn.launches = 0
+        sp = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=8,
+                           backend=backend, coalesce=coalesce, device=dev)
+        smm = SpMM.from_coo(m.rows, m.cols, vals, m.shape, lane_width=8,
+                            backend=backend, coalesce=coalesce, device=dev)
+        ys[backend] = (sp.matvec(xd), smm.matmat(bd))
+        torch.cuda.synchronize()
+        launched = sum(fn.launches for fn in K.KERNELS.values())
+        assert (launched > 0) == (backend == "cuda")
+    for got, want in zip(ys["cuda"], ys["torch"]):
+        assert got.dtype == want.dtype
+        assert torch.equal(_bits(got), _bits(want))
+    assert ys["cuda"][0].dtype == xd.dtype
+    assert ys["cuda"][1].dtype == torch.float64
+
+
+@pytest.mark.parametrize("kind", ["powerlaw", "uniform", "ring", "isolated",
+                                  "empty"])
+def test_graph_apps_cuda_bitwise_vs_torch(kind):
+    """BFS, SSSP, CC and PageRank at a small size on the card: the kernel
+    backend equals the torch backend bit for bit in states and
+    convergence reports, on both drivers, and ``run_multi`` rows equal
+    ``run``; the kernels were launched."""
+    from repro_torch.core.apps import PageRank
+    from repro_torch.core.graphs import BFS, SSSP, ConnectedComponents
+    dev = _cuda()
+    c = G.graph_case(kind, 4000 if kind != "ring" else 300, 6)
+    apps = {"bfs": (BFS, (c.src, c.dst, c.num_nodes)),
+            "sssp": (SSSP, (c.src, c.dst, c.weight, c.num_nodes)),
+            "cc": (ConnectedComponents, (c.src, c.dst, c.num_nodes)),
+            "pagerank": (PageRank, (c.src, c.dst, c.num_nodes))}
+    for name, (cls, edges) in apps.items():
+        outs = {}
+        for backend in ("torch", "cuda"):
+            for driver in ("resident", "host"):
+                for fn in K.KERNELS.values():
+                    fn.launches = 0
+                app = cls.from_edges(*edges, lane_width=128, backend=backend,
+                                     driver=driver, device=dev)
+                if name == "pagerank":
+                    out, report = app.run(iters=10), None
+                else:
+                    out = app.run() if name == "cc" else app.run(0)
+                    report = app.convergence
+                torch.cuda.synchronize()
+                launched = sum(fn.launches for fn in K.KERNELS.values())
+                if kind != "empty":
+                    assert (launched > 0) == (backend == "cuda"), name
+                outs[backend, driver] = (_bits(out).cpu(), report)
+                if name in ("bfs", "sssp") and driver == "resident":
+                    multi = app.run_multi([0, 5, 9])
+                    for i, s in enumerate([0, 5, 9]):
+                        assert torch.equal(_bits(multi[i]),
+                                           _bits(app.run(s))), (name, i)
+        base = outs["torch", "resident"]
+        for key, (bits, report) in outs.items():
+            assert torch.equal(bits, base[0]) and report == base[1], \
+                (name, key)
+
+
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("trailing", [(), (3,), (16,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32,

@@ -155,6 +155,87 @@ def test_dense_slice_plain_vs_reference(gen, fused, reduce, dtype):
         _assert_rule(got, np.asarray(ref), reduce, dtype)
 
 
+# The graph apps' "add_all" combines over the SpMV plans' operands: SSSP's
+# gathered + elementwise (dist + weight) and BFS's gathered + 1 (level + 1):
+# (reference combine, elementwise names, port addend)
+ADD_FORMS = {"sssp": (lambda v: v["x"] + v["value"], ("value",), None),
+             "bfs": (lambda v: v["x"] + 1, (), 1)}
+ALL_REDUCES = [(r, d) for r in ("add", "mul", "max", "min")
+               for d in (np.float32, np.int32)]
+
+
+@pytest.mark.parametrize("form", sorted(ADD_FORMS))
+@pytest.mark.parametrize("reduce,dtype", ALL_REDUCES)
+@pytest.mark.parametrize("kernel", ["window", "dense_slice"])
+def test_add_all_plain_vs_reference(kernel, reduce, dtype, form):
+    """The ``"add_all"`` plain versions against ``gpu_stage_a`` (window
+    form, on the power-law plan's window and stream launches) and
+    ``coalesced_stage_a`` (on the banded plan's coalesced launches) in
+    interpret mode, with the reference evaluating the seed's own lambda."""
+    combine, elementwise, addend = ADD_FORMS[form]
+    gen = "powerlaw" if kernel == "window" else "banded"
+    cases = [c for c in _launch_inputs(gen, reduce, dtype, True,
+                                       coalesce=kernel == "dense_slice")
+             if (c[0].gather == rir.COALESCED) == (kernel == "dense_slice")]
+    assert cases
+    for rl, cm, rplan, s, relem, pelem, x in cases:
+        full = None if rl.full_mask is None else jnp.asarray(rl.full_mask,
+                                                             jnp.int32)
+        kw = dict(combine=combine, gathered=("x",), elementwise=elementwise,
+                  op=rl.op_flag, reduce=reduce, full_flags=full,
+                  out_dtype=jnp.dtype(dtype), out_trailing=(),
+                  interpret=True)
+        relems = {"value": relem} if elementwise else {}
+        pelems = [pelem] if elementwise else []
+        seg = jnp.asarray(rplan.seg_ids[s], jnp.int32)
+        if kernel == "window":
+            ls = max(rl.ls_flag, 1)
+            ref = gpu_stage_a(
+                jnp.asarray(rplan.window_ids[s][:, :ls], jnp.int32),
+                {"x": reng._pad_gathered(rplan, jnp.asarray(x))}, relems,
+                jnp.asarray(rplan.lane_slot[s], jnp.int32),
+                jnp.asarray(rplan.lane_offset[s], jnp.int32), seg, ls=ls,
+                stream=rl.stream, **kw)
+            got = K.window_stage_a(
+                cm.win, [torch.as_tensor(x)], pelems, cm.slot, cm.off,
+                cm.seg, op=rl.op_flag, stream=rl.stream, reduce=reduce,
+                full_flags=cm.full, combine="add_all", addend=addend)
+        else:
+            local = None if rl.local_offset is None else jnp.asarray(
+                rl.local_offset, jnp.int32)
+            ref = coalesced_stage_a(
+                jnp.asarray(rl.slice_starts, jnp.int32),
+                {"x": reng._pad_flat(rplan, jnp.asarray(x))}, relems, local,
+                seg, **kw)
+            got = K.dense_slice_stage_a(
+                cm.starts, [torch.as_tensor(x)], pelems, cm.local, cm.seg,
+                op=rl.op_flag, reduce=reduce, full_flags=cm.full,
+                combine="add_all", addend=addend)
+        _assert_rule(got.numpy(), np.asarray(ref), reduce, dtype)
+
+
+def test_add_all_plain_wraps_and_propagates_like_torch():
+    """The plain ``"add_all"`` is torch's ``+`` in operand order: int32
+    wraps, NaN and inf propagate, and a float addend is added in the
+    operand dtype."""
+    seg = torch.zeros((1, 4), dtype=torch.int32)
+    win = torch.zeros((1, 1), dtype=torch.int32)
+    idx = torch.arange(4, dtype=torch.int32)[None]
+    big = torch.tensor([2 ** 31 - 1, 5, -(2 ** 31), 0], dtype=torch.int32)
+    got = K.window_stage_a(win, [big], [], idx * 0, idx, seg, op=0,
+                           stream=False, reduce="min", combine="add_all",
+                           addend=1)
+    assert got.tolist() == [[-(2 ** 31), 6, -(2 ** 31) + 1, 1]]
+    x = torch.tensor([np.nan, np.inf, -np.inf, 1.0])
+    w = torch.tensor([[1.0, -np.inf, 1.0, 2.0]])
+    got = K.dense_slice_stage_a(torch.zeros(1, dtype=torch.int32), [x], [w],
+                                None, seg, op=0, reduce="min",
+                                combine="add_all", addend=0.1)
+    want = (x + w[0]) + torch.tensor(0.1, dtype=torch.float32)
+    assert torch.equal(got[0].isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got[0]), torch.nan_to_num(want))
+
+
 @pytest.mark.parametrize("b,r,want", [(12, 1, 1), (12, 5, 4), (12, 64, 12),
                                       (7, 4, 1), (0, 8, 1), (30, 8, 6)])
 def test_rows_per_step_realizes_as_largest_divisor(b, r, want):
@@ -210,10 +291,16 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="one trailing lane shape"):
         K.window_stage_a(win, [torch.ones((8, 3)), torch.ones((8, 4))], [],
                          idx, idx, seg, op=0, stream=False, reduce="add")
-    with pytest.raises(TypeError, match="float32 or int32"):
+    with pytest.raises(TypeError, match="float32, float64 or int32"):
         K.dense_slice_stage_a(torch.zeros(2, dtype=torch.int32),
-                              [x.double()], [], None, seg, op=0,
+                              [x.half()], [], None, seg, op=0,
                               reduce="add")
+    with pytest.raises(ValueError, match="needs combine 'add_all'"):
+        K.window_stage_a(win, [x], [], idx, idx, seg, op=0, stream=False,
+                         reduce="min", addend=1.0)
+    with pytest.raises(ValueError, match="unknown combine"):
+        K.window_stage_a(win, [x], [], idx, idx, seg, op=0, stream=False,
+                         reduce="min", combine="max_all")
 
 
 def _random_segments(rng, b, n):

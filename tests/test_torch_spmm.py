@@ -206,3 +206,23 @@ def test_spmm_not_yet_ported_options_raise():
     assert y.device.type == "cpu" and tuple(y.shape) == (m.shape[0], 2)
     with pytest.raises(ValueError, match="is on meta"):
         sp.matmat(torch.empty(bmat.shape, device="meta"))
+
+
+@pytest.mark.parametrize("coalesce", [False, True])
+def test_spmm_cuda_backend_takes_a_float64_b(coalesce):
+    """ROADMAP queue 3, fault 3: float32 values with a float64 ``(256, 4)``
+    ``B`` run on the kernel backend in float64, bitwise equal to the torch
+    backend and close to the reference (which computes in float32)."""
+    m = G.banded(256, 5)
+    vals = np.asarray(m.vals, np.float32)
+    bmat = np.random.default_rng(12).standard_normal((256, 4))
+    ys = [SpMM.from_coo(*_coo(m, vals), lane_width=8, backend=backend,
+                        coalesce=coalesce, device="cpu").matmat(bmat)
+          for backend in ("torch", "cuda")]
+    assert ys[1].dtype == torch.float64
+    assert torch.equal(ys[0].view(torch.int64), ys[1].view(torch.int64))
+    ref = rspmm.SpMM.from_coo(*_coo(m, vals), lane_width=8,
+                              coalesce=coalesce).matmat(jnp.asarray(bmat))
+    np.testing.assert_allclose(ys[1].numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+

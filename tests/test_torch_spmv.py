@@ -344,3 +344,40 @@ def test_tree_sum_and_state_healthy_match_the_reference():
         for reduce in ("add", "mul", "min", "max"):
             assert bool(reng.state_healthy(jnp.asarray(st), reduce)) == \
                 bool(eng.state_healthy(torch.as_tensor(st), reduce))
+
+
+# x dtypes other than the values' float32: the rule each is held to against
+# the reference (which returns x's dtype too).  float16 results carry
+# float16's own rounding (a unit roundoff of 2**-11), so they are held to
+# 2**-10 relative.
+X_DTYPES = {np.float64: dict(rtol=1e-5, atol=1e-6),
+            np.float16: dict(rtol=2 ** -10, atol=2 ** -10),
+            np.int32: dict(rtol=0, atol=0)}
+
+
+@pytest.mark.parametrize("xdtype", list(X_DTYPES), ids=lambda d: d.__name__)
+@pytest.mark.parametrize("coalesce", [False, True])
+@pytest.mark.parametrize("gen", ["banded", "dense"])
+def test_cuda_backend_takes_every_x_dtype(gen, coalesce, xdtype):
+    """ROADMAP queue 3, fault 3: float32 values with a float64, float16 or
+    int32 ``x`` run on the kernel backend (each operand cast to the
+    promoted dtype before the launches), bitwise equal to the torch
+    backend, in ``x``'s dtype, and close to the reference."""
+    m = _matrix(gen)
+    vals = np.asarray(m.vals, np.float32)
+    rng = np.random.default_rng(11)
+    x = (rng.integers(-5, 6, m.shape[1]) if xdtype == np.int32
+         else rng.standard_normal(m.shape[1])).astype(xdtype)
+    ys = {}
+    for backend in ("torch", "cuda"):
+        sp = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=8,
+                           backend=backend, coalesce=coalesce, device="cpu")
+        ys[backend] = sp.matvec(x)
+    assert ys["cuda"].dtype == torch.as_tensor(x).dtype
+    assert ys["cuda"].numpy().tobytes() == ys["torch"].numpy().tobytes()
+    ref = rapps.SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=8,
+                              coalesce=coalesce).matvec(jnp.asarray(x))
+    np.testing.assert_allclose(ys["cuda"].numpy().astype(np.float64),
+                               np.asarray(ref).astype(np.float64),
+                               **X_DTYPES[xdtype])
+
