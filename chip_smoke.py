@@ -58,7 +58,25 @@ result line) if any phase fails:
    Per app it prints the plan build time, the fallback share of blocks, the
    sweeps, end-to-end ms with each driver, device ms per sweep, the idle
    share and the top kernels under ``torch.profiler``;
-7. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
+7. tuned path: ``SpMV.from_coo(..., backend="auto", tune_cache_dir=...)`` on
+   both matrices, the tuner's RuntimeWarnings turned into failures: every
+   measured candidate (label, predicted us, the model before its backend's
+   scale, measured us) and the winner
+   are printed, at least one ``cuda`` candidate must be measured, none
+   disqualified or rejected by the oracle, the winner's ``matvec`` within
+   1e-5 of the float64 oracle, and a rebuild on the same cache a hit with
+   no measurement and the same choice; the winner is timed beside the fixed
+   ``backend="cuda"`` build.  ``backend="segsum"`` on both matrices within
+   1e-5 of the oracle (its float sum is atomic on the card, so not bitwise
+   the torch backend's).  Two ``plan_cache_dir`` builds of webbase-1M, the
+   second a hit with a bitwise-equal result (skipped, with a line saying
+   so, where the optional msgpack does not import).  ``BFS.from_edges(...,
+   backend="auto")`` on the soc-Pokec analogue with the resident driver,
+   its levels equal to scipy's, timed beside a fixed ``backend="segsum"``
+   BFS (also equal to scipy's) with the model's prediction of every
+   candidate of the space.  ``report()`` of each tuned app: its
+   launch count equals the lowered tree's and its JSON parses;
+8. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
    clock around the call and a synchronize, median of 20) and in device
    time (CUDA events around back-to-back calls queued behind a spin kernel,
    so launch overhead leaves no gaps; median of 5 such measurements); a
@@ -71,13 +89,14 @@ result line) if any phase fails:
    SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
    the ``"mul_all"`` dense-slice time at ``D = 16`` beside the number of
    its design before the ``"add_all"`` combine (``PERF.md``);
-8. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+9. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
    ladder's shapes) in a child process.
 
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
-line; the last line is ``{"ok": true, "device": {...}}``.
+line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
+``CUDA_SCALE`` is read by ``python -m repro_torch.tune.calibrate``.)
 """
 from __future__ import annotations
 
@@ -450,11 +469,15 @@ class Smoke:
         for fn in self.wrappers.values():
             fn.launches = 0
 
-    def read_counts(self) -> dict:
+    def read_counts(self, main_path: bool = True) -> dict:
+        """The counts since ``zero_counts``; a main-path run's go into the
+        kernels line.  A tuned build's do not: its measurement calls each
+        candidate as often as its timing needs."""
         self.torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in self.wrappers.items()}
-        for k, c in counts.items():
-            self.main_counts[k] += c
+        if main_path:
+            for k, c in counts.items():
+                self.main_counts[k] += c
         return counts
 
     def held(self, key: str, got, want, what: str) -> None:
@@ -999,6 +1022,7 @@ class Smoke:
                 "pagerank": (self.PageRank, (c.src, c.dst, n), {})}
         for name, (cls, edges, static) in apps.items():
             self.graph_app(name, cls, edges, static, c, adj, sources)
+        self.graph = (c, adj, sources)
 
     def graph_app(self, name, cls, edges, static, c, adj, sources) -> None:
         torch, ir = self.torch, self.ir
@@ -1150,6 +1174,214 @@ class Smoke:
             log(f"[graph] pagerank: max abs err / max rank vs float64 "
                 f"power iteration {err:.3e}")
 
+    # ------------------------------------------------------- tuned path
+    def tuned(self, build, what):
+        """One ``backend="auto"`` build, its tuner's RuntimeWarnings turned
+        into failures (a disqualified or oracle-rejected candidate must
+        not pass silently); returns the app and its build seconds."""
+        import warnings
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                app = build()
+        except RuntimeWarning as w:
+            fail(f"{what}: the tuner warned: {w}")
+        self.torch.cuda.synchronize()
+        return app, time.perf_counter() - t0
+
+    def log_tuning(self, what, result, build_s, counts) -> None:
+        from repro_torch.tune import cost as tcost
+        for m in sorted(result.measurements,
+                        key=lambda m: m.predicted_us):
+            unscaled = m.predicted_us / tcost.backend_scale(
+                m.candidate, result.platform)
+            log(f"[tune] {self.tag} {what} candidate {m.candidate.label}: "
+                f"predicted {m.predicted_us:.2f} us (model before its "
+                f"backend's scale {unscaled:.2f}), measured "
+                f"{m.us_per_call:.2f} us, ok={m.ok}")
+        log(f"[tune] {self.tag} {what}: winner {result.best.label} "
+            f"({result.best_us:.2f} us) of {result.num_measured} measured, "
+            f"picked by {result.picked_by}; tuner wall time (plan builds, "
+            f"candidate builds, oracle, measurement) {build_s:.2f} s; "
+            f"kernel launches while tuning "
+            f"{ {k: c for k, c in counts.items() if c} }")
+
+    def check_tuning(self, what, result) -> None:
+        bad = [m.candidate.label for m in result.measurements
+               if not m.ok or not np.isfinite(m.us_per_call)]
+        check(not bad, f"{what}: candidates disqualified or rejected by "
+              f"the oracle: {bad}")
+        check(result.picked_by == "measurement" and not result.cache_hit,
+              f"{what}: a cold build was not picked by measurement")
+
+    def check_report(self, what, app) -> None:
+        rep = app.report()
+        check(rep.totals["launches"] == len(app._run.tree.launches),
+              f"{what}: report() counts {rep.totals['launches']} launches, "
+              f"the tree has {len(app._run.tree.launches)}")
+        parsed = json.loads(rep.to_json())
+        check(parsed["hlo"] is None and parsed["tuning"] is not None,
+              f"{what}: report() JSON lacks its tuning or has an hlo")
+        log(f"[report] {what}: backend {rep.backend}, totals "
+            f"{rep.totals}, passes {list(rep.passes)}")
+
+    def tune_phase(self) -> None:
+        """The tuned entry path (see the module docstring, phase 7)."""
+        import shutil
+        torch = self.torch
+        from repro_torch import tune as T
+        cache = ROOT / "build" / "chip_smoke" / "tune_cache"
+        shutil.rmtree(cache, ignore_errors=True)
+        for name, m in self.mats.items():
+            vals, x = data_for(m, np.float32)
+            xd = torch.as_tensor(x, device=self.dev)
+            oracle = add_at_oracle(m, vals, x)
+            what = f"{name} SpMV backend=auto"
+
+            def build():
+                return self.SpMV.from_coo(
+                    m.rows, m.cols, vals, m.shape, backend="auto",
+                    tune_cache_dir=str(cache), device=self.dev)
+            self.zero_counts()
+            app, build_s = self.tuned(build, what)
+            counts = self.read_counts(main_path=False)
+            res = app.tuning
+            self.log_tuning(what, res, build_s, counts)
+            self.check_tuning(what, res)
+            check(any(mm.candidate.backend == "cuda"
+                      for mm in res.measurements),
+                  f"{what}: no cuda candidate was measured")
+            check(counts["unroll_spmv.window"]
+                  + counts["unroll_spmv.dense_slice"] > 0,
+                  f"{what}: tuning launched no stage-A kernel")
+            self.zero_counts()
+            y = app.matvec(xd)
+            win_counts = self.read_counts()
+            yh = y.cpu().numpy()
+            rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
+            check(bool(np.isfinite(yh).all()) and rel <= REL_ERR_LIMIT,
+                  f"{what}: winner's rel err {rel:.3e} vs the float64 "
+                  "oracle")
+            before = T.measurement_count()
+            warm, warm_s = self.tuned(build, what + " (warm)")
+            check(T.measurement_count() == before and warm.tuning.cache_hit
+                  and warm.tuning.best == res.best,
+                  f"{what}: the warm rebuild measured again or changed its "
+                  "choice")
+            self.check_report(what, app)
+            fixed = self.run_of(name, False, None)["app"]
+            win_dev = device_ms(lambda: app.matvec(xd))
+            fixed_dev = device_ms(lambda: fixed.matvec(xd))
+            win_host = host_ms(lambda: app.matvec(xd))
+            fixed_host = host_ms(lambda: fixed.matvec(xd))
+            log(f"[tune] {what}: winner's matvec rel err vs float64 oracle "
+                f"{rel:.3e}, kernel launches "
+                f"{ {k: c for k, c in win_counts.items() if c} }; warm "
+                f"rebuild {warm_s:.2f} s, a cache hit with 0 measurements")
+            log(f"[time] {self.tag} {what}: winner {res.best.label} "
+                f"{win_dev:.4f} ms of device time, {win_host:.4f} ms end to "
+                f"end; fixed backend=cuda (coalesce=False) {fixed_dev:.4f} "
+                f"ms of device time, {fixed_host:.4f} ms end to end")
+            self.segsum_run(name, m, vals, xd, oracle)
+        self.plan_cache_run()
+        self.tuned_bfs(cache)
+
+    def segsum_run(self, name, m, vals, xd, oracle) -> None:
+        """``backend="segsum"``: one scatter_reduce_, whose float sum
+        accumulates in float64 by atomics in no fixed order on the card,
+        so it is held to the oracle, not bitwise to the torch backend."""
+        app = self.SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                                 backend="segsum", device=self.dev)
+        yh = app.matvec(xd).cpu().numpy()
+        rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
+        check(bool(np.isfinite(yh).all()) and rel <= REL_ERR_LIMIT,
+              f"{name} segsum: rel err {rel:.3e} vs the float64 oracle")
+        ms = device_ms(lambda: app.matvec(xd))
+        log(f"[time] {self.tag} {name} SpMV backend=segsum matvec: {ms:.4f} "
+            f"ms of device time; rel err vs float64 oracle {rel:.3e} (its "
+            "float sum is a float64 atomic one, so it is not bitwise equal "
+            "to the torch backend)")
+
+    def plan_cache_run(self) -> None:
+        """Two builds through ``plan_cache_dir``: the second is a hit and
+        gives a bitwise-equal result.  Needs the optional msgpack."""
+        import shutil
+        try:
+            import msgpack  # noqa: F401
+        except ImportError:
+            log("[plancache] skipped: the optional msgpack package does not "
+                "import on this machine, so plan_cache_dir builds the plan "
+                "each time (planio needs msgpack to serialize plans)")
+            return
+        from repro_torch.obs import metrics
+        cache = ROOT / "build" / "chip_smoke" / "plan_cache"
+        shutil.rmtree(cache, ignore_errors=True)
+        m = self.mats["webbase-1M"]
+        vals, x = data_for(m, np.float32)
+        xd = self.torch.as_tensor(x, device=self.dev)
+        ys, times = [], []
+        for _ in range(2):
+            hits = metrics.value("plan_cache.hits")
+            t0 = time.perf_counter()
+            app = self.SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                                     backend="cuda", plan_cache_dir=str(cache),
+                                     device=self.dev)
+            times.append(time.perf_counter() - t0)
+            ys.append((metrics.value("plan_cache.hits") - hits,
+                       app.matvec(xd)))
+        check(ys[0][0] == 0 and ys[1][0] == 1,
+              "plan cache: the second build was not a hit")
+        check(same_bits(ys[0][1], ys[1][1]),
+              "plan cache: the cached plan's result differs")
+        log(f"[plancache] webbase-1M backend=cuda: cold build {times[0]:.2f} "
+            f"s, warm build (cache hit) {times[1]:.2f} s, results bitwise "
+            "equal")
+
+    def tuned_bfs(self, cache) -> None:
+        c, adj, sources = self.graph
+        what = "soc-Pokec BFS backend=auto"
+        self.zero_counts()
+        app, build_s = self.tuned(lambda: self.graphs.BFS.from_edges(
+            c.src, c.dst, c.num_nodes, backend="auto",
+            tune_cache_dir=str(cache), driver="resident", device=self.dev),
+            what)
+        self.log_tuning(what, app.tuning, build_s,
+                        self.read_counts(main_path=False))
+        self.check_tuning(what, app.tuning)
+        self.zero_counts()
+        levels = app.run(int(sources[0]))
+        counts = self.read_counts()
+        self.graph_oracle("bfs", levels.cpu().numpy(), c, adj, sources[0])
+        self.check_report(what, app)
+        log(f"[tune] {what}: {app.convergence}; levels equal to scipy's; "
+            f"kernel launches {({k: v for k, v in counts.items() if v})}")
+        self.bfs_ranking(app.tuning)
+        segsum = self.graphs.BFS.from_edges(
+            c.src, c.dst, c.num_nodes, backend="segsum", driver="resident",
+            device=self.dev)
+        self.graph_oracle("bfs", segsum.run(int(sources[0])).cpu().numpy(),
+                          c, adj, sources[0])
+        ms = host_ms(lambda: app.run(int(sources[0])), warmup=1, reps=3)
+        seg_ms = host_ms(lambda: segsum.run(int(sources[0])), warmup=1,
+                         reps=3)
+        log(f"[time] {self.tag} {what}: winner {app.tuning.best.label} "
+            f"{ms:.4f} ms end to end (resident driver); fixed "
+            f"backend=segsum {seg_ms:.4f} ms end to end "
+            f"({segsum.convergence.sweeps} sweeps, levels equal to scipy's)")
+
+    def bfs_ranking(self, result) -> None:
+        """The cost model's prediction for every candidate of the tuned
+        BFS's space, in its order (the top 4 are the ones measured)."""
+        from repro_torch import tune as T
+        from repro_torch.core.seed import bfs_seed
+        space = T.candidate_space(bfs_seed(), platform=result.platform)
+        ranked = T.rank_candidates(space, result.features, result.platform)
+        log(f"[tune] {self.tag} soc-Pokec BFS model ranking (us per "
+            f"{self.graphs._TUNE_RUN_SWEEPS} sweeps): " + "; ".join(
+                f"{i + 1}. {c.label} {us:.2f}"
+                for i, (c, us) in enumerate(ranked)))
+
     def card_tests(self) -> None:
         """The ``cuda``-marked tests of ``tests/test_torch_cuda.py`` on this
         card, in a child process (the kernels are already built)."""
@@ -1179,6 +1411,7 @@ class Smoke:
         self.gather_vload_phase()
         self.row_gather_phase()
         self.graph_phase()
+        self.tune_phase()
         self.main_timings()
         self.stage_a_timings()
         for key, c in self.compared.items():

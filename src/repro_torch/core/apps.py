@@ -12,11 +12,16 @@
   applications (non-add semirings), re-exported from
   :mod:`repro_torch.core.graphs`.
 
-A port of the JAX package's ``core/apps.py``.  The tuner
-(``backend="auto"`` / ``tune=True``), sharded execution (``mesh=`` /
-``shards=``), the plan cache (``plan_cache_dir=``) and ``report()`` are
-later slices of the port; asking for one raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+``backend="auto"`` (or ``tune=True``) picks the execution variant per
+input by measurement on the app's device (:mod:`repro_torch.tune`), the
+choice recorded in ``.tuning`` and cached in ``tune_cache_dir``;
+``plan_cache_dir`` holds content-addressed plans
+(:mod:`repro_torch.core.planio`); ``report()`` returns a
+:class:`~repro_torch.obs.profile.RunReport`.
+
+A port of the JAX package's ``core/apps.py``.  Sharded execution
+(``mesh=`` / ``shards=``) is a later slice of the port and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` items.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.graphs import bucket_size, check_ported, not_ported
-from repro_torch.core.plan import BlockPlan, CostModel, build_plan
+from repro_torch.core.graphs import (bucket_size, build_or_tune,
+                                     check_ported)
+from repro_torch.core.plan import BlockPlan, CostModel
 from repro_torch.core.seed import pagerank_seed, spmv_seed
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
@@ -41,6 +47,7 @@ class SpMV:
     _run: object
     dtype: np.dtype
     device: torch.device
+    tuning: object | None = None   # TuningResult when built via backend="auto"
     validation: object | None = None    # ValidationReport from from_coo
     degradations: tuple = ()            # DegradationEvents from the build
     # cached zero y_init per dtype: repeated matvecs share one device
@@ -60,44 +67,65 @@ class SpMV:
                  coalesce: bool = False,
                  plan_cache_dir: str | None = None,
                  tune: bool = False,
+                 tune_cache_dir: str | None = None,
                  validate: str = "strict",
                  mesh=None, shards: int | None = None,
                  device="cuda") -> "SpMV":
         """Build the plan and the executor on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
-        is ``"torch"`` (plain torch ops) or ``"cuda"`` (the hand-written
-        stage-A kernels).  ``coalesce=True`` opts in to the
-        gather-coalescing lowering pass (DESIGN.md §8).  ``validate`` is the
-        ingestion policy (DESIGN.md §9): ``"strict"`` (default) raises
+        is ``"torch"`` (plain torch ops), ``"segsum"`` (one segment
+        reduce), ``"cuda"`` (the hand-written stage-A kernels) or
+        ``"auto"``: ``backend="auto"`` (or ``tune=True``) selects the
+        variant per matrix by measurement on ``device``, cached in
+        ``tune_cache_dir`` so warm processes skip the measurements; the
+        decision is recorded in ``.tuning``.  ``coalesce=True`` opts in to
+        the gather-coalescing lowering pass (DESIGN.md §8); under
+        ``backend="auto"`` it is a tuned axis.  ``plan_cache_dir`` holds
+        content-addressed plans (needs the optional ``msgpack``; without
+        it the plan is built each time).  ``validate`` is the ingestion
+        policy (DESIGN.md §9): ``"strict"`` (default) raises
         :class:`~repro_torch.core.validate.InputError` on out-of-range
         indices or non-finite values, ``"repair"`` drops or combines them
         into a canonical matrix (report on ``.validation``), ``"off"`` skips
         the checks."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.spmv.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
             return cls._from_coo(
                 rows, cols, vals, shape, lane_width=lane_width,
                 backend=backend, cost=cost, fused=fused, stage_b=stage_b,
-                coalesce=coalesce, validate=validate, device=dev)
+                coalesce=coalesce, plan_cache_dir=plan_cache_dir, tune=tune,
+                tune_cache_dir=tune_cache_dir, validate=validate,
+                device=dev)
 
     @classmethod
     def _from_coo(cls, rows, cols, vals, shape, *, lane_width, backend,
-                  cost, fused, stage_b, coalesce, validate,
-                  device) -> "SpMV":
+                  cost, fused, stage_b, coalesce, plan_cache_dir, tune,
+                  tune_cache_dir, validate, device) -> "SpMV":
         seed = spmv_seed()
         rows, cols, vals, vreport = validation.validate_coo(
             rows, cols, np.asarray(vals), shape, policy=validate)
         access = {"row": rows, "col": cols}
+
+        def example():
+            dt = vals.dtype if np.issubdtype(vals.dtype, np.inexact) \
+                else np.float32
+            x_ex = torch.as_tensor(np.random.default_rng(0)
+                                   .standard_normal(shape[1]).astype(dt),
+                                   device=device)
+            return {"x": x_ex}, torch.zeros(shape[0], dtype=x_ex.dtype,
+                                            device=device)
         with validation.collect_degradations() as events:
-            cost = cost or CostModel(lane_width=lane_width)
-            plan = build_plan(seed, access, shape[0], shape[1], cost=cost)
-            run = eng.make_executor(plan, {"value": vals}, backend=backend,
-                                    fused=fused, stage_b=stage_b,
-                                    coalesce=coalesce, device=device)
+            plan, run, tuning = build_or_tune(
+                "SpMV.from_coo", seed, access, shape[0], shape[1],
+                {"value": vals}, backend=backend, tune=tune,
+                lane_width=lane_width, cost=cost, fused=fused,
+                stage_b=stage_b, coalesce=coalesce, device=device,
+                plan_cache_dir=plan_cache_dir,
+                tune_cache_dir=tune_cache_dir, example=example)
         return cls(plan=plan, shape=shape, _run=run, dtype=vals.dtype,
-                   device=device, validation=vreport,
+                   device=device, tuning=tuning, validation=vreport,
                    degradations=tuple(events))
 
     @classmethod
@@ -173,7 +201,11 @@ class SpMV:
         return self._run({"x": x}, y0).T[:n].contiguous()
 
     def report(self):
-        raise not_ported("SpMV.report()", "queue 1, item 3.5")
+        """Structured :class:`~repro_torch.obs.profile.RunReport`: plan
+        stats, IR pass deltas, per-launch cost attribution, tuning choice,
+        validation summary, and recorded degradations."""
+        from repro_torch.obs.profile import build_report
+        return build_report(self, "SpMV")
 
 
 @dataclasses.dataclass
@@ -185,6 +217,7 @@ class PageRank:
     damping: float
     _run: object
     device: torch.device
+    tuning: object | None = None   # TuningResult when built via backend="auto"
     driver: str = "resident"
     validation: object | None = None    # ValidationReport from from_edges
     degradations: tuple = ()            # DegradationEvents from the build
@@ -199,34 +232,45 @@ class PageRank:
                    fused: bool = True,
                    plan_cache_dir: str | None = None,
                    tune: bool = False,
+                   tune_cache_dir: str | None = None,
                    driver: str = "resident",
                    validate: str = "strict",
                    mesh=None, shards: int | None = None,
                    device="cuda") -> "PageRank":
         """Build the plan and the contribution sweep on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
-        is ``"torch"`` or ``"cuda"``; ranks are float32."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        is ``"torch"``, ``"segsum"``, ``"cuda"`` or ``"auto"`` (measured,
+        as :meth:`SpMV.from_coo`); ranks are float32."""
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.pagerank.build", backend=backend,
                          num_nodes=num_nodes):
             src, dst, _, vreport = validation.validate_edges(
                 src, dst, num_nodes, policy=validate)
+            seed = pagerank_seed()
+            access = {"n2": dst, "n1": src}
             deg = np.bincount(src, minlength=num_nodes).astype(np.float64)
             inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0)
+            inv_t = torch.as_tensor(inv, dtype=torch.float32, device=dev)
+
+            def example():
+                rank_ex = torch.full((num_nodes,), 1.0 / max(num_nodes, 1),
+                                     dtype=torch.float32, device=dev)
+                return ({"rank": rank_ex, "inv_nneighbor": inv_t},
+                        torch.zeros(num_nodes, dtype=torch.float32,
+                                    device=dev))
             with validation.collect_degradations() as events:
-                plan = build_plan(pagerank_seed(), {"n2": dst, "n1": src},
-                                  num_nodes, num_nodes,
-                                  cost=cost or CostModel(
-                                      lane_width=lane_width))
-                run = eng.make_executor(plan, {}, backend=backend,
-                                        fused=fused, device=dev)
-        return cls(plan=plan, num_nodes=num_nodes,
-                   inv_deg=torch.as_tensor(inv, dtype=torch.float32,
-                                           device=dev),
+                plan, run, tuning = build_or_tune(
+                    "PageRank.from_edges", seed, access, num_nodes,
+                    num_nodes, {}, backend=backend, tune=tune,
+                    lane_width=lane_width, cost=cost, fused=fused,
+                    device=dev, plan_cache_dir=plan_cache_dir,
+                    tune_cache_dir=tune_cache_dir, example=example)
+        return cls(plan=plan, num_nodes=num_nodes, inv_deg=inv_t,
                    dangling=torch.as_tensor(deg == 0, device=dev),
-                   damping=damping, _run=run, device=dev, driver=driver,
-                   validation=vreport, degradations=tuple(events))
+                   damping=damping, _run=run, device=dev, tuning=tuning,
+                   driver=driver, validation=vreport,
+                   degradations=tuple(events))
 
     def sweep(self, rank: torch.Tensor,
               out_init: torch.Tensor | None = None) -> torch.Tensor:
@@ -272,7 +316,11 @@ class PageRank:
             return rank
 
     def report(self):
-        raise not_ported("PageRank.report()", "queue 1, items 3.5 and 8")
+        """Structured :class:`~repro_torch.obs.profile.RunReport`: plan
+        stats, IR pass deltas, per-launch cost attribution, tuning choice,
+        validation summary, and recorded degradations."""
+        from repro_torch.obs.profile import build_report
+        return build_report(self, "PageRank")
 
 
 def pagerank_reference(src: np.ndarray, dst: np.ndarray, num_nodes: int,

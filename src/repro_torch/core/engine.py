@@ -12,9 +12,15 @@ Backends:
     :mod:`repro_torch.kernels.unroll_spmv`, the counterpart of the
     reference's ``pallas`` backend.  On CPU tensors the kernel wrappers run
     their plain torch versions.
+  * ``segsum`` — the single segment-reduce form: stage A and B fold into
+    one ``scatter_reduce_`` straight into the output.  Its float add/mul
+    accumulates in float64 in no fixed order (atomics on CUDA), so it is
+    held to the other backends to a tolerance, not bitwise.
 
-Both share stage B, the collision-free write-back (:func:`_stage_b`): one
-indexed write per distinct output row, exact and free of atomics.
+``torch`` and ``cuda`` share stage B, the collision-free write-back
+(:func:`_stage_b`): one indexed write per distinct output row, exact and
+free of atomics.  :func:`make_baseline_gather` is the conservative
+compiler's form (native gather + scatter, no pattern analysis).
 
 Execution modes (``fused`` flag, default True) and ``coalesce=True`` are
 the reference's: they select lowering passes, and results are bitwise
@@ -35,7 +41,8 @@ import torch
 
 from repro_torch.core import ir
 from repro_torch.core.plan import BlockPlan
-from repro_torch.core.seed import REDUCE_OPS, reduce_identity_for
+from repro_torch.core.seed import (REDUCE_OPS, CodeSeed, reduce_identity_for,
+                                   reference_execute)
 from repro_torch.kernels import common
 from repro_torch.kernels.unroll_spmv import ops as kops
 from repro_torch.obs import trace as _trace
@@ -251,6 +258,62 @@ def dense_head_rows(plan: BlockPlan) -> np.ndarray:
 
 
 _INDEX_REDUCE = {"mul": "prod", "max": "amax", "min": "amin"}
+_SCATTER_REDUCE = {"add": "sum", **_INDEX_REDUCE}
+
+
+def segsum_lane_rows(plan: BlockPlan) -> np.ndarray:
+    """(B*N,) int64: the output row of every exec lane, ``out_len`` (a
+    discard bucket) for pad lanes.  Each head's row is scattered onto its
+    (block, segment) and read back per lane: the Data Transfer sort makes
+    every segment's lanes consecutive."""
+    seg = plan.seg_ids
+    per_seg = np.full((plan.num_blocks, plan.lane_width), plan.out_len,
+                      np.int64)
+    hb = plan.head_pos // plan.lane_width
+    hl = plan.head_pos % plan.lane_width
+    per_seg[hb, seg[hb, hl]] = plan.head_rows
+    lane_rows = per_seg[np.arange(plan.num_blocks)[:, None], seg]
+    return np.where(plan.valid, lane_rows, plan.out_len).reshape(-1)
+
+
+def _make_segsum(plan: BlockPlan, elem_exec, dev):
+    """The segsum sweep body: gather every lane, combine, then ONE
+    ``scatter_reduce_`` into an ``out_len + 1`` buffer holding the reduce's
+    identity (rows without an nnz and the discard bucket keep it), folded
+    into ``out_init`` with the seed's reduce.
+
+    A float ``add`` / ``mul`` accumulates in float64 and rounds once, where
+    the reference's segment reduce accumulates in the terms' dtype: the
+    scatter's float adds are atomics in no fixed order on the card, and a
+    float32 accumulator then drifts, on a power-law hub row of thousands
+    of terms, past the tolerance the tuner holds every candidate to (the
+    webbase-1M analogue).  ``amax`` / ``amin`` and integers are exact in
+    their own dtype."""
+    seed = plan.seed
+    rows = torch.as_tensor(segsum_lane_rows(plan), device=dev)
+    gidx = torch.as_tensor(plan.gather_idx.reshape(-1), device=dev).long()
+    reduce = seed.reduce
+    fold = REDUCE_OPS[reduce][0]
+    n_out = plan.out_len
+
+    def run_ss(mutable, out_init):
+        vals = {g: mutable[g][gidx] for g in seed.gathered}
+        rank = max((v.ndim for v in vals.values()), default=1)
+        for e in seed.elementwise:
+            vals[e] = _expand_trailing(elem_exec[e].reshape(-1), rank)
+        term = seed.combine(vals)
+        term_dtype = term.dtype
+        if term.is_floating_point() and reduce in ("add", "mul"):
+            term = term.double()
+        identity = reduce_identity_for(reduce, term.dtype).item()
+        red = torch.full((n_out + 1,) + term.shape[1:], identity,
+                         dtype=term.dtype, device=term.device)
+        index = rows.reshape((-1,) + (1,) * (term.ndim - 1)).expand(
+            term.shape)
+        red.scatter_reduce_(0, index, term, _SCATTER_REDUCE[reduce],
+                            include_self=False)
+        return fold(out_init, red[:n_out].to(term_dtype)).to(out_init.dtype)
+    return run_ss
 
 
 def _stage_b_dense(plan: BlockPlan, meta, lanes: torch.Tensor,
@@ -319,6 +382,10 @@ def make_sweeper(plan: BlockPlan, static_data: Mapping[str, np.ndarray],
             f"{tree.backend!r}, emitter asked for {backend!r}")
     if elem_exec is None:
         elem_exec = reorder_static(plan, static_data, dev)
+    if backend == "segsum":
+        run_ss = _make_segsum(plan, elem_exec, dev)
+        run_ss.tree = tree
+        return run_ss
     meta = {"seg_ids": torch.as_tensor(plan.seg_ids, device=dev)}
     if tree.stage_b == "dense":
         meta["lane_rows"] = torch.as_tensor(dense_head_rows(plan),
@@ -400,4 +467,24 @@ def make_executor(plan: BlockPlan, static_data: Mapping[str, np.ndarray],
     run._called = False
     run.sweep_body = body
     run.tree = body.tree
+    return run
+
+
+def make_baseline_gather(seed: CodeSeed, access: Mapping[str, np.ndarray],
+                         static_data: Mapping[str, np.ndarray],
+                         device="cuda"):
+    """The conservative-compiler baseline: native gather + scatter, no
+    pattern analysis (the paper's icc/-O3 stand-in), over
+    :func:`~repro_torch.core.seed.reference_execute`.  The access and
+    elementwise arrays are staged to ``device`` once, here."""
+    dev = resolve_device(device)
+    acc = {k: torch.as_tensor(np.asarray(v), device=dev).long()
+           for k, v in access.items()}
+    elem = {e: torch.as_tensor(np.asarray(static_data[e]), device=dev)
+            for e in seed.elementwise}
+
+    def run(mutable, out_init):
+        data = dict(mutable)
+        data.update(elem)
+        return reference_execute(seed, acc, data, out_init)
     return run

@@ -31,10 +31,16 @@ Two convergence drivers, bitwise equal in states, sweep counts and
   reference runs one ``lax.while_loop``.
 * ``driver="host"`` reads the flags after every sweep (the A/B baseline).
 
-A port of the JAX package's ``core/graphs.py``.  The tuner (``backend="auto"``
-/ ``tune=True``), the plan cache (``plan_cache_dir=``), sharded execution
-(``mesh=`` / ``shards=``) and ``report()`` are later slices and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``backend="auto"`` (or ``tune=True``) picks the sweep's variant per graph
+by measurement (:mod:`repro_torch.tune`); under the resident driver each
+candidate is timed over :data:`_TUNE_RUN_SWEEPS` queued sweeps.
+``plan_cache_dir=`` routes the plan build through the content-addressed
+plan cache (:mod:`repro_torch.core.planio`), and ``report()`` returns a
+:class:`~repro_torch.obs.profile.RunReport`.
+
+A port of the JAX package's ``core/graphs.py``.  Sharded execution
+(``mesh=`` / ``shards=``) is a later slice and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` items.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.plan import BlockPlan, CostModel, build_plan
+from repro_torch.core.plan import BlockPlan, CostModel
+from repro_torch.core.planio import cached_build_plan
 from repro_torch.core.seed import CodeSeed, bfs_seed, cc_seed, sssp_seed
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
@@ -101,17 +108,44 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
 
 
-def check_ported(backend, tune, mesh, shards, plan_cache_dir) -> None:
-    """Raise for the constructor options that later slices port."""
-    if backend == "auto" or tune:
-        raise not_ported("the tuner (backend='auto' / tune=True)",
-                         "queue 1, item 7")
+def check_ported(mesh, shards) -> None:
+    """Raise for the constructor options that later slices port: the
+    sharding options, with or without the tuner."""
     if mesh is not None or shards is not None:
         raise not_ported("sharded execution (mesh= / shards=)",
                          "queue 1, items 3.4 and 10")
-    if plan_cache_dir is not None:
-        raise not_ported("the plan cache (plan_cache_dir=)",
-                         "queue 1, item 7")
+
+
+def check_auto_kwargs(name: str, *, backend: str = "auto",
+                      fused: bool = True, stage_b: str = "auto",
+                      cost=None, coalesce: bool = False) -> None:
+    """``backend="auto"`` / ``tune=True`` hand variant selection to the
+    tuner — an explicit ``fused`` / ``stage_b`` / ``cost`` / ``coalesce``
+    (or a non-default backend next to ``tune=True``) alongside it would be
+    dropped without a word.  Raise instead: the caller either wants the
+    tuner (drop the variant kwargs) or a specific variant (name the
+    backend explicitly, without ``tune``).  ``mesh=`` / ``shards=`` raise
+    before this check (:func:`check_ported`)."""
+    conflicts = []
+    # "torch" is the signature default, so it cannot signal an explicit
+    # request; any OTHER backend next to tune=True clearly does
+    if backend not in ("auto", "torch"):
+        conflicts.append(f"backend={backend!r}")
+    if fused is not True:
+        conflicts.append("fused")
+    if stage_b != "auto":
+        conflicts.append("stage_b")
+    if cost is not None:
+        conflicts.append("cost")
+    if coalesce is not False:
+        conflicts.append("coalesce")
+    if conflicts:
+        raise ValueError(
+            f"{name}: backend='auto'/tune=True selects the execution "
+            f"variant by measurement, but explicit {', '.join(conflicts)} "
+            "was also given and would be silently ignored — drop it, or "
+            "pick an explicit backend (without tune=True) to pin the "
+            "variant")
 
 
 def bucket_size(n: int, ladder: tuple = BATCH_BUCKETS) -> int:
@@ -162,9 +196,67 @@ def plan_build_count() -> int:
     return int(_metrics.value("graphs.plan_builds"))
 
 
-def _build(seed: CodeSeed, access, out_len, data_len, cost) -> BlockPlan:
-    _metrics.inc("graphs.plan_builds")
-    return build_plan(seed, access, out_len, data_len, cost=cost)
+def build_or_tune(name: str, seed: CodeSeed, access, out_len: int,
+                  data_len: int, static, *, backend: str, tune: bool,
+                  lane_width: int, cost, fused: bool = True,
+                  stage_b: str = "auto", coalesce: bool = False, device,
+                  plan_cache_dir, tune_cache_dir, example, **tune_kw):
+    """Every app's one build policy; returns ``(plan, run, tuning)``.
+
+    Under ``backend="auto"`` / ``tune=True`` the tuner picks the plan and
+    the executor, timing candidates on ``example() -> (mutable_example,
+    out_init)``, tensors on ``device``; ``tune_kw`` goes on to
+    :func:`~repro_torch.tune.autotune`.  Otherwise one plan, through the
+    plan cache when ``plan_cache_dir`` is given, and ``backend``'s
+    executor, with ``tuning`` None."""
+    if backend == "auto" or tune:
+        check_auto_kwargs(name, backend=backend, fused=fused,
+                          stage_b=stage_b, cost=cost, coalesce=coalesce)
+        from repro_torch.tune import autotune
+        mutable_example, out_init = example()
+        return autotune(seed, access, out_len, data_len, static,
+                        mutable_example, out_init,
+                        lane_widths=(lane_width,),
+                        tune_cache_dir=tune_cache_dir,
+                        plan_cache_dir=plan_cache_dir, **tune_kw)
+    plan = cached_build_plan(seed, access, out_len, data_len,
+                             cost=cost or CostModel(lane_width=lane_width),
+                             cache_dir=plan_cache_dir)
+    run = eng.make_executor(plan, static, backend=backend, fused=fused,
+                            stage_b=stage_b, coalesce=coalesce,
+                            device=device)
+    return plan, run, None
+
+
+# sweeps per timed whole-run tuning candidate under the resident driver:
+# enough that the per-call dispatch a resident run amortizes is visible in
+# the ranking, few enough that tuning stays cheap (the count is part of
+# the tuning-cache key, so a changed discipline re-tunes)
+_TUNE_RUN_SWEEPS = 8
+
+
+def _sweep_measurement(state_key: str, driver: str) -> dict:
+    """What a graph app's tuner TIMES follows its driver (DESIGN.md §7):
+    under the resident driver each candidate is measured as
+    :data:`_TUNE_RUN_SWEEPS` sweep-body calls queued back to back with no
+    host read (the reference runs a ``fori_loop``), so the winner is the
+    variant that wins once per-sweep waits vanish.  The host driver keeps
+    the one-sweep measurement.  Every candidate's single-sweep output is
+    checked against the scatter oracle either way."""
+    if driver != "resident":
+        return {}
+
+    def measure_wrap(run):
+        body = getattr(run, "sweep_body", None) or run
+
+        def whole_run(mutable, _out_init):
+            state = mutable[state_key]
+            for _ in range(_TUNE_RUN_SWEEPS):
+                state = body({state_key: state}, state)
+            return state
+        return whole_run
+    return {"measure_wrap": measure_wrap,
+            "cache_extra": f"measure=resident_run:{_TUNE_RUN_SWEEPS}"}
 
 
 def read_flags(*flags: torch.Tensor) -> list[int]:
@@ -186,6 +278,7 @@ class _FixpointApp:
     _run: object
     _state_key: str
     device: torch.device
+    tuning: object | None = None   # TuningResult when built via backend="auto"
     driver: str = "resident"
     # how the last run() ended; sweeps_run/converged stay as properties
     convergence: ConvergenceReport = dataclasses.field(
@@ -204,16 +297,29 @@ class _FixpointApp:
     @classmethod
     def _build_app(cls, seed, access, static, state_key, num_nodes, vreport,
                    *, lane_width, backend, cost, fused, stage_b, driver,
-                   device):
+                   device, plan_cache_dir, tune, tune_cache_dir,
+                   state_example):
+        """One plan and one sweep program; under ``backend="auto"`` /
+        ``tune=True`` the tuner picks both, timing candidates on
+        ``state_example()`` (a representative state on ``device``)."""
+        def example():
+            state = state_example()
+            return {state_key: state}, state
         with validation.collect_degradations() as events:
-            plan = _build(seed, access, num_nodes, num_nodes,
-                          cost or CostModel(lane_width=lane_width))
-            run = eng.make_executor(plan, static, backend=backend,
-                                    fused=fused, stage_b=stage_b,
-                                    device=device)
+            plan, run, tuning = build_or_tune(
+                f"{cls.__name__}.from_edges", seed, access, num_nodes,
+                num_nodes, static, backend=backend, tune=tune,
+                lane_width=lane_width, cost=cost, fused=fused,
+                stage_b=stage_b, device=device,
+                plan_cache_dir=plan_cache_dir,
+                tune_cache_dir=tune_cache_dir, example=example,
+                **_sweep_measurement(state_key, driver))
+        _metrics.inc("graphs.plan_builds",
+                     1 if tuning is None else tuning.plans_built)
         return cls(plan=plan, num_nodes=num_nodes, _run=run,
-                   _state_key=state_key, device=device, driver=driver,
-                   validation=vreport, degradations=tuple(events))
+                   _state_key=state_key, device=device, tuning=tuning,
+                   driver=driver, validation=vreport,
+                   degradations=tuple(events))
 
     @property
     def sweeps_run(self) -> int:
@@ -230,8 +336,13 @@ class _FixpointApp:
         return self._run({self._state_key: state}, state)
 
     def report(self):
-        raise not_ported(f"{type(self).__name__}.report()",
-                         "queue 1, items 3.5 and 8")
+        """Structured :class:`~repro_torch.obs.profile.RunReport` for this
+        app: plan stats, IR pass deltas, per-launch cost attribution,
+        tuning choice, degradations, and the last run's convergence
+        story."""
+        from repro_torch.obs.profile import build_report
+        return build_report(self, type(self).__name__,
+                            sweeps=self.convergence)
 
     def _report(self, sweeps: int, changed: bool, healthy: bool,
                 max_sweeps: int) -> ConvergenceReport:
@@ -374,25 +485,37 @@ class BFS(_FixpointApp):
                    lane_width: int = 128, backend: str = "torch",
                    cost: CostModel | None = None, fused: bool = True,
                    stage_b: str = "auto", plan_cache_dir: str | None = None,
-                   tune: bool = False, driver: str = "resident",
-                   validate: str = "strict", mesh=None,
-                   shards: int | None = None, device="cuda") -> "BFS":
+                   tune: bool = False, tune_cache_dir: str | None = None,
+                   driver: str = "resident", validate: str = "strict",
+                   mesh=None, shards: int | None = None,
+                   device="cuda") -> "BFS":
         """Build the plan and the sweep program on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
-        is ``"torch"`` (plain torch ops) or ``"cuda"`` (the stage-A
-        kernels); ``driver`` is ``"resident"`` or ``"host"``; ``validate``
-        is the ingestion policy (DESIGN.md §9)."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        is ``"torch"`` (plain torch ops), ``"segsum"`` (one segment
+        reduce), ``"cuda"`` (the stage-A kernels) or ``"auto"`` (measured
+        per graph, the choice cached in ``tune_cache_dir``); ``driver`` is
+        ``"resident"`` or ``"host"``; ``validate`` is the ingestion policy
+        (DESIGN.md §9); ``plan_cache_dir`` holds content-addressed
+        plans."""
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.bfs.build", backend=backend,
                          num_nodes=num_nodes):
             src, dst, _, vreport = validation.validate_edges(
                 src, dst, num_nodes, policy=validate)
+
+            def example():
+                lv = torch.full((num_nodes,), int(UNREACHED),
+                                dtype=torch.int32, device=dev)
+                lv[0] = 0
+                return lv
             return cls._build_app(
                 bfs_seed(), {"dst": np.asarray(dst), "src": np.asarray(src)},
                 {}, "level", num_nodes, vreport, lane_width=lane_width,
                 backend=backend, cost=cost, fused=fused, stage_b=stage_b,
-                driver=driver, device=dev)
+                driver=driver, device=dev, plan_cache_dir=plan_cache_dir,
+                tune=tune, tune_cache_dir=tune_cache_dir,
+                state_example=example)
 
     def run(self, source: int, max_sweeps: int | None = None
             ) -> torch.Tensor:
@@ -435,22 +558,30 @@ class SSSP(_FixpointApp):
                    lane_width: int = 128, backend: str = "torch",
                    cost: CostModel | None = None, fused: bool = True,
                    stage_b: str = "auto", plan_cache_dir: str | None = None,
-                   tune: bool = False, driver: str = "resident",
-                   validate: str = "strict", mesh=None,
-                   shards: int | None = None, device="cuda") -> "SSSP":
+                   tune: bool = False, tune_cache_dir: str | None = None,
+                   driver: str = "resident", validate: str = "strict",
+                   mesh=None, shards: int | None = None,
+                   device="cuda") -> "SSSP":
         """As :meth:`BFS.from_edges`; ``weight`` is cast to float32."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.sssp.build", backend=backend,
                          num_nodes=num_nodes):
             src, dst, weight, vreport = validation.validate_edges(
                 src, dst, num_nodes, weight=weight, policy=validate)
+
+            def example():
+                d0 = torch.full((num_nodes,), float("inf"),
+                                dtype=torch.float32, device=dev)
+                d0[0] = 0.0
+                return d0
             return cls._build_app(
                 sssp_seed(), {"dst": np.asarray(dst), "src": np.asarray(src)},
                 {"weight": np.asarray(weight, np.float32)}, "dist",
                 num_nodes, vreport, lane_width=lane_width, backend=backend,
                 cost=cost, fused=fused, stage_b=stage_b, driver=driver,
-                device=dev)
+                device=dev, plan_cache_dir=plan_cache_dir, tune=tune,
+                tune_cache_dir=tune_cache_dir, state_example=example)
 
     def run(self, source: int, max_sweeps: int | None = None
             ) -> torch.Tensor:
@@ -480,12 +611,12 @@ class ConnectedComponents(_FixpointApp):
                    lane_width: int = 128, backend: str = "torch",
                    cost: CostModel | None = None, fused: bool = True,
                    stage_b: str = "auto", plan_cache_dir: str | None = None,
-                   tune: bool = False, driver: str = "resident",
-                   validate: str = "strict", mesh=None,
-                   shards: int | None = None,
+                   tune: bool = False, tune_cache_dir: str | None = None,
+                   driver: str = "resident", validate: str = "strict",
+                   mesh=None, shards: int | None = None,
                    device="cuda") -> "ConnectedComponents":
         """As :meth:`BFS.from_edges`, over the symmetrized edges."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.cc.build", backend=backend,
                          num_nodes=num_nodes):
@@ -496,7 +627,11 @@ class ConnectedComponents(_FixpointApp):
             return cls._build_app(
                 cc_seed(), {"dst": d, "src": s}, {}, "label", num_nodes,
                 vreport, lane_width=lane_width, backend=backend, cost=cost,
-                fused=fused, stage_b=stage_b, driver=driver, device=dev)
+                fused=fused, stage_b=stage_b, driver=driver, device=dev,
+                plan_cache_dir=plan_cache_dir, tune=tune,
+                tune_cache_dir=tune_cache_dir,
+                state_example=lambda: torch.arange(
+                    num_nodes, dtype=torch.int32, device=dev))
 
     def run(self, max_sweeps: int | None = None) -> torch.Tensor:
         """(num_nodes,) int32 labels: ``label[v]`` = min node id in v's

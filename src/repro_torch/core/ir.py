@@ -62,9 +62,11 @@ COALESCED = "coalesced"   # one unaligned dense slice load (+ static permute)
 # The port's backend names -> the lowering form each one takes.  "xla" is
 # the reference's jax-backend lowering (per-op-group launches through the
 # native gather), "kernel" its pallas-backend lowering (at most two fused
-# sections, per-block native-reduce masks).  The passes below test the
-# form, never a backend name.
-LOWERING_FORMS = {"torch": "xla", "cuda": "kernel"}
+# sections, per-block native-reduce masks), "fold" its segsum lowering
+# (the per-class launch list kept as built, stage A+B folded into one
+# segment reduce, no coalescing).  The passes below test the form, never
+# a backend name.
+LOWERING_FORMS = {"torch": "xla", "cuda": "kernel", "segsum": "fold"}
 
 
 def lowering_form(backend: str) -> str:
@@ -103,7 +105,7 @@ class CodeTree:
     """The lowered information-code tree for one (seed, plan, backend)."""
 
     plan: BlockPlan
-    backend: str                       # "torch" | "cuda"
+    backend: str                       # "torch" | "segsum" | "cuda"
     launches: list[Launch]
     stage_b: str = "auto"              # resolved by choose_stage_b
     passes: tuple[str, ...] = ()       # provenance, in application order
@@ -247,16 +249,20 @@ def section_full_mask(plan: BlockPlan, sec: PatternClass) -> np.ndarray | None:
 
 def fuse_sections(tree: CodeTree) -> CodeTree:
     """Pass 1: collapse the per-class launch list into the backend's fused
-    launch form."""
+    launch form.  No-op for the fold form (the segsum emitter folds the
+    whole plan into one segment reduce regardless of the launch list)."""
     plan = tree.plan
-    if lowering_form(tree.backend) == "kernel":
+    form = lowering_form(tree.backend)
+    if form == "kernel":
         launches = []
         for sec in fused_sections(plan):
             launch = _launch_of_class(sec)
             launches.append(dataclasses.replace(
                 launch, full_mask=section_full_mask(plan, sec)))
-    else:
+    elif form == "xla":
         launches = [_launch_of_class(c) for c in fused_xla_classes(plan)]
+    else:
+        launches = tree.launches
     return tree._with(launches=launches)._after_pass(
         "fuse_sections", len(tree.launches))
 
@@ -270,13 +276,18 @@ def choose_stage_b(tree: CodeTree, stage_b: str = "auto") -> CodeTree:
 
     ``auto`` always lowers to the collision-free gather write-back: it is
     the only form with a cross-program bitwise guarantee (DESIGN.md §3).
-    The dense head-buffer scatter stays explicit opt-in."""
+    The dense head-buffer scatter stays explicit opt-in.  The fold form
+    has no separate stage B (stage A+B are ONE segment reduce): its node
+    is ``fold``, and explicit gather/dense requests are still validated
+    so a typo fails identically on every backend."""
     if stage_b == "auto":
         resolved = "gather"
     elif stage_b in _STAGE_BS:
         resolved = stage_b
     else:
         raise ValueError(f"unknown stage_b {stage_b!r}")
+    if lowering_form(tree.backend) == "fold":
+        resolved = "fold"
     return tree._with(stage_b=resolved)._after_pass(
         "choose_stage_b", len(tree.launches), stage_b=resolved)
 
@@ -314,10 +325,11 @@ def coalesce_gathers(tree: CodeTree,
     (an aligned identity run IS a contiguous run — they lower to the pure
     slice form with no permutation).  Both emitters consume the rewritten
     launches: the torch emitter as indexed slices of the flat view, the
-    cuda backend as the dense-slice kernel.  A seed with no gather index
-    skips the pass.
+    cuda backend as the dense-slice kernel.  The fold form and a seed with
+    no gather index skip the pass.
     """
-    if tree.seed.gather_index is None:
+    if lowering_form(tree.backend) == "fold" \
+            or tree.seed.gather_index is None:
         return tree._after_pass("coalesce_gathers:skip",
                                 len(tree.launches))
     plan = tree.plan

@@ -191,12 +191,12 @@ def reference_execute(seed: CodeSeed, access: Mapping[str, np.ndarray],
     trailing singleton axes.  Float ``add`` accumulates in an unspecified
     order (``index_add``), so it is an oracle to a tolerance, not bitwise."""
     dev = out_init.device
-    out_idx = torch.as_tensor(np.asarray(access[seed.out_index]),
-                              dtype=torch.int64, device=dev)
+    out_idx = torch.as_tensor(access[seed.out_index], dtype=torch.int64,
+                              device=dev)
     vals = {}
     if seed.gather_index is not None:
-        gi = torch.as_tensor(np.asarray(access[seed.gather_index]),
-                             dtype=torch.int64, device=dev)
+        gi = torch.as_tensor(access[seed.gather_index], dtype=torch.int64,
+                             device=dev)
         for g in seed.gathered:
             vals[g] = torch.as_tensor(data[g], device=dev)[gi]
     rank = max((v.ndim for v in vals.values()), default=1)

@@ -8,14 +8,14 @@ the ladder and the write-back reduce along the lane axis only.  ``from_coo``
 builds the same :func:`repro_torch.core.engine.make_executor` as
 :class:`~repro_torch.core.apps.SpMV`, with the full semiring reduce set
 (``reduce="add" | "mul" | "min" | "max"``), fused and per-class launch lists,
-the gather-coalescing pass and both backends: ``"torch"`` and ``"cuda"``,
-whose stage-A kernels take the trailing axis.
+the gather-coalescing pass and every backend: ``"torch"``, ``"segsum"``,
+``"cuda"`` (whose stage-A kernels take the trailing axis) and ``"auto"``
+(the tuner, timing candidates on an ``(n, 8)`` operand), with the plan
+cache and ``report()`` as :class:`~repro_torch.core.apps.SpMV`'s.
 
-A port of ``SpMM`` from the JAX package's ``core/spmm.py``.  The tuner
-(``backend="auto"`` / ``tune=True``), sharded execution (``mesh=`` /
-``shards=``), the plan cache (``plan_cache_dir=``) and ``report()`` are later
-slices of the port and raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item, as :class:`~repro_torch.core.apps.SpMV`'s do.
+A port of ``SpMM`` from the JAX package's ``core/spmm.py``.  Sharded
+execution (``mesh=`` / ``shards=``) is a later slice of the port and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` items.
 """
 from __future__ import annotations
 
@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.graphs import check_ported, not_ported
-from repro_torch.core.plan import BlockPlan, CostModel, build_plan
+from repro_torch.core.graphs import build_or_tune, check_ported
+from repro_torch.core.plan import BlockPlan, CostModel
 from repro_torch.core.seed import reduce_identity_for, spmv_seed
 from repro_torch.obs import trace as _trace
 
@@ -39,6 +39,7 @@ class SpMM:
     _run: object
     device: torch.device
     reduce: str = "add"
+    tuning: object | None = None   # TuningResult when built via backend="auto"
     validation: object | None = None    # ValidationReport from from_coo
     degradations: tuple = ()            # DegradationEvents from the build
 
@@ -53,15 +54,17 @@ class SpMM:
                  reduce: str = "add",
                  plan_cache_dir: str | None = None,
                  tune: bool = False,
+                 tune_cache_dir: str | None = None,
                  validate: str = "strict",
                  mesh=None, shards: int | None = None,
                  device="cuda") -> "SpMM":
         """Build the plan and the executor on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
-        is ``"torch"`` or ``"cuda"``; ``reduce`` picks the semiring, and
-        ``validate="repair"`` combines duplicate entries with it (DESIGN.md
-        §9)."""
-        check_ported(backend, tune, mesh, shards, plan_cache_dir)
+        is ``"torch"``, ``"segsum"``, ``"cuda"`` or ``"auto"`` (measured on
+        an ``(n, 8)`` float32 operand, cached in ``tune_cache_dir``);
+        ``reduce`` picks the semiring, and ``validate="repair"`` combines
+        duplicate entries with it (DESIGN.md §9)."""
+        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.spmm.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
@@ -69,17 +72,26 @@ class SpMM:
             rows, cols, vals, vreport = validation.validate_coo(
                 rows, cols, np.asarray(vals), shape, policy=validate,
                 reduce=reduce)
+            access = {"row": rows, "col": cols}
+
+            def example():
+                b_ex = torch.as_tensor(np.random.default_rng(0)
+                                       .standard_normal((shape[1], 8))
+                                       .astype(np.float32), device=dev)
+                return {"x": b_ex}, torch.full(
+                    (shape[0], 8), seed.reduce_identity,
+                    dtype=torch.float32, device=dev)
             with validation.collect_degradations() as events:
-                plan = build_plan(seed, {"row": rows, "col": cols},
-                                  shape[0], shape[1],
-                                  cost=cost or CostModel(
-                                      lane_width=lane_width))
-                run = eng.make_executor(plan, {"value": vals},
-                                        backend=backend, fused=fused,
-                                        stage_b=stage_b, coalesce=coalesce,
-                                        device=dev)
+                plan, run, tuning = build_or_tune(
+                    "SpMM.from_coo", seed, access, shape[0], shape[1],
+                    {"value": vals}, backend=backend, tune=tune,
+                    lane_width=lane_width, cost=cost, fused=fused,
+                    stage_b=stage_b, coalesce=coalesce, device=dev,
+                    plan_cache_dir=plan_cache_dir,
+                    tune_cache_dir=tune_cache_dir, example=example,
+                    cache_extra="spmm:d8")
         return cls(plan=plan, shape=shape, _run=run, device=dev,
-                   reduce=reduce, validation=vreport,
+                   reduce=reduce, tuning=tuning, validation=vreport,
                    degradations=tuple(events))
 
     def matmat(self, bmat, y_init: torch.Tensor | None = None
@@ -104,4 +116,8 @@ class SpMM:
         return self._run({"x": bmat.contiguous()}, y_init)
 
     def report(self):
-        raise not_ported("SpMM.report()", "queue 1, item 8")
+        """Structured :class:`~repro_torch.obs.profile.RunReport`: plan
+        stats, IR pass deltas, per-launch cost attribution, tuning choice,
+        validation summary, and recorded degradations."""
+        from repro_torch.obs.profile import build_report
+        return build_report(self, "SpMM")

@@ -18,7 +18,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import ir
 from repro_torch.core.apps import SpMV
 from repro_torch.core.plan import CostModel, build_plan
-from repro_torch.core.seed import spmv_seed
+from repro_torch.core.seed import reduce_identity_for, spmv_seed
 from repro_torch.core.spmm import SpMM
 from repro_torch.kernels import build, common
 from repro_torch.kernels.gather_vload import kernel as GV
@@ -688,3 +688,104 @@ def test_row_copy_rejects_widths_the_pointers_do_not_allow():
         p + 4, i, 1, 1, 0, i, i, o, 1, 2, 16, 16, 0, st) == 1
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
+
+
+@pytest.mark.parametrize("d", [None, 5])
+@pytest.mark.parametrize("reduce,dtype", SEMIRINGS)
+@pytest.mark.parametrize("gen", ["banded", "powerlaw"])
+def test_segsum_on_card_vs_cpu(gen, reduce, dtype, d):
+    """``backend="segsum"`` on the card against the same program on the CPU:
+    its float add/mul is atomic on the card, so ``allclose``; int32 and
+    min/max are exact."""
+    dev = _cuda()
+    m = _matrix(gen)
+    vals, x = _data(m, dtype)
+    if d is not None:
+        x = np.stack([np.roll(x, k) for k in range(d)], axis=1)
+    plan = _plan(gen, 16)
+    y0 = np.full((m.shape[0],) + x.shape[1:],
+                 reduce_identity_for(reduce, dtype), dtype)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        run = eng.make_executor(plan, {"value": vals}, backend="segsum",
+                                device=device)
+        outs.append(run({"x": torch.as_tensor(x, device=device)},
+                        torch.as_tensor(y0, device=device)).cpu())
+    got, want = outs
+    if reduce in ("min", "max") or np.issubdtype(np.dtype(dtype),
+                                                 np.integer):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_autotune_on_card_measures_a_cuda_candidate(tmp_path):
+    """``backend="auto"`` on the card: the space holds the kernels, at least
+    one ``cuda`` candidate is measured and none is disqualified, the winner
+    matches the plain torch backend, and a warm rebuild measures
+    nothing."""
+    import warnings
+    from repro_torch import tune as T
+    dev = _cuda()
+    m = _matrix("banded")
+    vals, x = _data(m, np.float32)
+    kw = dict(backend="auto", tune_cache_dir=str(tmp_path), device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        app = SpMV.from_coo(m.rows, m.cols, vals, m.shape, **kw)
+    res = app.tuning
+    assert res.platform == "cuda" and res.picked_by == "measurement"
+    assert any(mm.candidate.backend == "cuda" for mm in res.measurements)
+    assert all(mm.ok and np.isfinite(mm.us_per_call)
+               for mm in res.measurements)
+    xd = torch.as_tensor(x, device=dev)
+    want = SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                         device=dev).matvec(xd)
+    torch.testing.assert_close(app.matvec(xd), want, rtol=1e-5, atol=1e-5)
+    before = T.measurement_count()
+    warm = SpMV.from_coo(m.rows, m.cols, vals, m.shape, **kw)
+    assert warm.tuning.cache_hit and warm.tuning.best == res.best
+    assert T.measurement_count() == before
+    assert app.report().totals["launches"] == len(app._run.tree.launches)
+
+
+@pytest.mark.parametrize("stage", ["launch", "timed"])
+def test_autotune_on_card_raises_when_a_kernel_candidate_fails(
+        stage, monkeypatch):
+    """On the card a ``cuda`` candidate that raises makes the tuned build
+    raise, where the tuner would otherwise disqualify it and let a plain
+    torch form win: at its first launch (both stage-A wrappers broken) or
+    in a timed call after a good oracle check."""
+    from repro_torch import tune as T
+    from repro_torch.tune import search as tsearch
+    dev = _cuda()
+    m = _matrix("banded")
+    vals, x = _data(m, np.float32)
+    if stage == "launch":
+        def broken(*a, **k):
+            raise RuntimeError("stage-A launch failed")
+        monkeypatch.setattr(ops, "window_stage_a", broken)
+        monkeypatch.setattr(ops, "dense_slice_stage_a", broken)
+        with pytest.raises(T.KernelCandidateError, match="launch failed"):
+            SpMV.from_coo(m.rows, m.cols, vals, m.shape, backend="auto",
+                          device=dev)
+        return
+
+    def factory(plan, cand, static_data, elem_exec):
+        run = tsearch._default_exec_factory(plan, cand, static_data,
+                                            elem_exec, device=dev)
+        if cand.backend != "cuda":
+            return run
+        calls = []
+
+        def flaky(mutable, out_init):
+            calls.append(1)
+            if len(calls) > 1:
+                raise RuntimeError("timed launch failed")
+            return run(mutable, out_init)
+        return flaky
+    with pytest.raises(T.KernelCandidateError, match="during measurement"):
+        T.autotune(spmv_seed(), {"row": m.rows, "col": m.cols}, m.shape[0],
+                   m.shape[1], {"value": vals},
+                   {"x": torch.as_tensor(x, device=dev)},
+                   torch.zeros(m.shape[0], device=dev), exec_factory=factory)

@@ -44,6 +44,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import repro_torch.kernels.gather_vload.ops\n"
             "import repro_torch.kernels.moe_dispatch.ops\n"
             "import repro_torch.sparse.generators\n"
+            "import repro_torch.tune, repro_torch.tune.search\n"
+            "import repro_torch.tune.calibrate\n"
+            "import repro_torch.core.planio, repro_torch.obs.profile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -3,7 +3,8 @@
 Every ``BlockPlan`` array and scalar, and every ``Launch`` field after
 ``lower()``, is ``np.array_equal`` to the JAX package's on the same input,
 over the generator families, lane widths {8, 16, 128}, the backend pairs
-(port ``cuda`` / reference ``pallas``, port ``torch`` / reference ``jax``),
+(port ``cuda`` / reference ``pallas``, port ``torch`` / reference ``jax``,
+``segsum`` / ``segsum``),
 ``fused`` and ``coalesce``.  ``validate_coo`` / ``validate_csr`` outputs and
 ``InputError`` fields are equal too.
 """
@@ -35,7 +36,7 @@ FAMILIES = {
     "stencil_qcd": lambda g: g.stencil_qcd(12),
 }
 LANES = (8, 16, 128)
-BACKENDS = [("cuda", "pallas"), ("torch", "jax")]
+BACKENDS = [("cuda", "pallas"), ("torch", "jax"), ("segsum", "segsum")]
 _PLAN_FIELDS = ("lane_width", "nnz", "out_len", "data_len", "num_blocks",
                 "window_ids", "lane_slot", "lane_offset", "seg_ids",
                 "gather_idx", "valid", "flat_perm", "head_pos", "head_rows")
@@ -117,7 +118,7 @@ def test_coalesce_stats_equal():
 
 def test_unknown_backend_raises():
     _, plan = _plans("banded", 8)
-    for bad in ("jax", "pallas", "segsum", "triton"):
+    for bad in ("jax", "pallas", "triton"):
         with pytest.raises(ValueError, match="unknown backend"):
             ir.lower(plan, backend=bad)
 

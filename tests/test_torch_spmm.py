@@ -193,15 +193,12 @@ def test_matvec_many_vs_reference_and_bucket_counter():
 def test_spmm_not_yet_ported_options_raise():
     m = _matrix("banded")
     vals, bmat = _problem(m, np.float32, 2)
-    for kw, item in (({"backend": "auto"}, "item 7"),
-                     ({"tune": True}, "item 7"),
-                     ({"shards": 2}, "items 3.4 and 10"),
-                     ({"plan_cache_dir": "pc"}, "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"shards": 2}, {"mesh": object()},
+               {"shards": 2, "backend": "auto"}):
+        with pytest.raises(NotImplementedError, match="items 3.4 and 10"):
             SpMM.from_coo(*_coo(m, vals), device="cpu", **kw)
     sp = _port(m, vals, "add")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sp.report()
+    assert sp.report().app == "SpMM"
     y = sp.matmat(torch.as_tensor(bmat))
     assert y.device.type == "cpu" and tuple(y.shape) == (m.shape[0], 2)
     with pytest.raises(ValueError, match="is on meta"):
