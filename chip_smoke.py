@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM and the graph
-apps on the H100.
+"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, the graph
+apps and concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -21,8 +21,9 @@ result line) if any phase fails:
 3. stage-A kernel phases: every window / dense-slice launch of both
    matrices, fused and per-class, coalesced and not, bitwise against the
    kernel's plain torch version on the card, for add and mul on float32
-   and min and max on int32, at ``D`` 1 (``x`` a vector) and 16 (a dense
-   ``(n, 16)`` operand: trailing lane axes);
+   and min and max on int32, at ``D`` 1 (``x`` a vector), 16 (a dense
+   ``(n, 16)`` operand: trailing lane axes) and 32 (the SpMV endpoint's
+   ``max_batch``, the lane count of phase 7's served batches);
 4. main paths: ``matvec`` and ``matmat`` (``D = 16``) with ``fused=True``
    and ``coalesce`` False and True, against a float64 numpy ``np.add.at``
    oracle (max rel err <= 1e-5) and bitwise against the port's ``"torch"``
@@ -58,7 +59,27 @@ result line) if any phase fails:
    Per app it prints the plan build time, the fallback share of blocks, the
    sweeps, end-to-end ms with each driver, device ms per sweep, the idle
    share and the top kernels under ``torch.profiler``;
-7. tuned path: ``SpMV.from_coo(..., backend="auto", tune_cache_dir=...)`` on
+7. serving: ``repro_torch.serve.query.QueryEngine`` over three endpoints,
+   all ``backend="cuda"``, ``lane_width=128``, ``fused=True``, reusing the
+   graph phase's BFS and SSSP apps and the pwtk ``coalesce=True`` SpMV (so
+   BFS and SSSP run the window kernel, SpMV the dense-slice one): 64 BFS and
+   32 SSSP requests (sources drawn with ``SEED``, ``max_batch`` 8) and 256
+   float32 SpMV vectors (``max_batch`` 32), each from 4 client threads after
+   ``warmup``, all submitted at once (a saturation burst).  Every request
+   served (no shed, deadline or other error), the breaker closed, the
+   endpoint warm in ``health()``, every response bitwise its sequential
+   ``run`` / ``matvec``, every served batch's rows bitwise the same
+   payloads as one batch through the ``"torch"`` backend on the same plan,
+   and the stage-A counters, zeroed before the traffic, grown during it.
+   Prints the batch sizes seen, wall s, peak QPS, p50 and p99 ms of a
+   request's time in the burst, and the wall time of the same requests
+   served one by one; ``matvec_many`` of ``S = 9`` on pwtk in device ms at
+   ``bucket=True`` (16 lane columns) and ``bucket=False``; and runs
+   ``python -m repro_torch.launch.serve_queries --check 32`` once in a
+   child process on the webbase-1M analogue (256 requests), which must
+   serve all and find its 32 sampled responses bitwise those of a
+   ``"torch"`` build;
+8. tuned path: ``SpMV.from_coo(..., backend="auto", tune_cache_dir=...)`` on
    both matrices, the tuner's RuntimeWarnings turned into failures: every
    measured candidate (label, predicted us, the model before its backend's
    scale, measured us) and the winner
@@ -76,7 +97,7 @@ result line) if any phase fails:
    BFS (also equal to scipy's) with the model's prediction of every
    candidate of the space.  ``report()`` of each tuned app: its
    launch count equals the lowered tree's and its JSON parses;
-8. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
+9. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
    clock around the call and a synchronize, median of 20) and in device
    time (CUDA events around back-to-back calls queued behind a spin kernel,
    so launch overhead leaves no gaps; median of 5 such measurements); a
@@ -89,7 +110,7 @@ result line) if any phase fails:
    SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
    the ``"mul_all"`` dense-slice time at ``D = 16`` beside the number of
    its design before the ``"add_all"`` combine (``PERF.md``);
-9. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+10. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
    ladder's shapes) in a child process.
 
@@ -138,6 +159,17 @@ MOE = dict(tokens=4096, d_model=4096, num_experts=128, top_k=8, d_tile=512)
 GRAPH = dict(kind="powerlaw", n=1632803, avg_deg=19)
 GRAPH_S = 8                    # sources of the run_multi runs (D = 8)
 PAGERANK_ITERS = 20
+# the [serve] phase: concurrent queries through repro_torch.serve.query over
+# the graph phase's BFS / SSSP apps and the pwtk coalesce=True SpMV
+SERVE = {"bfs": dict(requests=64, threads=4, max_batch=8),
+         "sssp": dict(requests=32, threads=4, max_batch=8),
+         "spmv": dict(requests=256, threads=4, max_batch=32)}
+SERVE_BUCKET_S = 9             # matvec_many S of the bucket=True/False timing
+# the launcher's child run: the webbase-1M analogue's generator and size
+LAUNCHER_ARGS = ["--app", "spmv", "--nodes", "1000005", "--avg-deg", "3",
+                 "--requests", "256", "--threads", "4", "--check", "32",
+                 "--json", "build/serve.json"]
+LAUNCHER_S = 600               # time limit of the launcher's child run
 # the "mul_all" dense slice at D = 16 on pwtk before the kernels gained the
 # "add_all" combine (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_DENSE_D16_MS = 0.6030
@@ -305,6 +337,13 @@ def same_bits(a, b) -> bool:
     view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     return torch.equal(a.view(view[a.element_size()]),
                        b.view(view[b.element_size()]))
+
+
+def same_host_bits(a, b) -> bool:
+    """``same_bits`` of two numpy arrays."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 def max_abs_diff(a, b) -> float:
@@ -548,12 +587,12 @@ class Smoke:
 
     def stage_a_phase(self) -> None:
         """Every kernel launch of both matrices against its plain version,
-        at D = 1 and D = SPMM_D."""
+        at D = 1, D = SPMM_D and the SpMV endpoint's max_batch."""
         torch = self.torch
         for name, plan in self.plans.items():
             lowerings = {(f, c): self.kernel_launches(plan, f, c)
                          for f in (True, False) for c in (False, True)}
-            for d in (1, SPMM_D):
+            for d in (1, SPMM_D, SERVE["spmv"]["max_batch"]):
                 for reduce, dtype in SEMIRINGS:
                     vals, x = data_for(self.mats[name], dtype,
                                        None if d == 1 else d)
@@ -1020,6 +1059,7 @@ class Smoke:
                 "cc": (self.graphs.ConnectedComponents, (c.src, c.dst, n),
                        {}),
                 "pagerank": (self.PageRank, (c.src, c.dst, n), {})}
+        self.graph_apps = {}
         for name, (cls, edges, static) in apps.items():
             self.graph_app(name, cls, edges, static, c, adj, sources)
         self.graph = (c, adj, sources)
@@ -1076,6 +1116,7 @@ class Smoke:
             "bitwise, resident == host bitwise, oracle held")
         if name in ("bfs", "sssp"):
             self.graph_multi(name, app, torch_app, sources)
+            self.graph_apps[name] = (app, torch_app)   # for [serve]
         e2e = {}
         for driver in ("resident", "host"):
             app.driver = driver
@@ -1174,6 +1215,204 @@ class Smoke:
             log(f"[graph] pagerank: max abs err / max rank vs float64 "
                 f"power iteration {err:.3e}")
 
+    # ------------------------------------------------------------ serving
+    def serve_phase(self) -> None:
+        """Concurrent queries through ``QueryEngine`` (see the module
+        docstring, phase 7)."""
+        torch = self.torch
+        from repro_torch.serve import query as Q
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        n = self.graph[0].num_nodes
+        for name in ("bfs", "sssp"):
+            app, torch_app = self.graph_apps[name]
+            spec = SERVE[name]
+            make = getattr(Q, f"{name}_endpoint")
+            sources = [int(s) for s in rng.integers(0, n, spec["requests"])]
+            self.serve_endpoint(Q, make(app, max_batch=spec["max_batch"]),
+                                make(torch_app), app, sources, app.run, spec)
+        spec = SERVE["spmv"]
+        pwtk = self.run_of("pwtk", True, None)
+        torch_pwtk = dataclasses.replace(
+            pwtk["app"], _run=pwtk["torch_run"], _y0={},
+            _batched_shapes=set())
+        pwtk = pwtk["app"]
+        xs = list(rng.standard_normal((spec["requests"], pwtk.shape[1]))
+                  .astype(np.float32))
+        self.serve_endpoint(
+            Q, Q.spmv_endpoint(pwtk, max_batch=spec["max_batch"]),
+            Q.spmv_endpoint(torch_pwtk), pwtk, xs,
+            lambda x: pwtk.matvec(torch.as_tensor(x, device=self.dev)), spec)
+        self.bucket_timing(pwtk)
+        self.serve_launcher()
+        log(f"[serve] phase done in {time.perf_counter() - t0:.1f} s")
+
+    def serve_endpoint(self, Q, ep, plain, app, payloads, one, spec) -> None:
+        """Warm one endpoint, serve ``payloads`` from ``spec["threads"]``
+        client threads, hold every response bitwise to the sequential call
+        ``one(payload)``, which is then timed on its own, and every served
+        batch bitwise to the same payloads as one batch of ``plain``, the
+        endpoint over the ``"torch"`` backend on the same plan."""
+        import collections
+        import threading
+        what = f"{ep.name} ({len(payloads)} requests, {spec['threads']} " \
+               f"client threads, max_batch {ep.max_batch})"
+        batches = []                        # the payloads of each batch
+
+        def recorded(batch):
+            batches.append(list(batch))
+            return ep.batch_fn(batch)
+        engine = Q.QueryEngine([dataclasses.replace(ep, batch_fn=recorded)],
+                               queue_capacity=len(payloads))
+        responses = [None] * len(payloads)
+        errors = []
+        lock = threading.Lock()
+
+        def client(idx):
+            tickets = []
+            for i in idx:
+                try:
+                    tickets.append((i, engine.submit(ep.name, payloads[i])))
+                except Q.ServeError as e:
+                    with lock:
+                        errors.append(e)
+            for i, t in tickets:
+                try:
+                    responses[i] = t.result(600)
+                except Exception as e:      # noqa: BLE001 - checked below
+                    with lock:
+                        errors.append(e)
+
+        with engine:
+            t0 = time.perf_counter()
+            engine.warmup(ep.name, payloads[0], batch=ep.max_batch)
+            warm_s = time.perf_counter() - t0
+            chunks = [range(i, len(payloads), spec["threads"])
+                      for i in range(spec["threads"])]
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in chunks]
+            del batches[:]
+            self.zero_counts()
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t0
+            counts = self.read_counts()
+            health = engine.health()
+        check(not any(th.is_alive() for th in threads),
+              f"serve {what}: a client thread never finished")
+        check(not errors, f"serve {what}: {len(errors)} requests failed, "
+              f"first: {errors[:1]!r}")
+        check(all(r is not None for r in responses),
+              f"serve {what}: a request got no response")
+        check(health["breaker"]["state"] == "closed",
+              f"serve {what}: breaker {health['breaker']}")
+        check(health["endpoints"][ep.name]["warm"],
+              f"serve {what}: health() does not report the endpoint warm")
+        self.check_named(app, counts, f"serve {what}")
+        sizes = dict(sorted(collections.Counter(
+            r.batch_size for r in responses).items()))
+        lat = sorted(r.total_s * 1e3 for r in responses)
+        p50 = lat[len(lat) // 2]
+        p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+        self.torch.cuda.synchronize()
+        seq, sweeps = [], []
+        t0 = time.perf_counter()
+        for p in payloads:
+            seq.append(one(p).cpu().numpy())
+            sweeps.append(getattr(app, "convergence", None))
+        seq_s = time.perf_counter() - t0
+        sweeps = [c.sweeps for c in sweeps if c is not None]
+        for i, (r, want) in enumerate(zip(responses, seq)):
+            check(same_host_bits(r.value, want),
+                  f"serve {what}: response {i} (batch of {r.batch_size}) "
+                  "differs from its sequential call")
+        # a payload's response, by identity (an int source may repeat; its
+        # responses are then equal, as held just above)
+        by_payload = {id(p): r.value for p, r in zip(payloads, responses)}
+        check(sum(map(len, batches)) == len(payloads),
+              f"serve {what}: {sum(map(len, batches))} payloads in the "
+              f"recorded batches, {len(payloads)} submitted")
+        for b, batch in enumerate(batches):
+            want = plain.batch_fn(batch).cpu().numpy()
+            for j, p in enumerate(batch):
+                check(same_host_bits(by_payload[id(p)], want[j]),
+                      f"serve {what}: batch {b} (of {len(batch)}) row {j} "
+                      "differs from the torch backend on the same batch")
+        served = len(responses)
+        log(f"[serve] {what}: all {served} served, each bitwise equal to its "
+            f"sequential call and, in each of the {len(batches)} served "
+            f"batches, to the torch backend on the same batch; breaker "
+            f"closed, endpoint warm; kernel launches during the traffic "
+            f"{ {k: c for k, c in counts.items() if c} }; batch sizes seen "
+            f"{sizes}; {health['counters']}")
+        log(f"[time] {self.tag} serve {ep.name}, saturation burst (all "
+            f"{served} requests submitted at once): {served} served in "
+            f"{wall:.4f} s wall, peak {served / wall:.4f} QPS; a request's "
+            f"time in the burst (its place in the queue) p50 {p50:.4f} ms, "
+            f"p99 {p99:.4f} ms (warmup {warm_s:.2f} s)")
+        log(f"[time] {self.tag} serve {ep.name}: the same {served} requests "
+            f"one by one (each call and its host copy) {seq_s:.4f} s, "
+            f"{served / seq_s:.4f} QPS; at full-batch saturation batching "
+            f"{'pays' if wall < seq_s else 'does not pay'} on this card "
+            f"(batched / sequential wall {wall / seq_s:.4f})"
+            + (f"; sweeps per run {min(sweeps)}-{max(sweeps)}, mean "
+               f"{statistics.mean(sweeps):.2f}" if sweeps else ""))
+
+    def bucket_timing(self, app) -> None:
+        """One ``matvec_many`` of ``S = SERVE_BUCKET_S`` on pwtk, padded up
+        the bucket ladder and not: bitwise equal rows, device ms of each."""
+        torch = self.torch
+        xs = torch.as_tensor(np.random.default_rng(SEED + 3).standard_normal(
+            (SERVE_BUCKET_S, app.shape[1])).astype(np.float32),
+            device=self.dev)
+        padded = app.matvec_many(xs, bucket=True)
+        check(same_bits(padded, app.matvec_many(xs, bucket=False)),
+              "matvec_many bucket=False differs from bucket=True")
+        ms = {b: device_ms(lambda: app.matvec_many(xs, bucket=b))
+              for b in (True, False)}
+        log(f"[time] {self.tag} pwtk coalesce=True matvec_many "
+            f"S={SERVE_BUCKET_S}: bucket=True (S padded to "
+            f"{self.graphs.bucket_size(SERVE_BUCKET_S)}) {ms[True]:.4f} ms "
+            f"of device time, bucket=False (the endpoints') {ms[False]:.4f} "
+            "ms; rows bitwise equal")
+
+    def serve_launcher(self) -> None:
+        """``python -m repro_torch.launch.serve_queries`` once in a child
+        process (the kernels are already built in ``build/``)."""
+        out = ROOT / "build" / "serve.json"
+        out.unlink(missing_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_queries",
+             *LAUNCHER_ARGS], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=LAUNCHER_S)
+        child_s = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines()[-8:]:
+            log(f"[serve] child: {line}")
+        if proc.returncode != 0:
+            for line in proc.stderr.strip().splitlines()[-20:]:
+                log(f"[serve] child: {line}")
+        check(proc.returncode == 0, "the serve_queries launcher failed "
+              f"(exit {proc.returncode})")
+        summary = json.loads(out.read_text())
+        check(summary["served"] == summary["requests"] == 256
+              and not any(summary["errors"].values())
+              and summary["health"]["breaker"]["state"] == "closed",
+              f"serve_queries: served {summary['served']} of "
+              f"{summary['requests']}, errors {summary['errors']}")
+        check(summary["check"]["checked"] == summary["check"]["bitwise"]
+              == 32, f"serve_queries: {summary['check']} of the sampled "
+              "responses against the torch build")
+        log(f"[time] {self.tag} serve_queries {' '.join(LAUNCHER_ARGS)}: "
+            f"{summary['served']} served, {summary['qps']:.4f} QPS, p50 "
+            f"{summary['p50_ms']:.4f} ms, p99 {summary['p99_ms']:.4f} ms; "
+            f"child process {child_s:.2f} s in all (start, generate, plan, "
+            "warm-up, traffic)")
+
     # ------------------------------------------------------- tuned path
     def tuned(self, build, what):
         """One ``backend="auto"`` build, its tuner's RuntimeWarnings turned
@@ -1227,7 +1466,7 @@ class Smoke:
             f"{rep.totals}, passes {list(rep.passes)}")
 
     def tune_phase(self) -> None:
-        """The tuned entry path (see the module docstring, phase 7)."""
+        """The tuned entry path (see the module docstring, phase 8)."""
         import shutil
         torch = self.torch
         from repro_torch import tune as T
@@ -1411,6 +1650,7 @@ class Smoke:
         self.gather_vload_phase()
         self.row_gather_phase()
         self.graph_phase()
+        self.serve_phase()
         self.tune_phase()
         self.main_timings()
         self.stage_a_timings()

@@ -1,0 +1,2 @@
+"""Launchers: command-line entry points over the port's apps
+(``python -m repro_torch.launch.serve_queries``)."""

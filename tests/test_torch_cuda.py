@@ -789,3 +789,89 @@ def test_autotune_on_card_raises_when_a_kernel_candidate_fails(
                    m.shape[1], {"value": vals},
                    {"x": torch.as_tensor(x, device=dev)},
                    torch.zeros(m.shape[0], device=dev), exec_factory=factory)
+
+
+# ------------------------------------------------------ serving on the card
+def _serve_apps(dev):
+    from repro_torch.core.graphs import BFS, SSSP
+    c = G.graph_case("powerlaw", 3000, avg_deg=6, seed=7)
+    m = _matrix("banded")
+    vals, _ = _data(m, np.float32)
+    kw = dict(backend="cuda", lane_width=128, fused=True, device=dev)
+    return {"bfs": BFS.from_edges(c.src, c.dst, c.num_nodes, **kw),
+            "sssp": SSSP.from_edges(c.src, c.dst, c.weight, c.num_nodes,
+                                    **kw),
+            "spmv": SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                                  coalesce=True, **kw)}
+
+
+def _serve_payloads(apps, n=12):
+    rng = np.random.default_rng(0)
+    nodes = apps["bfs"].num_nodes
+    cols = apps["spmv"].shape[1]
+    return ([("bfs", int(s)) for s in rng.integers(0, nodes, n)]
+            + [("sssp", int(s)) for s in rng.integers(0, nodes, n)]
+            + [("spmv", x) for x in
+               rng.standard_normal((n, cols)).astype(np.float32)])
+
+
+def test_served_batches_bitwise_sequential_on_card(monkeypatch):
+    """Every endpoint over a ``backend="cuda"`` app: each served response
+    is bitwise the sequential ``run`` / ``matvec``; the stage-A counters,
+    zeroed after warm-up, grow during the traffic; each batch runs on the
+    dispatcher thread, on the app's card and its default stream; and
+    ``warmup`` leaves every endpoint warm."""
+    import threading
+    from repro_torch.serve import query as Q
+    dev = _cuda()
+    apps = _serve_apps(dev)
+    seen = []
+
+    def spy(app, name):
+        real = getattr(app, name)
+
+        def call(*a, **k):
+            seen.append((threading.current_thread().name,
+                         torch.cuda.current_device(),
+                         torch.cuda.current_stream(dev)
+                         == torch.cuda.default_stream(dev)))
+            return real(*a, **k)
+        monkeypatch.setattr(app, name, call)
+    spy(apps["bfs"], "run_multi")
+    spy(apps["sssp"], "run_multi")
+    spy(apps["spmv"], "matvec_many")
+    eps = [Q.bfs_endpoint(apps["bfs"], max_batch=8),
+           Q.sssp_endpoint(apps["sssp"], max_batch=8),
+           Q.spmv_endpoint(apps["spmv"], max_batch=16)]
+    payloads = _serve_payloads(apps)
+    side = torch.cuda.Stream(dev)
+    with Q.QueryEngine(eps, queue_capacity=len(payloads)) as engine:
+        with torch.cuda.stream(side):     # the caller's stream is not used
+            for ep in eps:
+                first = next(p for k, p in payloads if k == ep.name)
+                engine.warmup(ep.name, first, batch=ep.max_batch)
+        health = engine.health()
+        for ep in eps:
+            assert health["endpoints"][ep.name]["warm"] is True
+        K.window_stage_a.launches = 0
+        K.dense_slice_stage_a.launches = 0
+        seen.clear()
+        tickets = [(k, p, engine.submit(k, p)) for k, p in payloads]
+        responses = [(k, p, t.result(120)) for k, p, t in tickets]
+        torch.cuda.synchronize(dev)
+        window = K.window_stage_a.launches
+        dense = K.dense_slice_stage_a.launches
+        health = engine.health()
+    assert window > 0 and dense > 0
+    assert seen and all(name == "repro-serve-dispatcher" and d == dev.index
+                        and default for name, d, default in seen)
+    assert health["breaker"]["state"] == "closed"
+    assert health["counters"]["served"] == len(payloads) + len(eps)
+    for kind, payload, r in responses:
+        assert isinstance(r.value, np.ndarray)
+        if kind == "spmv":
+            want = apps["spmv"].matvec(torch.as_tensor(payload, device=dev))
+        else:
+            want = apps[kind].run(payload)
+        assert np.array_equal(_bits(torch.as_tensor(r.value)).numpy(),
+                              _bits(want.cpu()).numpy()), (kind, r.batch_size)

@@ -47,6 +47,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import repro_torch.tune, repro_torch.tune.search\n"
             "import repro_torch.tune.calibrate\n"
             "import repro_torch.core.planio, repro_torch.obs.profile\n"
+            "import repro_torch.serve.query, repro_torch.testing.faults\n"
+            "import repro_torch.launch.serve_queries\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -96,6 +98,18 @@ def test_executor_default_device_raises_without_cuda():
                       CostModel(lane_width=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.make_executor(plan, {"value": vals}, backend="cuda")
+
+
+@pytest.mark.parametrize("app", ["bfs", "sssp", "spmv"])
+def test_launcher_default_device_raises_without_cuda(app, capsys):
+    """``python -m repro_torch.launch.serve_queries`` asks for CUDA unless
+    ``--device cpu`` is given, and raises before it builds anything."""
+    _no_cuda()
+    from repro_torch.launch import serve_queries
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_queries.main(["--app", app, "--nodes", "64", "--requests",
+                            "4"])
+    assert "[serve]" not in capsys.readouterr().out
 
 
 def test_kernel_wrappers_never_take_the_plain_path_on_other_devices():
