@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, the graph
-apps and concurrent query serving on the H100.
+"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving,
+the graph apps and concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -9,9 +9,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It drives the port's main paths — ``SpMV.from_coo(..., backend="cuda")``
 then ``.matvec(x)`` and ``.matvec_many(xs)``, and ``SpMM.from_coo(...,
 backend="cuda")`` then ``.matmat(B)`` — on two SuiteSparse analogues at
-their published sizes (``sparse/generators.py``), and the entry points of
-the three standalone kernels at real sizes, and fails (non-zero exit, no
-result line) if any phase fails:
+their published sizes (``sparse/generators.py``), LM serving
+(``repro_torch.serve.engine.generate``) at the published widths, and the
+entry points of the three standalone kernels at real sizes, and fails
+(non-zero exit, no result line) if any phase fails:
 
 1. device: CUDA present; prints the card's name and power limit on a line
    of their own, as ``nvidia-smi`` gives them;
@@ -23,7 +24,7 @@ result line) if any phase fails:
    kernel's plain torch version on the card, for add and mul on float32
    and min and max on int32, at ``D`` 1 (``x`` a vector), 16 (a dense
    ``(n, 16)`` operand: trailing lane axes) and 32 (the SpMV endpoint's
-   ``max_batch``, the lane count of phase 7's served batches);
+   ``max_batch``, the lane count of phase 8's served batches);
 4. main paths: ``matvec`` and ``matmat`` (``D = 16``) with ``fused=True``
    and ``coalesce`` False and True, against a float64 numpy ``np.add.at``
    oracle (max rel err <= 1e-5) and bitwise against the port's ``"torch"``
@@ -42,7 +43,22 @@ result line) if any phase fails:
    ``gather_vload`` cases (the fused section at ``D`` 1 and 16 in f32, and
    16 in bf16) are also held bitwise to their plain version and to
    ``torch.take``;
-6. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
+6. LM serving (``[lm]``): ``repro_torch.serve.engine.generate`` (greedy)
+   on granite-3-2b, whole (40 layers, 2.53 B parameters), batch 4, prompt
+   128, 32 steps, and on qwen3-moe-235b-a22b at full width cut to 4 of its
+   94 layers (128 experts, top 8), batch 4, prompt 128, 16 steps; bf16
+   weights drawn from ``SEED``.  The MoE layers' dispatch and combine run
+   on the ``row_gather`` kernel: its launches in the run (two per MoE layer
+   and forward) are counted, every one is held bitwise to the plain
+   version on the same rows, and the whole run repeated on the plain row
+   gather gives bitwise the same tokens, final logits and cache.  Prints
+   prefill ms, decode ms per step, tokens/s and peak memory, a profiler
+   breakdown of a prefill and a decode step, and ``row_gather`` at the
+   prefill's dispatch and combine beside ``index_select``.  Then, in
+   float32, decode == forward for each model (prompt 8, 4 decoded tokens,
+   batch 2; the MoE dropless, ``capacity_factor`` = experts) at
+   ``tests/test_serve.py``'s ``rtol=2e-2, atol=2e-3``;
+7. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
    ``ConnectedComponents`` (on the symmetrized edges) and ``PageRank`` (20
    iterations, damping 0.85) through ``from_edges(..., backend="cuda",
    lane_width=128, fused=True)`` on the soc-Pokec analogue
@@ -59,7 +75,7 @@ result line) if any phase fails:
    Per app it prints the plan build time, the fallback share of blocks, the
    sweeps, end-to-end ms with each driver, device ms per sweep, the idle
    share and the top kernels under ``torch.profiler``;
-7. serving: ``repro_torch.serve.query.QueryEngine`` over three endpoints,
+8. serving: ``repro_torch.serve.query.QueryEngine`` over three endpoints,
    all ``backend="cuda"``, ``lane_width=128``, ``fused=True``, reusing the
    graph phase's BFS and SSSP apps and the pwtk ``coalesce=True`` SpMV (so
    BFS and SSSP run the window kernel, SpMV the dense-slice one): 64 BFS and
@@ -79,7 +95,7 @@ result line) if any phase fails:
    child process on the webbase-1M analogue (256 requests), which must
    serve all and find its 32 sampled responses bitwise those of a
    ``"torch"`` build;
-8. tuned path: ``SpMV.from_coo(..., backend="auto", tune_cache_dir=...)`` on
+9. tuned path: ``SpMV.from_coo(..., backend="auto", tune_cache_dir=...)`` on
    both matrices, the tuner's RuntimeWarnings turned into failures: every
    measured candidate (label, predicted us, the model before its backend's
    scale, measured us) and the winner
@@ -97,7 +113,7 @@ result line) if any phase fails:
    BFS (also equal to scipy's) with the model's prediction of every
    candidate of the space.  ``report()`` of each tuned app: its
    launch count equals the lowered tree's and its JSON parses;
-9. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
+10. timings: ``matvec``, ``matvec_many`` and ``matmat`` end to end (host
    clock around the call and a synchronize, median of 20) and in device
    time (CUDA events around back-to-back calls queued behind a spin kernel,
    so launch overhead leaves no gaps; median of 5 such measurements); a
@@ -110,7 +126,7 @@ result line) if any phase fails:
    SpMM (``torch.sparse_csr_tensor(...) @ x``) as end-to-end yardsticks;
    the ``"mul_all"`` dense-slice time at ``D = 16`` beside the number of
    its design before the ``"add_all"`` combine (``PERF.md``);
-10. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+11. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
    ladder's shapes) in a child process.
 
@@ -170,6 +186,15 @@ LAUNCHER_ARGS = ["--app", "spmv", "--nodes", "1000005", "--avg-deg", "3",
                  "--requests", "256", "--threads", "4", "--check", "32",
                  "--json", "build/serve.json"]
 LAUNCHER_S = 600               # time limit of the launcher's child run
+# the [lm] phase: LM serving through repro_torch.serve.engine at the
+# published widths, weights from SEED; "layers" cuts the depth
+LM_CELLS = (
+    dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
+         steps=16),
+)
+LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
+LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
 # the "mul_all" dense slice at D = 16 on pwtk before the kernels gained the
 # "add_all" combine (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_DENSE_D16_MS = 0.6030
@@ -1037,10 +1062,194 @@ class Smoke:
                 self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0,
                                   lib_ms)
 
+    # ---------------------------------------------------------- LM serving
+    def lm_config(self, spec):
+        from repro_torch.configs import get_config
+        cfg = get_config(spec["arch"])
+        return cfg.replace(num_layers=spec["layers"]) if spec["layers"] \
+            else cfg
+
+    def lm_phase(self) -> None:
+        """LM serving at full width (see the module docstring, phase
+        6)."""
+        torch = self.torch
+        torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for spec in LM_CELLS:
+                cfg = self.lm_config(spec)
+                self.lm_serve(cfg, spec)
+                self.lm_decode_check(cfg)
+        log(f"[lm] phase in {time.perf_counter() - t0:.1f} s")
+
+    def lm_model(self, cfg):
+        torch = self.torch
+        from repro_torch.models import lm
+        gen = torch.Generator(self.dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        model = lm.init_model(cfg, generator=gen, device=self.dev)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"[lm] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{str(cfg.param_dtype)[6:]}): {n} parameters, {nbytes} B, "
+            f"init {time.perf_counter() - t0:.2f} s")
+        return model, gen
+
+    def lm_serve(self, cfg, spec) -> None:
+        """Greedy generation through ``engine.generate``: the kernel
+        launches of the run counted, every row gather held bitwise to its
+        plain version, the run repeated on the plain row gather (tokens,
+        final logits and cache bitwise), then timed."""
+        torch, RG = self.torch, self.RG
+        from repro_torch.models import lm
+        from repro_torch.models import moe as MOE
+        from repro_torch.serve import engine
+        b, s, steps = spec["batch"], spec["prompt"], spec["steps"]
+        base = torch.cuda.memory_allocated()    # held by earlier phases
+        torch.cuda.reset_peak_memory_stats()
+        model, gen = self.lm_model(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=self.dev, dtype=torch.int32)
+        batch, max_len = {"tokens": tokens}, s + steps + 4
+        is_moe = cfg.family == "moe"
+        calls, gathers = [0], []    # the first dispatch and combine kept
+
+        def checked(src, ids, d_tile=512):
+            got = RG.row_gather(src, ids, d_tile)
+            what = ("dispatch", "combine")[calls[0] % 2]
+            calls[0] += 1
+            self.held("row_gather", got, RG.row_gather_plain(src, ids),
+                      f"{cfg.name} {what} {tuple(ids.shape)} of "
+                      f"{tuple(src.shape)}")
+            if len(gathers) < 2:
+                gathers.append((what, src, ids))
+            return got
+
+        def run(gather):
+            """One greedy run with ``gather`` as the layers' row gather;
+            the final logits are those of one more step."""
+            MOE.row_gather = gather
+            try:
+                t0 = time.perf_counter()
+                self.zero_counts()
+                out, cache = engine.generate(model, cfg, batch, steps,
+                                             max_len)
+                counts = self.read_counts()
+                first_s = time.perf_counter() - t0
+                logits, _ = lm.decode_step(model, cfg, cache, out[:, -1:],
+                                           s + steps - 1)
+            finally:
+                MOE.row_gather = RG.row_gather
+            return out, logits, cache, counts, first_s
+
+        out, logits, cache, counts, first_s = run(checked)
+        want = 2 * cfg.num_layers * steps if is_moe else 0
+        check(counts["row_gather"] == want, f"{cfg.name}: row_gather "
+              f"launched {counts['row_gather']} times, expected {want}")
+        check(tuple(out.shape) == (b, steps) and out.dtype == torch.int32
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"{cfg.name}: bad tokens {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: non-finite logits")
+        log(f"[lm] {cfg.name} generate (batch {b}, prompt {s}, {steps} "
+            f"greedy steps): first call {first_s:.2f} s, kernel launches "
+            f"{ {k: c for k, c in counts.items() if c} }, tokens[0][:12] "
+            f"{out[0, :12].tolist()}")
+        if is_moe:
+            log(f"[lm] {cfg.name}: all {calls[0]} row gathers of the run "
+                "(a dispatch and a combine per MoE layer and forward) "
+                "bitwise equal to the plain version")
+            p_out, p_logits, p_cache, _, _ = run(RG.row_gather_plain)
+            check(torch.equal(out, p_out) and same_bits(logits, p_logits)
+                  and all(same_bits(cache[k], p_cache[k]) for k in cache),
+                  f"{cfg.name}: the run on the plain row gather differs")
+            log(f"[lm] {cfg.name}: the same run on the plain row gather has "
+                "bitwise the same tokens, final logits and cache")
+            del p_out, p_logits, p_cache
+        peak = torch.cuda.max_memory_allocated() - base
+        prefill_ms = host_ms(lambda: engine.prefill(model, cfg, batch,
+                                                    max_len), 1, 5)
+        gen_ms = host_ms(lambda: engine.generate(model, cfg, batch, steps,
+                                                 max_len), 1, 3)
+        decode_ms = (gen_ms - prefill_ms) / (steps - 1)
+        log(f"[time] {self.tag} {cfg.name} serve batch {b} prompt {s}: "
+            f"prefill {prefill_ms:.4f} ms, decode {decode_ms:.4f} ms per "
+            f"step of {b} tokens ((generate - prefill) / {steps - 1}), "
+            f"generate {gen_ms:.4f} ms for {b * steps} tokens = "
+            f"{b * steps / gen_ms * 1e3:.1f} tokens/s; peak memory {peak} B "
+            f"(above the {base} B held before the model)")
+        log_profile(self.tag, f"{cfg.name} prefill (batch {b}, {s} tokens)",
+                    lambda: engine.prefill(model, cfg, batch, max_len))
+        log_profile(self.tag, f"{cfg.name} decode step (batch {b})",
+                    lambda: lm.decode_step(model, cfg, cache, out[:, -1:],
+                                           s + steps - 1))
+        if is_moe:
+            for what, src, ids in gathers:
+                self.lm_gather_time(cfg, what, src, ids)
+        del model, cache, gathers
+        torch.cuda.empty_cache()
+
+    def lm_gather_time(self, cfg, what, src, ids) -> None:
+        torch, RG = self.torch, self.RG
+        ms = device_ms(lambda: RG.row_gather(src, ids))
+        plain_ms = device_ms(lambda: RG.row_gather_plain(src, ids))
+        lib_ms = device_ms(lambda: torch.index_select(src, 0, ids))
+        check(same_bits(torch.index_select(src, 0, ids),
+                        RG.row_gather(src, ids)),
+              "index_select disagrees with row_gather")
+        distinct = int(torch.unique(ids).numel())
+        nbytes = ids.numel() * 4 + (distinct + ids.numel()) * \
+            src.shape[1] * src.element_size()
+        bound_ms, _ = bound(nbytes)
+        log(f"[time] {self.tag} row_gather {cfg.name} prefill {what} "
+            f"({ids.numel()} rows of {tuple(src.shape)} {src.dtype}): "
+            f"{ms:.4f} ms vs bound {bound_ms:.4f} ms ({nbytes} B), "
+            f"{bound_ms / ms:.3f} of the bound; plain version "
+            f"{plain_ms:.4f} ms; index_select (yardstick) {lib_ms:.4f} ms")
+        if what == "dispatch":
+            self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0, lib_ms)
+
+    def lm_decode_check(self, cfg) -> None:
+        """decode == forward (``tests/test_serve.py``'s rule) in float32;
+        MoE in the dropless regime, where no capacity couples tokens."""
+        torch = self.torch
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        cfg = cfg.replace(param_dtype=torch.float32,
+                          compute_dtype=torch.float32)
+        if cfg.family == "moe":
+            cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
+        b, s, n = LM_CHECK["batch"], LM_CHECK["prompt"], LM_CHECK["decoded"]
+        model, gen = self.lm_model(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
+                             device=self.dev, dtype=torch.int32)
+        full, _ = lm.forward(model, cfg, {"tokens": toks})
+        cache, last = engine.prefill(model, cfg, {"tokens": toks[:, :s]},
+                                     s + n + 4)
+        steps = [last[:, -1]]
+        for i in range(s, s + n):
+            logits, cache = lm.decode_step(model, cfg, cache,
+                                           toks[:, i:i + 1], i)
+            steps.append(logits[:, 0])
+        got = torch.stack(steps, 1).cpu().numpy()
+        want = full[:, s - 1:].cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(bool(np.isfinite(got).all()) and np.allclose(got, want,
+                                                           **LM_TOL),
+              f"{cfg.name}: decode differs from forward in float32 (max abs "
+              f"err {err})")
+        log(f"[lm] {cfg.name} float32 decode == forward (prompt {s}, {n} "
+            f"decoded, batch {b}"
+            f"{', dropless' if cfg.family == 'moe' else ''}): max abs err "
+            f"{err:.3e} within rtol {LM_TOL['rtol']}, atol {LM_TOL['atol']}")
+        del model, cache, full
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------- graph apps
     def graph_phase(self) -> None:
         """The four graph apps on the soc-Pokec analogue (see the module
-        docstring, phase 6)."""
+        docstring, phase 7)."""
         from scipy.sparse import csr_matrix
         t0 = time.perf_counter()
         c = self.G.graph_case(GRAPH["kind"], GRAPH["n"],
@@ -1218,7 +1427,7 @@ class Smoke:
     # ------------------------------------------------------------ serving
     def serve_phase(self) -> None:
         """Concurrent queries through ``QueryEngine`` (see the module
-        docstring, phase 7)."""
+        docstring, phase 8)."""
         torch = self.torch
         from repro_torch.serve import query as Q
         t0 = time.perf_counter()
@@ -1466,7 +1675,7 @@ class Smoke:
             f"{rep.totals}, passes {list(rep.passes)}")
 
     def tune_phase(self) -> None:
-        """The tuned entry path (see the module docstring, phase 8)."""
+        """The tuned entry path (see the module docstring, phase 9)."""
         import shutil
         torch = self.torch
         from repro_torch import tune as T
@@ -1649,6 +1858,7 @@ class Smoke:
         self.segment_reduce_phase()
         self.gather_vload_phase()
         self.row_gather_phase()
+        self.lm_phase()
         self.graph_phase()
         self.serve_phase()
         self.tune_phase()
@@ -1659,6 +1869,8 @@ class Smoke:
             check(self.main_counts[key] > 0,
                   f"{key} was never launched on its main path")
         self.card_tests()
+        for key, entry in self.line.items():
+            entry["launches"] = self.main_counts[key]
         log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"kernels": [self.line[k] for k in self.wrappers]}))
 

@@ -1,0 +1,13 @@
+"""gemma-7b [dense] — GeGLU, head_dim=256.
+
+28L d_model=3072 16H (kv=16, MHA) d_ff=24576 vocab=256000
+[arXiv:2403.08295; hf].
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b", family="dense",
+    num_layers=28, d_model=3072, num_heads=16, num_kv_heads=16,
+    head_dim=256, d_ff=24576, vocab_size=256000, mlp_kind="geglu",
+    embed_scale=True,
+)

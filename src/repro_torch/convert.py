@@ -1,4 +1,5 @@
-"""Carry a plan built elsewhere into the port: :func:`plan_from_arrays`.
+"""Carry a plan or a model's weights built elsewhere into the port:
+:func:`plan_from_arrays` and :func:`lm_params_from_numpy`.
 
 The port's planner is a copy of the JAX package's, and the tests hold the
 two equal array for array.  This module lets a caller go one step further
@@ -18,12 +19,16 @@ object, no import of the JAX package), in the field names of
 
 The seed is the port's own (a ``CodeSeed`` with torch combines), passed
 beside the fields.
+
+Model weights cross the same way, as a nested dict of numpy arrays in the
+JAX package's parameter tree (``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.plan import BlockPlan, PatternClass, PlanStats
 from repro_torch.core.seed import CodeSeed
@@ -81,3 +86,32 @@ def plan_from_arrays(fields: Mapping, seed: CodeSeed) -> BlockPlan:
                      flat_perm=flat_perm, head_pos=head_pos,
                      head_rows=head_rows, stats=PlanStats(**fields["stats"]),
                      **sc, **arrays)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ``ml_dtypes`` gives
+    them) as a tensor on ``device``."""
+    a = np.array(a)                 # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
+    """The port's model (:class:`repro_torch.models.lm.LM`) holding the
+    weights of the JAX package's ``materialize_init(lm.init_model, key,
+    cfg)`` values, handed over as a nested dict of numpy arrays.  Layer
+    leaves are stacked on a leading layer axis (``scan_layers=True``) and
+    are unstacked into one module per layer; every array keeps its dtype.
+    ``device`` defaults to ``"cuda"``, which raises when no CUDA device
+    exists."""
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    dev = resolve_device(device)
+    values = tree_map(lambda a: _tensor(a, dev), dict(tree))
+    stacked = values["layers"]
+    values["layers"] = [tree_map(lambda t, i=i: t[i], stacked)
+                        for i in range(cfg.num_layers)]
+    return lm.LM(cfg, values)

@@ -1,2 +1,3 @@
 """Launchers: command-line entry points over the port's apps
-(``python -m repro_torch.launch.serve_queries``)."""
+(``python -m repro_torch.launch.serve_queries``) and models
+(``python -m repro_torch.launch.serve``)."""

@@ -1,0 +1,166 @@
+"""Mixture-of-Experts layer (qwen3-moe, kimi-k2), the JAX package's
+``models/moe.py``.
+
+Implementation: **group-local dropping dispatch**.  Tokens are split into
+groups of ~``moe_group_size``; each group sorts its (token, expert-choice)
+pairs by expert id (the Intelligent-Unroll Data Transfer step — after the
+sort the gather stream is piecewise contiguous, the paper's ``L/S=1``
+pattern), builds a capacity-bounded (E, C, D) dispatch buffer, runs the
+expert FFNs as dense einsums over the expert dim, and combines the results
+weighted by the router gates.
+
+Both row movements run on the hand-written row gather
+(:func:`repro_torch.kernels.moe_dispatch.kernel.row_gather`), as the
+reference's docstring describes its Pallas ``row_gather`` for the
+single-device serving path (its ``moe`` itself uses XLA scatter/gather):
+
+* dispatch: slot ``s`` of the buffer reads token row ``slot_src[s]`` of the
+  group's rows with a zero row appended, ``slot_src`` holding that zero
+  row's index for every slot no kept entry fills (the reference's
+  ``zeros.at[slot].set(xg[tok], mode="drop")``);
+* combine: entry ``(t, j)`` (token, choice) reads its slot's expert output
+  row, or the appended zero row when it fell past capacity (the
+  reference's ``.at[slot].get(mode="fill")`` under ``where(valid)``); the
+  ``k`` rows of a token are then weighted by their gates and summed over
+  the choice axis.
+
+Both gathers are exact copies, so the buffer and the gathered rows are
+bitwise those of any other row copy on the same routing.  No float
+``index_add_`` / ``scatter_add_``: on the card those use atomics and would
+make runs differ bitwise.  For CPU tensors the row gather runs its plain
+version; on the card it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_dispatch.kernel import row_gather
+from repro_torch.models import params as pr
+
+
+def init_moe(generator, cfg) -> dict:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    dt = cfg.param_dtype
+    return {
+        "router": pr.normal(generator, (d, e), ("embed", "router_experts"),
+                            torch.float32),
+        "w_gate": pr.normal(generator, (e, d, f),
+                            ("experts", "embed", "expert_mlp"), dt),
+        "w_up": pr.normal(generator, (e, d, f),
+                          ("experts", "embed", "expert_mlp"), dt),
+        "w_down": pr.normal(generator, (e, f, d),
+                            ("experts", "expert_mlp", "embed"), dt),
+    }
+
+
+def _group_count(t: int, group_size: int) -> int:
+    g = max(1, t // max(group_size, 1))
+    while t % g:
+        g -= 1
+    return g
+
+
+def _dispatch_indices(eidx: torch.Tensor, k: int, e: int, c: int):
+    """Group-local sort-based dispatch indices.
+
+    eidx (Tg, k) int32 -> (slot, token, order, valid), each (Tg*k,), in
+    expert-sorted order.  slot == e*c marks dropped (out-of-capacity)
+    entries.  The sort is stable, as ``jnp.argsort`` is: which entries of
+    an expert fall past capacity depends on that order.
+    """
+    tg = eidx.shape[0]
+    fe = eidx.reshape(-1)
+    order = torch.argsort(fe, stable=True)   # Data Transfer: sort by expert
+    se = fe[order]
+    n = torch.arange(tg * k, dtype=torch.int32, device=eidx.device)
+    tok = (n // k)[order]
+    run_start = torch.searchsorted(se, se, side="left")
+    pos = n - run_start.to(torch.int32)
+    valid = pos < c
+    slot = torch.where(valid, se * c + pos, e * c).to(torch.int32)
+    return slot, tok, order, valid
+
+
+def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+
+
+def _dispatch(xg, slot, tok, e: int, c: int):
+    """(Tg, D) token rows -> (E*C, D) dispatch buffer via one row gather."""
+    tg = xg.shape[0]
+    # slot e*c collects every dropped entry and is cut off
+    slot_src = torch.full((e * c + 1,), tg, dtype=torch.int32,
+                          device=xg.device)
+    slot_src.scatter_(0, slot.long(), tok)
+    return row_gather(_with_zero_row(xg), slot_src[:e * c])
+
+
+def _combine(flat, slot, order, gates):
+    """(E*C, D) expert outputs -> (Tg, D): each token's k rows, gathered in
+    (token, choice) order by one row gather, weighted and summed."""
+    tg, k = gates.shape
+    ids = torch.empty_like(slot).scatter_(0, order, slot)
+    rows = row_gather(_with_zero_row(flat), ids).view(tg, k, -1)
+    return (rows * gates.to(flat.dtype)[..., None]).sum(dim=1)
+
+
+def moe(p, x: torch.Tensor, cfg, group_size: int | None = None):
+    """x (B, S, D) -> (out (B, S, D), aux_metrics dict)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.top_k
+    g = _group_count(t, group_size or cfg.moe_group_size)
+    tg = t // g
+    c = max(1, int(np.ceil(tg * k / e * cfg.capacity_factor)))
+
+    xf = x.reshape(g, tg, d)
+    logits = torch.einsum("gtd,de->gte", xf.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, k, dim=-1)     # (G, Tg, k)
+    eidx = eidx.to(torch.int32)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    wg = p["w_gate"].to(x.dtype)
+    wu = p["w_up"].to(x.dtype)
+    wd = p["w_down"].to(x.dtype)
+    ys, kept = [], []
+    for gi in range(g):
+        slot, tok, order, valid = _dispatch_indices(eidx[gi], k, e, c)
+        disp = _dispatch(xf[gi], slot, tok, e, c).view(e, c, d)
+        # expert FFN (dense over the expert dim)
+        h = F.silu(torch.einsum("ecd,edf->ecf", disp, wg)) * \
+            torch.einsum("ecd,edf->ecf", disp, wu)
+        out_e = torch.einsum("ecf,efd->ecd", h, wd)
+        ys.append(_combine(out_e.reshape(e * c, d), slot, order, gates[gi]))
+        kept.append(valid)
+    y = torch.stack(ys).reshape(b, s, d)
+
+    # load-balance aux loss (Switch-style) + router stats
+    frac_tokens = torch.bincount(eidx.reshape(-1).long(),
+                                 minlength=e).float() / (t * k)
+    mean_prob = probs.mean(dim=(0, 1))
+    aux = {
+        "moe_aux_loss": e * torch.sum(frac_tokens * mean_prob),
+        "moe_dropped_frac": 1.0 - torch.stack(kept).float().mean(),
+    }
+    return y, aux
+
+
+def dispatch_pattern_stats(eidx: np.ndarray, lane_width: int = 128) -> dict:
+    """Paper-style L/S opportunity analysis of a routing trace: classify the
+    *sorted* dispatch row-index stream with the feature table (Table 6 for
+    MoE dispatch)."""
+    from repro_torch.core import feature_table as ft
+    fe = eidx.reshape(-1)
+    order = np.argsort(fe, kind="stable")
+    tok = (np.arange(fe.size) // eidx.shape[-1])[order]
+    blocks = ft.pad_to_blocks(tok.astype(np.int64), lane_width,
+                              fill=int(tok[-1]) if tok.size else 0)
+    gf = ft.gather_features(blocks, lane_width)
+    hist = {}
+    for v in gf.num_windows:
+        hist[int(v)] = hist.get(int(v), 0) + 1 / max(len(gf.num_windows), 1)
+    return {"ls_hist": hist,
+            "mean_windows": float(gf.num_windows.mean())}

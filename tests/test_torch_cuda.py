@@ -875,3 +875,29 @@ def test_served_batches_bitwise_sequential_on_card(monkeypatch):
             want = apps[kind].run(payload)
         assert np.array_equal(_bits(torch.as_tensor(r.value)).numpy(),
                               _bits(want.cpu()).numpy()), (kind, r.batch_size)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_row_gather_dispatch_bitwise_on_card(dtype, monkeypatch):
+    """A reduced qwen3-moe layer on the card: its dispatch and combine run
+    the row-gather kernel (two launches per group), and its output is
+    bitwise that of the same layer on the plain row gather."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg = get_config("qwen3-moe-235b-a22b").reduced().replace(
+        param_dtype=dtype, compute_dtype=dtype, moe_group_size=40,
+        capacity_factor=0.5)                   # 40 slots for 80 entries
+    gen = torch.Generator(dev).manual_seed(0)
+    p = {k: v.value for k, v in moe.init_moe(gen, cfg).items()}
+    x = torch.randn((4, 40, cfg.d_model), generator=gen, device=dev,
+                    dtype=dtype)
+    RG.row_gather.launches = 0
+    got, aux = moe.moe(p, x, cfg)
+    torch.cuda.synchronize()
+    assert RG.row_gather.launches == 2 * 4       # 160 tokens, 4 groups
+    monkeypatch.setattr(moe, "row_gather", RG.row_gather_plain)
+    want, want_aux = moe.moe(p, x, cfg)
+    assert torch.equal(_bits(got), _bits(want))
+    assert all(torch.equal(aux[k], want_aux[k]) for k in aux)
+    assert float(aux["moe_dropped_frac"]) >= 0.5

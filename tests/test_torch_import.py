@@ -49,6 +49,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import repro_torch.core.planio, repro_torch.obs.profile\n"
             "import repro_torch.serve.query, repro_torch.testing.faults\n"
             "import repro_torch.launch.serve_queries\n"
+            "import repro_torch.configs, repro_torch.models.lm\n"
+            "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "for a in repro_torch.configs.ARCHS:\n"
+            "    repro_torch.configs.get_config(a)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -110,6 +114,22 @@ def test_launcher_default_device_raises_without_cuda(app, capsys):
         serve_queries.main(["--app", app, "--nodes", "64", "--requests",
                             "4"])
     assert "[serve]" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_lm_launcher_default_device_raises_without_cuda(arch, capsys):
+    """``python -m repro_torch.launch.serve`` asks for CUDA unless
+    ``--device cpu`` is given, and raises before it builds a model; so
+    does ``init_model``."""
+    _no_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--steps", "2"])
+    assert "[serve]" not in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_model(get_config(arch).reduced())
 
 
 def test_kernel_wrappers_never_take_the_plain_path_on_other_devices():
