@@ -128,7 +128,30 @@ entry points of the three standalone kernels at real sizes, and fails
    its design before the ``"add_all"`` combine (``PERF.md``);
 11. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
-   ladder's shapes) in a child process.
+   ladder's shapes) in a child process;
+12. sharded execution (``[shard]``, run after the tuned path): simulated
+   meshes (every shard on the one card: ``shards=k, simulate_mesh=True``
+   for SpMV and SpMM, ``mesh=make_shard_mesh(k, device=..., simulate=True)``
+   for the graph apps),
+   ``backend="torch"`` and ``"segsum"`` (the sharded path takes no kernel,
+   as the reference's Pallas kernels are single-device).  On pwtk:
+   ``SpMV.matvec`` at 2 and 4 shards with both backends (torch bitwise the
+   single-device torch backend, both within 1e-5 of the float64 oracle),
+   ``SpMM.matmat`` at ``D = 16`` and 4 shards with add and min (bitwise the
+   single-device torch backend), ``backend="auto", shards=2`` (both shard
+   counts measured, the winner within 1e-5), ``backend="cuda"`` with
+   ``shards=2`` and ``matvec_many`` on a sharded SpMV raising.  On
+   soc-Pokec at 4 shards: BFS, SSSP, CC and PageRank through
+   ``from_edges(mesh=...)`` (BFS, SSSP and PageRank on the edges sorted by
+   destination, which cut into several non-empty shards; CC on the graph
+   phase's edges, whose symmetrized list always cuts into one non-empty
+   shard), each with both drivers bitwise the single-device torch run on
+   the same plan (states, sweeps and flags), ``run_multi`` on the sharded
+   BFS raising.  The
+   counters, zeroed before each sharded run, must stay 0.  Prints the host
+   seconds of ``ir.lower`` + ``partition_plan``, device ms per call or per
+   resident sweep beside the single-device torch backend's, end-to-end ms
+   per run and the peak memory of each run.
 
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
@@ -138,6 +161,8 @@ line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import os
 import re
@@ -195,6 +220,9 @@ LM_CELLS = (
 )
 LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
 LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
+# the [shard] phase: simulated meshes (every shard on the one card) over the
+# pwtk analogue and the soc-Pokec analogue; shard counts per run
+SHARD = dict(spmv=(2, 4), spmm=4, tune=2, graph=4)
 # the "mul_all" dense slice at D = 16 on pwtk before the kernels gained the
 # "add_all" combine (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_DENSE_D16_MS = 0.6030
@@ -1268,7 +1296,7 @@ class Smoke:
                 "cc": (self.graphs.ConnectedComponents, (c.src, c.dst, n),
                        {}),
                 "pagerank": (self.PageRank, (c.src, c.dst, n), {})}
-        self.graph_apps = {}
+        self.graph_apps, self.graph_results = {}, {}
         for name, (cls, edges, static) in apps.items():
             self.graph_app(name, cls, edges, static, c, adj, sources)
         self.graph = (c, adj, sources)
@@ -1325,7 +1353,9 @@ class Smoke:
             "bitwise, resident == host bitwise, oracle held")
         if name in ("bfs", "sssp"):
             self.graph_multi(name, app, torch_app, sources)
-            self.graph_apps[name] = (app, torch_app)   # for [serve]
+        # for [serve] and [shard]
+        self.graph_apps[name] = (app, torch_app, static)
+        self.graph_results[name] = results["torch", "resident"][:2]
         e2e = {}
         for driver in ("resident", "host"):
             app.driver = driver
@@ -1434,7 +1464,7 @@ class Smoke:
         rng = np.random.default_rng(SEED)
         n = self.graph[0].num_nodes
         for name in ("bfs", "sssp"):
-            app, torch_app = self.graph_apps[name]
+            app, torch_app, _ = self.graph_apps[name]
             spec = SERVE[name]
             make = getattr(Q, f"{name}_endpoint")
             sources = [int(s) for s in rng.integers(0, n, spec["requests"])]
@@ -1830,6 +1860,328 @@ class Smoke:
                 f"{i + 1}. {c.label} {us:.2f}"
                 for i, (c, us) in enumerate(ranked)))
 
+    # ---------------------------------------------------------- sharding
+    def shard_phase(self) -> None:
+        """Sharded execution on a simulated mesh (see the module
+        docstring, phase 12).  The sharded path runs the ``torch`` and
+        ``segsum`` backends only (the kernels are single-device, as the
+        reference's Pallas ones), so its runs launch no kernel."""
+        import shutil
+        torch = self.torch
+        t0 = time.perf_counter()
+        cache = ROOT / "build" / "chip_smoke" / "shard_plans"
+        shutil.rmtree(cache, ignore_errors=True)
+        self.shard_products(str(cache))
+        self.shard_raises()
+        self.shard_tuned(str(cache))
+        for name in ("bfs", "sssp", "cc", "pagerank"):
+            self.shard_graph(name)
+        # nothing after this phase reads the graph phase's apps
+        self.graph_apps = self.graph_results = self.shard_pwtk = None
+        torch.cuda.empty_cache()
+        log(f"[shard] phase done in {time.perf_counter() - t0:.1f} s")
+
+    def sim(self, k) -> dict:
+        return dict(shards=k, simulate_mesh=True, device=self.dev)
+
+    def partition_s(self, plan, k):
+        """Host seconds of ``ir.lower`` + ``ir.partition_plan`` of a torch
+        lowering into ``k`` shards, and the rows per shard."""
+        t0 = time.perf_counter()
+        parts = self.ir.partition_plan(self.ir.lower(plan, backend="torch"),
+                                       k)
+        return time.perf_counter() - t0, [p.num_rows for p in parts]
+
+    def peak_run(self, fn):
+        """``fn()`` and its peak device bytes above what was held before
+        it.  Unreachable executors (closures that refer to themselves) are
+        collected first, so nothing held before is freed during ``fn``."""
+        torch = self.torch
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def shard_run(self, what, fn):
+        """:meth:`peak_run` of one sharded call with the counters zeroed
+        before it: it must launch no kernel."""
+        self.zero_counts()
+        out, peak = self.peak_run(fn)
+        counts = self.read_counts()
+        check(not any(counts.values()), f"{what}: the sharded path launched "
+              f"kernels {counts}")
+        return out, peak
+
+    def shard_products(self, cache) -> None:
+        """pwtk ``matvec`` at each ``SHARD["spmv"]`` count with the torch
+        and segsum backends, and ``matmat`` D = SPMM_D at
+        ``SHARD["spmm"]`` shards with add and min."""
+        torch = self.torch
+        m = self.mats["pwtk"]
+        single = self.run_of("pwtk", False, None)
+        vals, xd = single["vals"], single["x"]
+        y0 = torch.zeros(m.shape[0], device=self.dev)
+        singles = {"torch": single["torch_run"],
+                   "segsum": self.eng.make_executor(
+                       self.plans["pwtk"], {"value": vals}, backend="segsum",
+                       device=self.dev)}
+        want, single_peak = self.peak_run(
+            lambda: singles["torch"]({"x": xd}, y0))
+        oracle = add_at_oracle(m, vals, xd.cpu().numpy())
+        single_ms = {b: device_ms(lambda: run({"x": xd}, y0))
+                     for b, run in singles.items()}
+        log(f"[time] {self.tag} shard pwtk SpMV single-device: torch "
+            f"backend {single_ms['torch']:.4f} ms, segsum "
+            f"{single_ms['segsum']:.4f} ms of device time per matvec; torch "
+            f"peak memory {single_peak} B above what was held before the "
+            "call")
+        for k in SHARD["spmv"]:
+            sec, rows = self.partition_s(self.plans["pwtk"], k)
+            log(f"[shard] pwtk k={k}: ir.lower + partition_plan {sec:.3f} s "
+                f"on the host; rows per shard {rows}")
+            for backend in ("torch", "segsum"):
+                what = f"pwtk SpMV {backend} shards={k}"
+                t1 = time.perf_counter()
+                app = self.SpMV.from_coo(m.rows, m.cols, vals, m.shape,
+                                         backend=backend,
+                                         plan_cache_dir=cache, **self.sim(k))
+                build_s = time.perf_counter() - t1
+                y, peak = self.shard_run(what, lambda: app.matvec(xd))
+                check(len(app._shard_parts) == k and app.mesh.simulated,
+                      f"{what}: not built on a {k}-shard simulated mesh")
+                yh = y.cpu().numpy()
+                rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
+                check(bool(np.isfinite(yh).all()) and rel <= REL_ERR_LIMIT,
+                      f"{what}: rel err {rel:.3e} vs the float64 oracle")
+                if backend == "torch":
+                    check(same_bits(y, want), f"{what}: differs from the "
+                          "single-device torch backend")
+                ms = device_ms(lambda: app.matvec(xd))
+                log(f"[shard] {what}: rel err vs float64 oracle {rel:.3e}"
+                    + (", bitwise equal to the single-device torch backend"
+                       if backend == "torch" else " (atomic float sums: "
+                       "held to the oracle)") + f"; from_coo {build_s:.2f} s")
+                log(f"[time] {self.tag} shard {what}: {ms:.4f} ms of device "
+                    f"time per matvec (single-device {backend} "
+                    f"{single_ms[backend]:.4f} ms); peak memory {peak} B "
+                    "above what was held before the call")
+                if backend == "torch" and k == max(SHARD["spmv"]):
+                    self.shard_pwtk = app           # for shard_raises
+        k = SHARD["spmm"]
+        single = self.run_of("pwtk", False, SPMM_D)
+        vals, bd = single["vals"], single["x"]
+        for reduce in ("add", "min"):
+            what = f"pwtk SpMM D={SPMM_D} {reduce} shards={k}"
+            if reduce == "add":
+                y0 = torch.zeros((m.shape[0], SPMM_D), device=self.dev)
+
+                def one():
+                    return single["torch_run"]({"x": bd}, y0)
+            else:
+                one = functools.partial(self.SpMM.from_coo(
+                    m.rows, m.cols, vals, m.shape, reduce=reduce,
+                    plan_cache_dir=cache, device=self.dev).matmat, bd)
+            want, single_peak = self.peak_run(one)
+            app = self.SpMM.from_coo(m.rows, m.cols, vals, m.shape,
+                                     reduce=reduce, plan_cache_dir=cache,
+                                     **self.sim(k))
+            y, peak = self.shard_run(what, lambda: app.matmat(bd))
+            check(same_bits(y, want) and bool(y.isfinite().all()),
+                  f"{what}: differs from the single-device torch backend")
+            ms = device_ms(lambda: app.matmat(bd))
+            single_ms = device_ms(one)
+            log(f"[shard] {what}: bitwise equal to the single-device torch "
+                "backend")
+            log(f"[time] {self.tag} shard {what}: {ms:.4f} ms of device time "
+                f"per matmat (single-device torch backend {single_ms:.4f} "
+                f"ms); peak memory {peak} B above what was held before the "
+                f"call (single-device {single_peak} B)")
+
+    def shard_raises(self) -> None:
+        """What the sharded path refuses, as the reference does."""
+        m = self.mats["pwtk"]
+        vals = data_for(m, np.float32)[0]
+        try:
+            self.SpMV.from_coo(m.rows, m.cols, vals, m.shape, backend="cuda",
+                               **self.sim(2))
+            fail("SpMV backend=cuda shards=2 did not raise")
+        except ValueError as e:
+            check("single-device" in str(e), f"cuda shards=2 raised {e!r}")
+        xs = self.torch.zeros((2, m.shape[1]), device=self.dev)
+        try:
+            self.shard_pwtk.matvec_many(xs)
+            fail("matvec_many on a sharded SpMV did not raise")
+        except NotImplementedError:
+            pass
+        log("[shard] SpMV backend=cuda shards=2 raises ValueError (the "
+            "kernels are single-device); matvec_many on a sharded SpMV "
+            "raises NotImplementedError")
+
+    def shard_tuned(self, cache) -> None:
+        """``backend="auto", shards=SHARD["tune"]`` on pwtk: one measured
+        candidate per shard count at least, the winner within 1e-5."""
+        m = self.mats["pwtk"]
+        single = self.run_of("pwtk", False, None)
+        vals, xd = single["vals"], single["x"]
+        oracle = add_at_oracle(m, vals, xd.cpu().numpy())
+        k = SHARD["tune"]
+        what = f"pwtk SpMV backend=auto shards={k}"
+        self.zero_counts()
+        app, build_s = self.tuned(lambda: self.SpMV.from_coo(
+            m.rows, m.cols, vals, m.shape, backend="auto",
+            plan_cache_dir=cache, **self.sim(k)), what)
+        res = app.tuning
+        self.log_tuning(what, res, build_s, self.read_counts(main_path=False))
+        self.check_tuning(what, res)
+        counts = {mm.candidate.shards for mm in res.measurements}
+        check(counts == {1, k}, f"{what}: measured shard counts {counts}")
+        yh = app.matvec(xd).cpu().numpy()
+        rel = float(np.abs(yh - oracle).max() / np.abs(oracle).max())
+        check(bool(np.isfinite(yh).all()) and rel <= REL_ERR_LIMIT,
+              f"{what}: winner's rel err {rel:.3e} vs the float64 oracle")
+        log(f"[shard] {what}: measured shard counts {sorted(counts)}, winner "
+            f"{res.best.label}, rel err vs float64 oracle {rel:.3e}")
+
+    def shard_graph(self, name) -> None:
+        """One soc-Pokec app at ``SHARD["graph"]`` shards with both drivers.
+
+        Rows shard only where no block writes across a cut
+        (``ir.legal_cuts``), and a plan's blocks follow the edge list's
+        order.  The graph phase's edges are sorted by source, so their
+        blocks write all over the destination range and every plan cuts
+        into one full shard and empty ones; the phase prints that
+        partition, then builds BFS, SSSP and PageRank through
+        ``from_edges(mesh=...)`` on the same edges sorted by destination
+        (a destination-major edge list, what a row-sharded engine is fed)
+        and checks that each cuts into two non-empty shards at least.  CC
+        symmetrizes its edges inside ``from_edges``, so no input order
+        sorts its destinations and its plan always cuts into one full
+        shard and empty ones: its cell builds it through
+        ``from_edges(mesh=...)`` on the graph phase's edges and shows that
+        the sharded path runs, not the all-gather.  Each sharded run, with
+        either driver, must equal bitwise (state and ConvergenceReport)
+        the single-device torch backend on the same plan; BFS, SSSP and CC
+        (exact min) must also equal the graph phase's runs, PageRank must
+        hold against the float64 power iteration."""
+        torch, eng = self.torch, self.eng
+        from repro_torch.launch.mesh import make_shard_mesh
+        app, torch_app, _ = self.graph_apps[name]
+        c, adj, sources = self.graph
+        k = SHARD["graph"]
+        mesh = make_shard_mesh(k, device=self.dev, simulate=True)
+        if name == "bfs":       # SSSP and PageRank have the same edges
+            sec, rows = self.partition_s(app.plan, k)
+            log(f"[shard] soc-Pokec: the graph phase's source-sorted plan "
+                f"cuts into rows per shard {rows} (ir.lower + "
+                f"partition_plan {sec:.3f} s on the host)")
+        pagerank = name == "pagerank"
+        t0 = time.perf_counter()
+        if name == "cc":
+            sharded = self.graphs.ConnectedComponents.from_edges(
+                c.src, c.dst, c.num_nodes, backend="torch", mesh=mesh,
+                device=self.dev)
+            single = torch_app
+            how = ("from_edges on the graph phase's edges; the symmetrized "
+                   "edges cut into one non-empty shard, so this cell runs "
+                   "the sharded path without an all-gather across shards")
+        else:
+            order = self.dst_order()
+            src, dst = c.src[order], c.dst[order]
+            cls = self.PageRank if pagerank else getattr(
+                self.graphs, name.upper())
+            args = (src, dst, c.weight[order], c.num_nodes) \
+                if name == "sssp" else (src, dst, c.num_nodes)
+            sharded = cls.from_edges(*args, backend="torch", mesh=mesh,
+                                     device=self.dev)
+            static = {"weight": np.asarray(c.weight[order], np.float32)} \
+                if name == "sssp" else {}
+            single = dataclasses.replace(
+                sharded, _run=eng.make_executor(sharded.plan, static,
+                                                backend="torch",
+                                                device=self.dev),
+                mesh=None, _shard_parts=(), _shard_step=None)
+            how = "from_edges on destination-sorted edges"
+        build_s = time.perf_counter() - t0
+        rows = [p.num_rows for p in sharded._shard_parts]
+        live = sum(r > 0 for r in rows)
+        check(sharded.mesh is mesh and len(rows) == k
+              and (live == 1 if name == "cc" else live >= 2),
+              f"{name} shards={k}: rows per shard {rows}")
+
+        def run(a, driver):
+            a.driver = driver
+            if pagerank:
+                return a.run(iters=PAGERANK_ITERS), None
+            out = a.run() if name == "cc" else a.run(int(sources[0]))
+            return out, a.convergence
+
+        (want, want_report), single_peak = self.peak_run(
+            lambda: run(single, "resident"))
+        if not pagerank:
+            check(same_bits(want, self.graph_results[name][0])
+                  and want_report == self.graph_results[name][1],
+                  f"{name}: the single-device run on {how} differs from "
+                  "the graph phase's")
+        else:
+            self.graph_oracle(name, want.cpu().numpy(), c, adj, sources[0])
+        peaks, e2e = {}, {}
+        for driver in ("resident", "host"):
+            (out, report), peaks[driver] = self.shard_run(
+                f"{name} shards={k} {driver}", lambda: run(sharded, driver))
+            check(same_bits(out, want) and report == want_report,
+                  f"{name} shards={k} {driver}: differs from the "
+                  "single-device torch backend")
+            e2e[driver] = host_ms(lambda: run(sharded, driver), warmup=1,
+                                  reps=3)
+        single_e2e = host_ms(lambda: run(single, "resident"), warmup=1,
+                             reps=3)
+        if name == "bfs":
+            try:
+                sharded.run_multi(sources[:2])
+                fail("run_multi on a sharded BFS did not raise")
+            except NotImplementedError:
+                log("[shard] run_multi on a sharded BFS raises "
+                    "NotImplementedError")
+        state = want if not pagerank else torch.full(
+            (app.num_nodes,), 1.0 / app.num_nodes, device=self.dev)
+        one_sweep = {"pagerank": lambda a: a._step(state)}.get(
+            name, lambda a: a.sweep(state))
+        single_ms = device_ms(lambda: one_sweep(single), reps=5, repeats=3)
+        src_ms = "" if name == "cc" else (
+            "; on the source-sorted plan "
+            f"{device_ms(lambda: one_sweep(torch_app), reps=5, repeats=3):.4f}"
+            " ms")
+        step = sharded._shard_step
+        pieces = eng.pad_rows(state, step.widths, step.padded_width,
+                              step.devices)
+        shard_ms = device_ms(lambda: step(pieces), reps=5, repeats=3)
+        sweeps = PAGERANK_ITERS if pagerank else report.sweeps
+        log(f"[shard] {name} shards={k} ({how}, built in {build_s:.2f} s; "
+            f"rows per shard {rows}): "
+            f"{report or f'{PAGERANK_ITERS} iterations'}; resident and host "
+            "drivers bitwise equal to the single-device torch backend on "
+            "the same plan, sweeps and flags equal")
+        log(f"[time] {self.tag} shard {name} shards={k}: {sweeps} sweeps; "
+            f"{e2e['resident']:.4f} ms end to end with the resident driver, "
+            f"{e2e['host']:.4f} ms with the host driver (single-device "
+            f"torch backend {single_e2e:.4f} ms, resident); "
+            f"{shard_ms:.4f} ms of device time per resident sweep "
+            f"(single-device {single_ms:.4f} ms{src_ms}); peak memory above "
+            f"what was held before the run {peaks['resident']} B resident, "
+            f"{peaks['host']} B host (single-device resident "
+            f"{single_peak} B)")
+
+    def dst_order(self) -> np.ndarray:
+        """The soc-Pokec edges' order sorted by destination (then source),
+        computed once."""
+        if getattr(self, "_dst_order", None) is None:
+            c = self.graph[0]
+            self._dst_order = np.lexsort((c.src, c.dst))
+        return self._dst_order
+
     def card_tests(self) -> None:
         """The ``cuda``-marked tests of ``tests/test_torch_cuda.py`` on this
         card, in a child process (the kernels are already built)."""
@@ -1862,6 +2214,7 @@ class Smoke:
         self.graph_phase()
         self.serve_phase()
         self.tune_phase()
+        self.shard_phase()
         self.main_timings()
         self.stage_a_timings()
         for key, c in self.compared.items():

@@ -19,9 +19,17 @@ choice recorded in ``.tuning`` and cached in ``tune_cache_dir``;
 (:mod:`repro_torch.core.planio`); ``report()`` returns a
 :class:`~repro_torch.obs.profile.RunReport`.
 
-A port of the JAX package's ``core/apps.py``.  Sharded execution
-(``mesh=`` / ``shards=``) is a later slice of the port and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` items.
+``mesh=`` / ``shards=`` select sharded execution (DESIGN.md §10): the
+plan is partitioned along row ranges and each shard's subtree runs on its
+own device of a :class:`~repro_torch.launch.mesh.ShardMesh`, bitwise equal
+to single-device execution of the same backend (``torch`` or ``segsum``;
+the ``cuda`` kernels are single-device).  A simulated mesh places every
+shard on one device: ``mesh=make_shard_mesh(k, device=..., simulate=True)``,
+or for ``SpMV`` (and ``SpMM``) ``simulate_mesh=True`` next to ``shards=``,
+which is also how their tuner, whose ``shards=k`` under
+``backend="auto"`` is a tuned axis over ``{1, k}``, simulates one.
+
+A port of the JAX package's ``core/apps.py``.
 """
 from __future__ import annotations
 
@@ -32,10 +40,10 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.graphs import (bucket_size, build_or_tune,
-                                     check_ported)
+from repro_torch.core.graphs import bucket_size, build_or_tune
 from repro_torch.core.plan import BlockPlan, CostModel
 from repro_torch.core.seed import pagerank_seed, spmv_seed
+from repro_torch.launch.sharding import row_sharding
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 
@@ -50,6 +58,10 @@ class SpMV:
     tuning: object | None = None   # TuningResult when built via backend="auto"
     validation: object | None = None    # ValidationReport from from_coo
     degradations: tuple = ()            # DegradationEvents from the build
+    # sharded execution (DESIGN.md §10): the mesh the executor runs over
+    # (None = single device) and the per-shard plan subtrees
+    mesh: object | None = None
+    _shard_parts: tuple = dataclasses.field(default=(), repr=False)
     # cached zero y_init per dtype: repeated matvecs share one device
     # tensor instead of allocating a fresh zeros per call
     _y0: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -70,6 +82,7 @@ class SpMV:
                  tune_cache_dir: str | None = None,
                  validate: str = "strict",
                  mesh=None, shards: int | None = None,
+                 simulate_mesh: bool = False,
                  device="cuda") -> "SpMV":
         """Build the plan and the executor on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
@@ -87,8 +100,18 @@ class SpMV:
         :class:`~repro_torch.core.validate.InputError` on out-of-range
         indices or non-finite values, ``"repair"`` drops or combines them
         into a canonical matrix (report on ``.validation``), ``"off"`` skips
-        the checks."""
-        check_ported(mesh, shards)
+        the checks.
+
+        ``mesh=`` / ``shards=`` select sharded execution (DESIGN.md §10):
+        the plan is partitioned along row ranges and each shard's subtree
+        runs on its own mesh device, bitwise equal to single-device
+        execution.  ``shards=k`` builds a mesh of ``k`` devices of
+        ``device``'s type, or with ``simulate_mesh=True`` places all ``k``
+        shards on ``device``.  Under ``backend="auto"`` the shard count
+        becomes a *tuned axis* (the space gains ``{1, shards}``
+        candidates and the measured winner decides); an explicit ``mesh``
+        cannot be combined with the tuner, and ``backend="cuda"`` cannot
+        be sharded."""
         dev = eng.resolve_device(device)
         with _trace.span("app.spmv.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
@@ -96,13 +119,14 @@ class SpMV:
                 rows, cols, vals, shape, lane_width=lane_width,
                 backend=backend, cost=cost, fused=fused, stage_b=stage_b,
                 coalesce=coalesce, plan_cache_dir=plan_cache_dir, tune=tune,
-                tune_cache_dir=tune_cache_dir, validate=validate,
-                device=dev)
+                tune_cache_dir=tune_cache_dir, validate=validate, mesh=mesh,
+                shards=shards, simulate_mesh=simulate_mesh, device=dev)
 
     @classmethod
     def _from_coo(cls, rows, cols, vals, shape, *, lane_width, backend,
                   cost, fused, stage_b, coalesce, plan_cache_dir, tune,
-                  tune_cache_dir, validate, device) -> "SpMV":
+                  tune_cache_dir, validate, mesh, shards, simulate_mesh,
+                  device) -> "SpMV":
         seed = spmv_seed()
         rows, cols, vals, vreport = validation.validate_coo(
             rows, cols, np.asarray(vals), shape, policy=validate)
@@ -117,16 +141,19 @@ class SpMV:
             return {"x": x_ex}, torch.zeros(shape[0], dtype=x_ex.dtype,
                                             device=device)
         with validation.collect_degradations() as events:
-            plan, run, tuning = build_or_tune(
+            plan, run, tuning, mesh, parts = build_or_tune(
                 "SpMV.from_coo", seed, access, shape[0], shape[1],
                 {"value": vals}, backend=backend, tune=tune,
                 lane_width=lane_width, cost=cost, fused=fused,
                 stage_b=stage_b, coalesce=coalesce, device=device,
                 plan_cache_dir=plan_cache_dir,
-                tune_cache_dir=tune_cache_dir, example=example)
+                tune_cache_dir=tune_cache_dir, example=example, mesh=mesh,
+                shards=shards, simulate_mesh=simulate_mesh,
+                tuned_shards=True)
         return cls(plan=plan, shape=shape, _run=run, dtype=vals.dtype,
                    device=device, tuning=tuning, validation=vreport,
-                   degradations=tuple(events))
+                   degradations=tuple(events), mesh=mesh,
+                   _shard_parts=parts)
 
     @classmethod
     def from_csr(cls, indptr: np.ndarray, indices: np.ndarray,
@@ -177,7 +204,12 @@ class SpMV:
         in the same order, so row ``i`` is bitwise equal to it.
         ``bucket=True`` pads ``S`` up ``graphs.BATCH_BUCKETS`` by replicating
         the last row (sliced off the result); each distinct padded shape
-        counts once in the ``spmv.batched_shapes`` counter."""
+        counts once in the ``spmv.batched_shapes`` counter.  A sharded
+        SpMV raises ``NotImplementedError``, as the reference's does."""
+        if self._shard_parts:
+            raise NotImplementedError(
+                "matvec_many on a sharded SpMV; build without "
+                "mesh=/shards= for batched serving")
         if isinstance(xs, torch.Tensor):
             if xs.device != self.device:
                 raise ValueError(f"xs is on {xs.device}, the SpMV on "
@@ -221,6 +253,11 @@ class PageRank:
     driver: str = "resident"
     validation: object | None = None    # ValidationReport from from_edges
     degradations: tuple = ()            # DegradationEvents from the build
+    # sharded execution (DESIGN.md §10), and the sharded resident step
+    # (:meth:`_sharded_step`)
+    mesh: object | None = None
+    _shard_parts: tuple = dataclasses.field(default=(), repr=False)
+    _shard_step: object = dataclasses.field(default=None, repr=False)
     # cached zero out_init
     _zero: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
@@ -240,8 +277,10 @@ class PageRank:
         """Build the plan and the contribution sweep on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
         is ``"torch"``, ``"segsum"``, ``"cuda"`` or ``"auto"`` (measured,
-        as :meth:`SpMV.from_coo`); ranks are float32."""
-        check_ported(mesh, shards)
+        as :meth:`SpMV.from_coo`); ranks are float32.  ``mesh=`` /
+        ``shards=`` shard the contribution sweep as :meth:`SpMV.from_coo`'s
+        (not with the tuner; a simulated mesh is
+        ``mesh=make_shard_mesh(k, device=..., simulate=True)``)."""
         dev = eng.resolve_device(device)
         with _trace.span("app.pagerank.build", backend=backend,
                          num_nodes=num_nodes):
@@ -260,17 +299,21 @@ class PageRank:
                         torch.zeros(num_nodes, dtype=torch.float32,
                                     device=dev))
             with validation.collect_degradations() as events:
-                plan, run, tuning = build_or_tune(
+                plan, run, tuning, mesh, parts = build_or_tune(
                     "PageRank.from_edges", seed, access, num_nodes,
                     num_nodes, {}, backend=backend, tune=tune,
                     lane_width=lane_width, cost=cost, fused=fused,
                     device=dev, plan_cache_dir=plan_cache_dir,
-                    tune_cache_dir=tune_cache_dir, example=example)
-        return cls(plan=plan, num_nodes=num_nodes, inv_deg=inv_t,
-                   dangling=torch.as_tensor(deg == 0, device=dev),
-                   damping=damping, _run=run, device=dev, tuning=tuning,
-                   driver=driver, validation=vreport,
-                   degradations=tuple(events))
+                    tune_cache_dir=tune_cache_dir, example=example,
+                    mesh=mesh, shards=shards)
+        app = cls(plan=plan, num_nodes=num_nodes, inv_deg=inv_t,
+                  dangling=torch.as_tensor(deg == 0, device=dev),
+                  damping=damping, _run=run, device=dev, tuning=tuning,
+                  driver=driver, validation=vreport,
+                  degradations=tuple(events), mesh=mesh, _shard_parts=parts)
+        if parts:
+            app._shard_step = app._sharded_step()
+        return app
 
     def sweep(self, rank: torch.Tensor,
               out_init: torch.Tensor | None = None) -> torch.Tensor:
@@ -301,7 +344,9 @@ class PageRank:
         ``driver="resident"`` (default) queues every iteration and returns
         without waiting for the device; ``driver="host"`` waits for each
         iteration to finish before it queues the next (the stepwise
-        baseline)."""
+        baseline).  On a sharded app the resident driver carries the
+        ranks row-sharded (:meth:`_resident_sharded`) and the host driver
+        runs :meth:`_step` over the full-array sharded executor."""
         driver = driver or self.driver
         if driver not in ("resident", "host"):
             raise ValueError(f"unknown driver {driver!r}; "
@@ -309,11 +354,49 @@ class PageRank:
         with _trace.span("pagerank.run", iters=iters, driver=driver):
             rank = torch.full((self.num_nodes,), 1.0 / self.num_nodes,
                               dtype=torch.float32, device=self.device)
+            if driver == "resident" and self._shard_parts:
+                return self._resident_sharded(rank, iters)
             for _ in range(iters):
                 rank = self._step(rank)
                 if driver == "host" and rank.is_cuda:
                     torch.cuda.synchronize(rank.device)
             return rank
+
+    def _resident_sharded(self, rank: torch.Tensor, iters: int
+                          ) -> torch.Tensor:
+        """The sharded resident driver (DESIGN.md §10): the ranks live
+        row-sharded as padded per-shard pieces; each iteration all-gathers
+        the pieces into the full rank vector and every shard applies the
+        damping fold to its own rows.  Bitwise vs single-device: the
+        dangling mass is :func:`engine.tree_sum` over the SAME reassembled
+        full vector on every shard (the combine order of :meth:`_step`),
+        never a sum of per-shard partial sums."""
+        step = self._shard_step
+        pieces = eng.pad_rows(rank, step.widths, step.padded_width,
+                              step.devices)
+        for _ in range(iters):
+            pieces = step(pieces)
+        return eng.unpad_rows(pieces, step.widths, rank.device)
+
+    def _sharded_step(self):
+        """The sharded resident iteration: the sharded executor's sweep
+        bodies, each wrapped in the damping fold of :meth:`_step` on its
+        shard's device."""
+        n, damping = self.num_nodes, self.damping
+
+        def mk(body, dev):
+            inv, dangling = self.inv_deg.to(dev), self.dangling.to(dev)
+
+            def f(full_rank, local_prev):
+                contrib = body({"rank": full_rank, "inv_nneighbor": inv},
+                               torch.zeros_like(local_prev))
+                mass = eng.tree_sum(torch.where(dangling, full_rank, 0.0))
+                return (1.0 - damping) / n + damping * (contrib + mass / n)
+            return f
+        return eng.make_sharded_fixpoint_step(
+            self._run, "rank", with_convergence=False,
+            local_steps=[mk(b, d) for b, d in
+                         zip(self._run.bodies, row_sharding(self.mesh))])
 
     def report(self):
         """Structured :class:`~repro_torch.obs.profile.RunReport`: plan

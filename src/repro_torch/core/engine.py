@@ -2,7 +2,9 @@
 
 Lowering decisions live in :mod:`repro_torch.core.ir`; this module only
 *emits* runnable programs by walking the lowered tree.  A port of the
-single-device part of the JAX package's ``core/engine.py``.
+JAX package's ``core/engine.py``, its sharded emitters
+(:func:`make_sharded_executor`, :func:`make_sharded_fixpoint_step`, over a
+:class:`repro_torch.launch.mesh.ShardMesh`) included.
 
 Backends:
   * ``torch`` — plain torch ops over the specialized plan (class-sorted
@@ -45,6 +47,8 @@ from repro_torch.core.seed import (REDUCE_OPS, CodeSeed, reduce_identity_for,
                                    reference_execute)
 from repro_torch.kernels import common
 from repro_torch.kernels.unroll_spmv import ops as kops
+from repro_torch.launch.mesh import dp_axes
+from repro_torch.launch.sharding import row_sharding
 from repro_torch.obs import trace as _trace
 
 _SEG_PAD = common.SEG_PAD
@@ -468,6 +472,197 @@ def make_executor(plan: BlockPlan, static_data: Mapping[str, np.ndarray],
     run.sweep_body = body
     run.tree = body.tree
     return run
+
+
+# ------------------------------------------------------ sharded emitters
+# One mesh, one plan per shard (DESIGN.md §10): the emitters below run the
+# per-shard subtrees of ir.partition_plan, one process driving every mesh
+# device (the reference's single-controller shard_map).  Its collectives are
+# tensor moves: the all-gather is a ``torch.cat`` of the shard pieces, each
+# moved with ``.to(device)`` (no copy on a simulated mesh), the psum of the
+# per-shard verdicts a sum of per-shard scalars on shard 0's device, and
+# ``lax.switch(axis_index)`` a Python loop over the shards, each shard's
+# program launched on its own device.  Public interfaces stay FULL-ARRAY
+# (pad/shard on entry, unpad on exit), so a sharded executor is a drop-in
+# replacement for a single-device one, with bitwise-equal outputs.
+def check_shard_backend(backend: str) -> None:
+    """The sharded emitters take the torch/segsum backends only."""
+    if backend == "cuda":
+        raise ValueError("sharded execution supports the torch/segsum "
+                         "backends (the CUDA kernels are single-device)")
+
+
+def _shard_axis(mesh) -> str:
+    """The mesh axis shard rows ride on — the data-parallel axis."""
+    dp = dp_axes(mesh)
+    if len(dp) != 1:
+        raise ValueError(
+            f"sharded execution needs exactly one data axis in the mesh "
+            f"(axes {mesh.axis_names}, data axes {dp}); build one with "
+            "repro_torch.launch.mesh.make_shard_mesh(shards)")
+    if int(np.prod([mesh.shape[a] for a in mesh.axis_names
+                    if a not in dp])) != 1:
+        raise ValueError(
+            f"sharded execution replicates over non-data axes; mesh "
+            f"{dict(mesh.shape)} has a non-trivial model axis")
+    return dp[0]
+
+
+def _check_parts(parts, mesh) -> str:
+    axis = _shard_axis(mesh)
+    k = int(mesh.shape[axis])
+    if len(parts) != k:
+        raise ValueError(
+            f"{len(parts)} plan shards over a {k}-device '{axis}' axis; "
+            "partition_plan(tree, shards) must match the mesh")
+    if parts:
+        check_shard_backend(parts[0].tree.backend)
+    return axis
+
+
+def shard_widths(parts) -> tuple[list[int], int]:
+    """Per-shard row counts and the common padded width S (>= 1)."""
+    widths = [p.num_rows for p in parts]
+    return widths, max(max(widths), 1)
+
+
+def _pad_to(y: torch.Tensor, s: int) -> torch.Tensor:
+    """``y``'s rows zero-padded to ``s``, always a new tensor."""
+    return torch.cat([y, y.new_zeros((s - y.shape[0],) + y.shape[1:])])
+
+
+def pad_rows(state: torch.Tensor, widths: list[int], s: int,
+             devices) -> list[torch.Tensor]:
+    """(n, ...) full tensor -> one (S, ...) tensor per shard, shard ``i``'s
+    rows zero-padded to S and placed on ``devices[i]`` (the row sharding
+    of :func:`repro_torch.launch.sharding.row_sharding`).  Pads are
+    CONSTANT zeros in every sweep (the emitters re-pad with zeros), so
+    padded-state equality is exactly full-state equality — the sharded
+    convergence check leans on this."""
+    pieces, lo = [], 0
+    for w, dev in zip(widths, devices):
+        pieces.append(_pad_to(state[lo:lo + w], s).to(dev))
+        lo += w
+    return pieces
+
+
+def unpad_rows(pieces, widths: list[int], device) -> torch.Tensor:
+    """Per-shard (S, ...) pieces -> the (n, ...) full tensor on ``device``:
+    each shard's pad rows dropped, the rest concatenated in shard order."""
+    return torch.cat([p[:w].to(device) for p, w in zip(pieces, widths)])
+
+
+def shard_sweep_bodies(parts, static_data, devices):
+    """One sweep body per shard, shard ``i``'s on ``devices[i]`` (empty
+    shards -> identity).  Elementwise arrays stay FULL-LENGTH: each shard's
+    sliced ``flat_perm`` holds global nnz positions, so the per-shard Data
+    Transfer reorders the same full arrays the parent would (the parent's
+    own ``elem_exec`` cannot be shared — it is already block-reordered)."""
+    bodies = []
+    for p, dev in zip(parts, devices):
+        if p.num_blocks == 0 or p.tree.plan.head_pos.size == 0:
+            bodies.append(lambda mutable, out_init: out_init)
+            continue
+        bodies.append(make_sweeper(p.tree.plan, static_data,
+                                   backend=p.tree.backend, tree=p.tree,
+                                   device=dev))
+    return bodies
+
+
+def make_sharded_executor(parts, static_data, mesh):
+    """Executor over a partitioned plan: ``run(mutable, out_init)`` with
+    FULL tensors, running shard ``i``'s subtree on mesh device ``i``.
+
+    The mutable gathered inputs are replicated (every shard gathers
+    through GLOBAL indices); ``out_init`` is row-sharded, and the result
+    is reassembled on ``out_init``'s device.  Bitwise: each output row
+    runs the parent's identical block program and per-row combine tree
+    (ir.partition_plan), so the result equals single-device execution of
+    the same backend bit for bit."""
+    _check_parts(parts, mesh)
+    widths, s = shard_widths(parts)
+    k = len(parts)
+    devices = row_sharding(mesh)
+    bodies = shard_sweep_bodies(parts, static_data, devices)
+
+    def run_full(mutable, out_init):
+        pieces = pad_rows(out_init, widths, s, devices)
+        out = []
+        for j in range(k):
+            if widths[j] == 0:
+                out.append(pieces[j])
+                continue
+            mut = {key: v.to(devices[j]) for key, v in mutable.items()}
+            out.append(_pad_to(bodies[j](mut, pieces[j][:widths[j]]), s))
+        return unpad_rows(out, widths, out_init.device)
+
+    def run(mutable, out_init):
+        if not _trace.enabled():
+            return run_full(mutable, out_init)
+        first = not run._called
+        run._called = True
+        with _trace.span("engine.execute", backend=parts[0].tree.backend,
+                         shards=k, first_call=first):
+            return run_full(mutable, out_init)
+    run._called = False
+    run.sweep_body = run_full
+    run.parts = parts
+    run.mesh = mesh
+    run.bodies = bodies
+    return run
+
+
+def make_sharded_fixpoint_step(run, state_key: str, *, local_steps=None,
+                               with_convergence: bool = True):
+    """The sharded resident sweep ``step(pieces) -> ...`` for fixpoint
+    drivers (DESIGN.md §7/§10): state lives row-sharded as the padded
+    per-shard pieces of :func:`pad_rows`; each sweep all-gathers the
+    pieces into the full dense input vector on each shard's device, runs
+    the local subtree on the shard's own rows (fold semantics:
+    ``out_init`` is the shard's previous rows), and re-pads.  With
+    ``with_convergence`` the step also returns device-side ``(changed,
+    healthy)`` scalars on shard 0's device — sums of the per-shard
+    verdicts — so convergence needs no host read and no full-state
+    rebuild outside the loop.
+
+    ``run`` is the app's :func:`make_sharded_executor`: the step runs its
+    per-shard sweep bodies, so the shards' plan arrays are staged on the
+    devices once for both drivers.  ``local_steps`` optionally overrides
+    the per-shard body: a list of ``f_j(full_state, local_rows) ->
+    new_local_rows`` (PageRank's damping fold wraps ``run.bodies`` this
+    way)."""
+    parts, bodies = run.parts, run.bodies
+    widths, s = shard_widths(parts)
+    k = len(parts)
+    devices = row_sharding(run.mesh)
+    reduce = parts[0].tree.plan.seed.reduce
+    if local_steps is None:
+        local_steps = [
+            (lambda j: lambda full, local:
+             bodies[j]({state_key: full}, local))(j) for j in range(k)]
+
+    def step(pieces):
+        fulls, new = {}, []
+        for j, (block, dev) in enumerate(zip(pieces, devices)):
+            if widths[j] == 0:
+                new.append(block)
+                continue
+            full = fulls.get(dev)
+            if full is None:                          # the all-gather
+                full = fulls[dev] = unpad_rows(pieces, widths, dev)
+            new.append(_pad_to(local_steps[j](full, block[:widths[j]]), s))
+        if not with_convergence:
+            return new
+        home = devices[0]
+        changed = torch.stack([(a != b).any().to(home)
+                               for a, b in zip(new, pieces)]).any()
+        healthy = torch.stack([state_healthy(a, reduce).to(home)
+                               for a in new]).all()
+        return new, changed, healthy
+    step.widths = widths
+    step.padded_width = s
+    step.devices = devices
+    return step
 
 
 def make_baseline_gather(seed: CodeSeed, access: Mapping[str, np.ndarray],

@@ -38,9 +38,18 @@ candidate is timed over :data:`_TUNE_RUN_SWEEPS` queued sweeps.
 plan cache (:mod:`repro_torch.core.planio`), and ``report()`` returns a
 :class:`~repro_torch.obs.profile.RunReport`.
 
-A port of the JAX package's ``core/graphs.py``.  Sharded execution
-(``mesh=`` / ``shards=``) is a later slice and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` items.
+``mesh=`` / ``shards=`` select sharded execution (DESIGN.md §10): the
+plan is partitioned along row ranges (``ir.partition_plan``) and each
+shard's subtree runs on its own device of a
+:class:`~repro_torch.launch.mesh.ShardMesh`; the resident driver carries
+the state row-sharded, the host driver runs the full-array sharded
+executor, and both are bitwise the single-device run of the same backend
+in states, sweep counts and :class:`ConvergenceReport`.
+``mesh=make_shard_mesh(k, device=..., simulate=True)`` places every shard
+on one device (a simulated mesh).  The ``cuda`` backend is single-device,
+and ``run_multi`` raises on a sharded app, as in the reference.
+
+A port of the JAX package's ``core/graphs.py``.
 """
 from __future__ import annotations
 
@@ -50,10 +59,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as eng
+from repro_torch.core import ir
 from repro_torch.core import validate as validation
 from repro_torch.core.plan import BlockPlan, CostModel
 from repro_torch.core.planio import cached_build_plan
 from repro_torch.core.seed import CodeSeed, bfs_seed, cc_seed, sssp_seed
+from repro_torch.launch.mesh import make_shard_mesh, resolve_shard_mesh
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 
@@ -103,29 +114,16 @@ class ConvergenceReport:
     negative_cycle: bool = False
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
-
-
-def check_ported(mesh, shards) -> None:
-    """Raise for the constructor options that later slices port: the
-    sharding options, with or without the tuner."""
-    if mesh is not None or shards is not None:
-        raise not_ported("sharded execution (mesh= / shards=)",
-                         "queue 1, items 3.4 and 10")
-
-
 def check_auto_kwargs(name: str, *, backend: str = "auto",
                       fused: bool = True, stage_b: str = "auto",
-                      cost=None, coalesce: bool = False) -> None:
+                      cost=None, coalesce: bool = False, mesh=None,
+                      shards: int | None = None) -> None:
     """``backend="auto"`` / ``tune=True`` hand variant selection to the
     tuner — an explicit ``fused`` / ``stage_b`` / ``cost`` / ``coalesce``
     (or a non-default backend next to ``tune=True``) alongside it would be
     dropped without a word.  Raise instead: the caller either wants the
     tuner (drop the variant kwargs) or a specific variant (name the
-    backend explicitly, without ``tune``).  ``mesh=`` / ``shards=`` raise
-    before this check (:func:`check_ported`)."""
+    backend explicitly, without ``tune``)."""
     conflicts = []
     # "torch" is the signature default, so it cannot signal an explicit
     # request; any OTHER backend next to tune=True clearly does
@@ -139,6 +137,13 @@ def check_auto_kwargs(name: str, *, backend: str = "auto",
         conflicts.append("cost")
     if coalesce is not False:
         conflicts.append("coalesce")
+    # an explicit mesh pins placement, but the tuner owns placement when a
+    # shard-count axis is in play; graph apps additionally reject shards=
+    # here (their tuner has no shard axis — SpMV/SpMM carry that)
+    if mesh is not None:
+        conflicts.append("mesh")
+    if shards is not None:
+        conflicts.append("shards")
     if conflicts:
         raise ValueError(
             f"{name}: backend='auto'/tune=True selects the execution "
@@ -200,32 +205,58 @@ def build_or_tune(name: str, seed: CodeSeed, access, out_len: int,
                   data_len: int, static, *, backend: str, tune: bool,
                   lane_width: int, cost, fused: bool = True,
                   stage_b: str = "auto", coalesce: bool = False, device,
-                  plan_cache_dir, tune_cache_dir, example, **tune_kw):
-    """Every app's one build policy; returns ``(plan, run, tuning)``.
+                  plan_cache_dir, tune_cache_dir, example, mesh=None,
+                  shards: int | None = None, simulate_mesh: bool = False,
+                  tuned_shards: bool = False, **tune_kw):
+    """Every app's one build policy; returns ``(plan, run, tuning, mesh,
+    shard_parts)``.
 
     Under ``backend="auto"`` / ``tune=True`` the tuner picks the plan and
     the executor, timing candidates on ``example() -> (mutable_example,
     out_init)``, tensors on ``device``; ``tune_kw`` goes on to
-    :func:`~repro_torch.tune.autotune`.  Otherwise one plan, through the
-    plan cache when ``plan_cache_dir`` is given, and ``backend``'s
-    executor, with ``tuning`` None."""
+    :func:`~repro_torch.tune.autotune`.  ``tuned_shards`` (SpMV, SpMM)
+    makes ``shards=k`` a tuned axis over ``{1, k}``; an explicit ``mesh``
+    always conflicts with the tuner.  Otherwise one plan, through the plan
+    cache when ``plan_cache_dir`` is given, and ``backend``'s executor —
+    the sharded one over the mesh that ``mesh`` / ``shards`` select
+    (:func:`~repro_torch.launch.mesh.resolve_shard_mesh`), else the
+    single-device one with ``mesh`` None and ``shard_parts`` empty."""
     if backend == "auto" or tune:
         check_auto_kwargs(name, backend=backend, fused=fused,
-                          stage_b=stage_b, cost=cost, coalesce=coalesce)
+                          stage_b=stage_b, cost=cost, coalesce=coalesce,
+                          mesh=mesh, shards=None if tuned_shards else shards)
         from repro_torch.tune import autotune
+        shard_counts = None
+        if shards is not None:
+            make_shard_mesh(int(shards), device, simulate_mesh)  # validate
+            shard_counts = tuple(sorted({1, int(shards)}))
+        elif simulate_mesh:
+            raise ValueError("simulate_mesh=True needs shards=")
         mutable_example, out_init = example()
-        return autotune(seed, access, out_len, data_len, static,
-                        mutable_example, out_init,
-                        lane_widths=(lane_width,),
-                        tune_cache_dir=tune_cache_dir,
-                        plan_cache_dir=plan_cache_dir, **tune_kw)
+        plan, run, tuning = autotune(
+            seed, access, out_len, data_len, static, mutable_example,
+            out_init, lane_widths=(lane_width,), shard_counts=shard_counts,
+            simulate_mesh=simulate_mesh, tune_cache_dir=tune_cache_dir,
+            plan_cache_dir=plan_cache_dir, **tune_kw)
+        return (plan, run, tuning, getattr(run, "mesh", None),
+                tuple(getattr(run, "parts", ())))
+    mesh, num_shards = resolve_shard_mesh(mesh, shards, device,
+                                          simulate_mesh)
+    if mesh is not None:
+        eng.check_shard_backend(backend)
     plan = cached_build_plan(seed, access, out_len, data_len,
                              cost=cost or CostModel(lane_width=lane_width),
                              cache_dir=plan_cache_dir)
-    run = eng.make_executor(plan, static, backend=backend, fused=fused,
-                            stage_b=stage_b, coalesce=coalesce,
-                            device=device)
-    return plan, run, None
+    if mesh is None:
+        run = eng.make_executor(plan, static, backend=backend, fused=fused,
+                                stage_b=stage_b, coalesce=coalesce,
+                                device=device)
+        return plan, run, None, None, ()
+    tree = ir.lower(plan, backend=backend, fused=fused, stage_b=stage_b,
+                    coalesce=coalesce)
+    parts = tuple(ir.partition_plan(tree, num_shards))
+    return (plan, eng.make_sharded_executor(parts, static, mesh), None,
+            mesh, parts)
 
 
 # sweeps per timed whole-run tuning candidate under the resident driver:
@@ -289,6 +320,12 @@ class _FixpointApp:
     # the ``graphs.batched_shapes`` counter
     _batched_shapes: set = dataclasses.field(default_factory=set,
                                              repr=False)
+    # sharded execution (DESIGN.md §10): the mesh the app was built for
+    # (None = single device), the per-shard plan subtrees and the resident
+    # driver's step over the sharded executor's sweep bodies
+    mesh: object | None = None
+    _shard_parts: tuple = dataclasses.field(default=(), repr=False)
+    _shard_step: object = dataclasses.field(default=None, repr=False)
 
     # SSSP overrides: exhaustion at >= num_nodes + 1 synchronous sweeps
     # proves a reachable negative cycle (Bellman-Ford), nothing else does
@@ -298,7 +335,7 @@ class _FixpointApp:
     def _build_app(cls, seed, access, static, state_key, num_nodes, vreport,
                    *, lane_width, backend, cost, fused, stage_b, driver,
                    device, plan_cache_dir, tune, tune_cache_dir,
-                   state_example):
+                   state_example, mesh, shards):
         """One plan and one sweep program; under ``backend="auto"`` /
         ``tune=True`` the tuner picks both, timing candidates on
         ``state_example()`` (a representative state on ``device``)."""
@@ -306,20 +343,23 @@ class _FixpointApp:
             state = state_example()
             return {state_key: state}, state
         with validation.collect_degradations() as events:
-            plan, run, tuning = build_or_tune(
+            plan, run, tuning, mesh, parts = build_or_tune(
                 f"{cls.__name__}.from_edges", seed, access, num_nodes,
                 num_nodes, static, backend=backend, tune=tune,
                 lane_width=lane_width, cost=cost, fused=fused,
                 stage_b=stage_b, device=device,
                 plan_cache_dir=plan_cache_dir,
-                tune_cache_dir=tune_cache_dir, example=example,
-                **_sweep_measurement(state_key, driver))
+                tune_cache_dir=tune_cache_dir, example=example, mesh=mesh,
+                shards=shards, **_sweep_measurement(state_key, driver))
         _metrics.inc("graphs.plan_builds",
                      1 if tuning is None else tuning.plans_built)
         return cls(plan=plan, num_nodes=num_nodes, _run=run,
                    _state_key=state_key, device=device, tuning=tuning,
                    driver=driver, validation=vreport,
-                   degradations=tuple(events))
+                   degradations=tuple(events), mesh=mesh,
+                   _shard_parts=parts,
+                   _shard_step=eng.make_sharded_fixpoint_step(run, state_key)
+                   if parts else None)
 
     @property
     def sweeps_run(self) -> int:
@@ -373,6 +413,11 @@ class _FixpointApp:
             if max_sweeps is None:
                 max_sweeps = self.num_nodes + 1
             self.convergence = ConvergenceReport()
+            if batched and self._shard_parts:
+                raise NotImplementedError(
+                    "batched multi-source runs are not supported on a "
+                    "sharded app; build without mesh=/shards= for "
+                    "run_multi")
             if batched:
                 shape_key = (tuple(state.shape), str(state.dtype))
                 if shape_key not in self._batched_shapes:
@@ -395,19 +440,31 @@ class _FixpointApp:
         """Queue the sweeps in chunks of :data:`SYNC_EVERY` and read the flags
         once per chunk.  ``active`` stays true while the run has not
         stopped; the sweep that stops it (unchanged or unhealthy) is the
-        last one whose state, count and flags are kept."""
+        last one whose state, count and flags are kept.  On a sharded app
+        the carried state is the row-sharded pieces of
+        :meth:`_sharded_resident`, every other part of the loop the same,
+        so sweep counts and terminal flags equal the single-device run's."""
         reduce = self.plan.seed.reduce
-        healthy = eng.state_healthy(state, reduce)
+        if self._shard_parts:
+            carry, healthy, step, keep, finish = \
+                self._sharded_resident(state)
+        else:
+            def step(s):
+                new = self.sweep(s)
+                return new, (new != s).any(), eng.state_healthy(new, reduce)
+            carry, healthy, keep = state, eng.state_healthy(state, reduce), \
+                torch.where
+
+            def finish(s):
+                return s
         active = healthy
-        changed = torch.ones((), dtype=torch.bool, device=state.device)
-        count = torch.zeros((), dtype=torch.int32, device=state.device)
+        changed = torch.ones((), dtype=torch.bool, device=healthy.device)
+        count = torch.zeros((), dtype=torch.int32, device=healthy.device)
         queued = 0
         while True:
             for _ in range(min(SYNC_EVERY, max_sweeps - queued)):
-                new = self.sweep(state)
-                step_changed = (new != state).any()
-                step_healthy = eng.state_healthy(new, reduce)
-                state = torch.where(active, new, state)
+                new, step_changed, step_healthy = step(carry)
+                carry = keep(active, new, carry)
                 count = count + active.int()
                 changed = torch.where(active, step_changed, changed)
                 healthy = torch.where(active, step_healthy, healthy)
@@ -418,7 +475,31 @@ class _FixpointApp:
             if not still or queued >= max_sweeps:
                 self.convergence = self._report(sweeps, bool(chg), bool(ok),
                                                 max_sweeps)
-                return state
+                return finish(carry)
+
+    def _sharded_resident(self, state):
+        """The sharded resident carry (DESIGN.md §10): ``state`` split into
+        padded per-shard pieces, shard ``i``'s on its mesh device
+        (``row_sharding``), the step of
+        :func:`engine.make_sharded_fixpoint_step` (all-gather, local sweep,
+        verdicts summed on shard 0's device), the ``torch.where`` that
+        keeps a stopped run's pieces, and the reassembly of the full state
+        on ``state``'s device.  Pad rows are constant zeros, so the initial
+        health check over the pieces equals the full-state check."""
+        step = self._shard_step
+        widths, devices = step.widths, step.devices
+        pieces = eng.pad_rows(state, widths, step.padded_width, devices)
+        reduce = self.plan.seed.reduce
+        healthy = torch.stack([eng.state_healthy(p, reduce).to(devices[0])
+                               for p in pieces]).all()
+
+        def keep(active, new, old):
+            return [torch.where(active.to(o.device), n, o)
+                    for n, o in zip(new, old)]
+
+        def finish(carry):
+            return eng.unpad_rows(carry, widths, state.device)
+        return pieces, healthy, step, keep, finish
 
     def _converge_host(self, state, max_sweeps):
         """One sweep, one read of its flags, per iteration.  An already
@@ -496,8 +577,10 @@ class BFS(_FixpointApp):
         per graph, the choice cached in ``tune_cache_dir``); ``driver`` is
         ``"resident"`` or ``"host"``; ``validate`` is the ingestion policy
         (DESIGN.md §9); ``plan_cache_dir`` holds content-addressed
-        plans."""
-        check_ported(mesh, shards)
+        plans.  ``mesh=`` (a :class:`~repro_torch.launch.mesh.ShardMesh`,
+        simulated or not) or ``shards=k`` (``k`` devices of ``device``'s
+        type) shard the sweep (module docstring); neither goes with the
+        tuner, nor with ``backend="cuda"``."""
         dev = eng.resolve_device(device)
         with _trace.span("app.bfs.build", backend=backend,
                          num_nodes=num_nodes):
@@ -515,7 +598,7 @@ class BFS(_FixpointApp):
                 backend=backend, cost=cost, fused=fused, stage_b=stage_b,
                 driver=driver, device=dev, plan_cache_dir=plan_cache_dir,
                 tune=tune, tune_cache_dir=tune_cache_dir,
-                state_example=example)
+                state_example=example, mesh=mesh, shards=shards)
 
     def run(self, source: int, max_sweeps: int | None = None
             ) -> torch.Tensor:
@@ -563,7 +646,6 @@ class SSSP(_FixpointApp):
                    mesh=None, shards: int | None = None,
                    device="cuda") -> "SSSP":
         """As :meth:`BFS.from_edges`; ``weight`` is cast to float32."""
-        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.sssp.build", backend=backend,
                          num_nodes=num_nodes):
@@ -581,7 +663,8 @@ class SSSP(_FixpointApp):
                 num_nodes, vreport, lane_width=lane_width, backend=backend,
                 cost=cost, fused=fused, stage_b=stage_b, driver=driver,
                 device=dev, plan_cache_dir=plan_cache_dir, tune=tune,
-                tune_cache_dir=tune_cache_dir, state_example=example)
+                tune_cache_dir=tune_cache_dir, state_example=example,
+                mesh=mesh, shards=shards)
 
     def run(self, source: int, max_sweeps: int | None = None
             ) -> torch.Tensor:
@@ -616,7 +699,6 @@ class ConnectedComponents(_FixpointApp):
                    mesh=None, shards: int | None = None,
                    device="cuda") -> "ConnectedComponents":
         """As :meth:`BFS.from_edges`, over the symmetrized edges."""
-        check_ported(mesh, shards)
         dev = eng.resolve_device(device)
         with _trace.span("app.cc.build", backend=backend,
                          num_nodes=num_nodes):
@@ -631,7 +713,8 @@ class ConnectedComponents(_FixpointApp):
                 plan_cache_dir=plan_cache_dir, tune=tune,
                 tune_cache_dir=tune_cache_dir,
                 state_example=lambda: torch.arange(
-                    num_nodes, dtype=torch.int32, device=dev))
+                    num_nodes, dtype=torch.int32, device=dev),
+                mesh=mesh, shards=shards)
 
     def run(self, max_sweeps: int | None = None) -> torch.Tensor:
         """(num_nodes,) int32 labels: ``label[v]`` = min node id in v's

@@ -422,6 +422,240 @@ def lower(plan: BlockPlan, backend: str = "torch", fused: bool = True,
     return tree
 
 
+# ------------------------------------------------------------ partition
+@dataclasses.dataclass
+class PlanShard:
+    """One shard of a partitioned CodeTree: the contiguous output-row
+    range ``[row_start, row_stop)`` it owns, the parent exec-order block
+    positions assigned to it (ascending — the parent's exec-order
+    invariant restricted to the shard), and the per-shard subtree whose
+    plan/launches were SLICED from the parent's lowered artifacts
+    (re-derived, not re-binned: no feature analysis runs again).
+
+    The shard plan's ``out_len`` is local (``num_rows``) with
+    ``head_rows`` rebased to it; ``data_len``, ``gather_idx`` and
+    ``flat_perm`` stay GLOBAL — every shard gathers from the full dense
+    input (the all-gathered vector in the sharded fixpoint drivers) and
+    reorders the full nnz-aligned elementwise arrays.  ``plan.nnz`` is
+    therefore also the PARENT's nnz (it is the pad sentinel of
+    ``flat_perm`` into the full arrays), while the shard's own lane
+    count lives in ``plan.stats.nnz``."""
+
+    index: int
+    num_shards: int
+    row_start: int
+    row_stop: int
+    block_ids: np.ndarray          # (Bs,) int64 parent exec block positions
+    tree: CodeTree
+
+    @property
+    def num_rows(self) -> int:
+        return self.row_stop - self.row_start
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.block_ids.shape[0])
+
+
+def _block_row_spans(plan: BlockPlan) -> tuple[np.ndarray, np.ndarray]:
+    """Per exec block: (min, max) output row written by its heads.
+    Blocks with no heads (all-pad) report ``(out_len, -1)``."""
+    b = plan.num_blocks
+    hb = plan.head_pos // plan.lane_width
+    row_min = np.full(b, plan.out_len, np.int64)
+    row_max = np.full(b, -1, np.int64)
+    np.minimum.at(row_min, hb, plan.head_rows)
+    np.maximum.at(row_max, hb, plan.head_rows)
+    return row_min, row_max
+
+
+def legal_cuts(plan: BlockPlan) -> np.ndarray:
+    """Sorted row positions ``r`` where the plan may be split: no block
+    writes both a row ``< r`` and a row ``>= r`` (a block's whole head
+    span must land in one shard so its byte-identical block program runs
+    exactly once, on the shard that owns its rows).  Always contains 0
+    and ``out_len``.  Row-major-sorted inputs (every generator, the
+    validators' canonical output) give a cut at nearly every row; an
+    adversarially interleaved input degrades to fewer cuts — partitioning
+    then yields imbalanced (possibly empty) shards, never a wrong one."""
+    n = plan.out_len
+    row_min, row_max = _block_row_spans(plan)
+    has_heads = row_max >= 0
+    # cut r is illegal iff some block's span straddles it:
+    # r in [row_min + 1, row_max] <=> half-open [row_min + 1, row_max + 1)
+    mark = np.zeros(n + 2, np.int64)
+    np.add.at(mark, row_min[has_heads] + 1, 1)
+    np.add.at(mark, row_max[has_heads] + 1, -1)
+    illegal = np.cumsum(mark)[: n + 1] > 0
+    return np.flatnonzero(~illegal).astype(np.int64)
+
+
+def _per_row_nnz(plan: BlockPlan) -> np.ndarray:
+    """(out_len,) valid-lane count per output row, reconstructed from the
+    head structure: within a block, pads sort to the front and rows
+    ascend, so forward max-filling ``head_rows`` scattered at
+    ``head_pos`` labels every valid lane with its row."""
+    b, n = plan.num_blocks, plan.lane_width
+    rows = np.full(b * n, -1, np.int64)
+    rows[plan.head_pos] = plan.head_rows
+    rows = np.maximum.accumulate(rows.reshape(b, n), axis=1)
+    lane_rows = rows.reshape(-1)[plan.valid.reshape(-1)]
+    return np.bincount(lane_rows, minlength=plan.out_len)
+
+
+def _pick_cuts(plan: BlockPlan, shards: int) -> np.ndarray:
+    """(shards + 1,) non-decreasing legal row cuts, 0 and out_len at the
+    ends, interior cuts chosen nearest to the nnz-balanced targets."""
+    cuts_ok = legal_cuts(plan)
+    cum = np.concatenate([[0], np.cumsum(_per_row_nnz(plan))])
+    total = int(cum[-1])
+    load_at = cum[cuts_ok].astype(np.float64)
+    cuts = np.empty(shards + 1, np.int64)
+    cuts[0], cuts[shards] = 0, plan.out_len
+    lo = 0                            # index into cuts_ok; keeps cuts sorted
+    for i in range(1, shards):
+        target = total * i / shards
+        j = int(np.argmin(np.abs(load_at[lo:] - target))) + lo
+        cuts[i] = cuts_ok[j]
+        lo = j
+    return cuts
+
+
+def _slice_blockwise(a: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a[ids])
+
+
+def _shard_launches(parent: list[Launch], ids: np.ndarray,
+                    pos_in_shard: np.ndarray) -> list[Launch]:
+    """Restrict a lowered launch list to the shard's block set.  ``ids``
+    is sorted, and parent launches cover disjoint contiguous exec
+    ranges, so each parent launch maps to AT MOST one shard launch whose
+    blocks are contiguous in the shard's own exec order; COALESCED
+    operands and kernel-form ``full_mask`` are sliced by membership."""
+    out: list[Launch] = []
+    for launch in parent:
+        members = ids[(ids >= launch.start) & (ids < launch.stop)]
+        if members.size == 0:
+            continue
+        local = members - launch.start       # positions within the launch
+        start = int(pos_in_shard[members[0]])
+        sub = dataclasses.replace(
+            launch, start=start, stop=start + int(members.size),
+            slice_starts=(None if launch.slice_starts is None
+                          else launch.slice_starts[local]),
+            local_offset=(None if launch.local_offset is None
+                          else launch.local_offset[local]),
+            full_mask=(None if launch.full_mask is None
+                       else launch.full_mask[local]))
+        out.append(sub)
+    return out
+
+
+def _shard_classes(parent: list[PatternClass], ids: np.ndarray,
+                   pos_in_shard: np.ndarray) -> list[PatternClass]:
+    out: list[PatternClass] = []
+    for c in parent:
+        members = ids[(ids >= c.start) & (ids < c.stop)]
+        if members.size == 0:
+            continue
+        start = int(pos_in_shard[members[0]])
+        out.append(dataclasses.replace(c, start=start,
+                                       stop=start + int(members.size)))
+    return out
+
+
+def partition_plan(tree: CodeTree, shards: int) -> list[PlanShard]:
+    """Split one lowered CodeTree into ``shards`` per-shard subtrees
+    along a disjoint row tiling of ``[0, out_len)``.
+
+    Every parent exec-order block is assigned to exactly ONE shard (the
+    owner of its head-row span; blocks with no heads go to shard 0), and
+    shards keep their blocks in ascending parent exec position — so the
+    per-shard launch lists partition the parent's exec order.  Per-shard
+    plans are sliced from the parent's already-analyzed arrays and the
+    parent's already-lowered launch list (feature tables re-derived, not
+    re-binned: no ``reduce_features``/``gather_features`` pass runs
+    again), which is what makes the per-row combine programs of a shard
+    byte-identical to the parent's — the bitwise argument in DESIGN.md
+    §10.  Shards may own zero rows or zero blocks when the input lacks
+    enough legal cuts (the emitters run those as identity sweeps)."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1 (got {shards})")
+    if tree.backend == "cuda":
+        raise ValueError(
+            "partition_plan: the cuda backend is single-device (its "
+            "kernels run on one card); use backend='torch' or 'segsum' "
+            "for sharded execution")
+    plan = tree.plan
+    b, n = plan.num_blocks, plan.lane_width
+    with _trace.span("ir.partition_plan", shards=shards,
+                     num_blocks=b) as sp:
+        out = _partition_plan_impl(tree, plan, b, n, shards)
+        sp.set(shard_blocks=",".join(str(p.num_blocks) for p in out),
+               shard_rows=",".join(str(p.num_rows) for p in out))
+    return out
+
+
+def _partition_plan_impl(tree: CodeTree, plan: BlockPlan, b: int, n: int,
+                         shards: int) -> list[PlanShard]:
+    cuts = _pick_cuts(plan, shards)
+    row_min, row_max = _block_row_spans(plan)
+    # owner shard per block: the range containing its row span (legal
+    # cuts guarantee the span never straddles); head-less blocks -> 0
+    owner = np.searchsorted(cuts[1:-1], row_min, side="right")
+    owner[row_max < 0] = 0
+    hb = plan.head_pos // n
+    head_owner = owner[hb] if plan.head_pos.size else np.zeros(0, np.int64)
+
+    out: list[PlanShard] = []
+    for s in range(shards):
+        ids = np.flatnonzero(owner == s).astype(np.int64)
+        lo, hi = int(cuts[s]), int(cuts[s + 1])
+        pos_in_shard = np.full(b, -1, np.int64)
+        pos_in_shard[ids] = np.arange(ids.size)
+        sel = head_owner == s
+        head_pos = (pos_in_shard[hb[sel]] * n
+                    + plan.head_pos[sel] % n).astype(np.int64)
+        head_rows = (plan.head_rows[sel] - lo).astype(np.int64)
+        valid = _slice_blockwise(plan.valid, ids)
+        classes = _shard_classes(plan.classes, ids, pos_in_shard)
+        stats = dataclasses.replace(
+            plan.stats, nnz=int(valid.sum()), num_blocks=int(ids.size),
+            num_classes=len(classes), heads_total=int(head_pos.shape[0]))
+        shard_plan = dataclasses.replace(
+            plan,
+            out_len=hi - lo,
+            num_blocks=int(ids.size),
+            classes=classes,
+            window_ids=_slice_blockwise(plan.window_ids, ids),
+            lane_slot=_slice_blockwise(plan.lane_slot, ids),
+            lane_offset=_slice_blockwise(plan.lane_offset, ids),
+            seg_ids=_slice_blockwise(plan.seg_ids, ids),
+            gather_idx=_slice_blockwise(plan.gather_idx, ids),
+            valid=valid,
+            flat_perm=np.ascontiguousarray(
+                plan.flat_perm.reshape(b, n)[ids]).reshape(-1),
+            head_pos=head_pos, head_rows=head_rows, stats=stats)
+        shard_launches = _shard_launches(tree.launches, ids, pos_in_shard)
+        shard_tree = CodeTree(
+            plan=shard_plan, backend=tree.backend,
+            launches=shard_launches,
+            stage_b=tree.stage_b,
+            passes=tree.passes + (f"partition_plan[{s}/{shards}]",),
+            pass_deltas=tree.pass_deltas + (
+                {"pass": f"partition_plan[{s}/{shards}]",
+                 "launches_before": len(tree.launches),
+                 "launches_after": len(shard_launches),
+                 "rows": hi - lo, "blocks": int(ids.size)},))
+        out.append(PlanShard(index=s, num_shards=shards, row_start=lo,
+                             row_stop=hi, block_ids=ids, tree=shard_tree))
+    assigned = np.concatenate([p.block_ids for p in out]) if out else \
+        np.zeros(0, np.int64)
+    assert np.array_equal(np.sort(assigned), np.arange(b)), \
+        "partition_plan: shard block sets must partition the exec order"
+    return out
+
+
 def coalesced_fraction(tree: CodeTree) -> float:
     """Share of nnz served by dense-slice loads after lowering — the
     reach of :func:`coalesce_gathers` (``chip_smoke.py`` prints it per

@@ -13,9 +13,11 @@ the gather-coalescing pass and every backend: ``"torch"``, ``"segsum"``,
 (the tuner, timing candidates on an ``(n, 8)`` operand), with the plan
 cache and ``report()`` as :class:`~repro_torch.core.apps.SpMV`'s.
 
-A port of ``SpMM`` from the JAX package's ``core/spmm.py``.  Sharded
-execution (``mesh=`` / ``shards=``) is a later slice of the port and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` items.
+``mesh=`` / ``shards=`` / ``simulate_mesh=`` shard it as
+:meth:`~repro_torch.core.apps.SpMV.from_coo`'s do, for every semiring, and
+under ``backend="auto"`` ``shards=k`` is a tuned axis over ``{1, k}``.
+
+A port of ``SpMM`` from the JAX package's ``core/spmm.py``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import validate as validation
-from repro_torch.core.graphs import build_or_tune, check_ported
+from repro_torch.core.graphs import build_or_tune
 from repro_torch.core.plan import BlockPlan, CostModel
 from repro_torch.core.seed import reduce_identity_for, spmv_seed
 from repro_torch.obs import trace as _trace
@@ -42,6 +44,9 @@ class SpMM:
     tuning: object | None = None   # TuningResult when built via backend="auto"
     validation: object | None = None    # ValidationReport from from_coo
     degradations: tuple = ()            # DegradationEvents from the build
+    # sharded execution (DESIGN.md §10)
+    mesh: object | None = None
+    _shard_parts: tuple = dataclasses.field(default=(), repr=False)
 
     @classmethod
     def from_coo(cls, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -57,14 +62,16 @@ class SpMM:
                  tune_cache_dir: str | None = None,
                  validate: str = "strict",
                  mesh=None, shards: int | None = None,
+                 simulate_mesh: bool = False,
                  device="cuda") -> "SpMM":
         """Build the plan and the executor on ``device`` (default
         ``"cuda"``, which raises when no CUDA device exists).  ``backend``
         is ``"torch"``, ``"segsum"``, ``"cuda"`` or ``"auto"`` (measured on
         an ``(n, 8)`` float32 operand, cached in ``tune_cache_dir``);
         ``reduce`` picks the semiring, and ``validate="repair"`` combines
-        duplicate entries with it (DESIGN.md §9)."""
-        check_ported(mesh, shards)
+        duplicate entries with it (DESIGN.md §9).  ``mesh=`` / ``shards=``
+        / ``simulate_mesh=`` select sharded execution as in
+        :meth:`~repro_torch.core.apps.SpMV.from_coo`."""
         dev = eng.resolve_device(device)
         with _trace.span("app.spmm.build", backend=backend,
                          nnz=int(np.asarray(vals).size)):
@@ -82,17 +89,19 @@ class SpMM:
                     (shape[0], 8), seed.reduce_identity,
                     dtype=torch.float32, device=dev)
             with validation.collect_degradations() as events:
-                plan, run, tuning = build_or_tune(
+                plan, run, tuning, mesh, parts = build_or_tune(
                     "SpMM.from_coo", seed, access, shape[0], shape[1],
                     {"value": vals}, backend=backend, tune=tune,
                     lane_width=lane_width, cost=cost, fused=fused,
                     stage_b=stage_b, coalesce=coalesce, device=dev,
                     plan_cache_dir=plan_cache_dir,
                     tune_cache_dir=tune_cache_dir, example=example,
-                    cache_extra="spmm:d8")
+                    mesh=mesh, shards=shards, simulate_mesh=simulate_mesh,
+                    tuned_shards=True, cache_extra="spmm:d8")
         return cls(plan=plan, shape=shape, _run=run, device=dev,
                    reduce=reduce, tuning=tuning, validation=vreport,
-                   degradations=tuple(events))
+                   degradations=tuple(events), mesh=mesh,
+                   _shard_parts=parts)
 
     def matmat(self, bmat, y_init: torch.Tensor | None = None
                ) -> torch.Tensor:

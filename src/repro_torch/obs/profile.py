@@ -123,7 +123,8 @@ def launch_cost_table(tree) -> list[dict]:
 class RunReport:
     """Everything one app build + run decided, in one serializable
     object (schema: DESIGN.md §11).  ``hlo`` is always ``None`` (no HLO in
-    PyTorch) and ``shards`` too (sharding is not ported)."""
+    PyTorch); ``shards`` is the shard count of a sharded app, else
+    ``None``."""
 
     app: str
     backend: str | None
@@ -178,8 +179,12 @@ def _tuning_dict(result) -> dict | None:
 
 def build_report(app, name: str, sweeps=None) -> RunReport:
     """Assemble a :class:`RunReport` from any app surface.  ``sweeps``
-    carries the fixpoint convergence record where one exists."""
-    tree = getattr(getattr(app, "_run", None), "tree", None)
+    carries the fixpoint convergence record where one exists.  A sharded
+    app's launch rows are every shard's, each tagged with its ``shard``."""
+    run = getattr(app, "_run", None)
+    tree = getattr(run, "tree", None)
+    parts = tuple(getattr(run, "parts", ()) or
+                  getattr(app, "_shard_parts", ()))
     launches: list = []
     pass_deltas: tuple = ()
     passes: tuple = ()
@@ -189,6 +194,14 @@ def build_report(app, name: str, sweeps=None) -> RunReport:
         passes = tuple(tree.passes)
         pass_deltas = tuple(tree.pass_deltas)
         backend = tree.backend
+    elif parts:
+        for part in parts:
+            for row in launch_cost_table(part.tree):
+                row["shard"] = part.index
+                launches.append(row)
+        passes = tuple(parts[0].tree.passes)
+        pass_deltas = tuple(parts[0].tree.pass_deltas)
+        backend = parts[0].tree.backend
 
     totals = {
         "launches": len(launches),
@@ -212,5 +225,5 @@ def build_report(app, name: str, sweeps=None) -> RunReport:
         degradations=[_maybe_asdict(e)
                       for e in getattr(app, "degradations", ())],
         sweeps=_maybe_asdict(sweeps),
-        shards=None,
+        shards=len(parts) if parts else None,
     )

@@ -42,7 +42,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as eng
+from repro_torch.core import ir
 from repro_torch.core.seed import CodeSeed, reference_execute
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 from repro_torch.tune import cache as tcache
@@ -124,7 +126,19 @@ def _build_plan(seed, access, out_len, data_len, cand: Candidate,
 
 
 def _default_exec_factory(plan, cand: Candidate, static_data, elem_exec,
-                          device="cuda"):
+                          device="cuda", simulate_mesh: bool = False):
+    if cand.shards > 1:
+        # sharded candidates keep the full-array call contract, so the
+        # oracle check and the paired measurement treat them like any
+        # other executor; elem_exec is parent-plan-ordered and cannot
+        # seed the shard plans (each shard re-reorders the full static
+        # arrays through its own sliced flat_perm)
+        tree = ir.lower(plan, backend=cand.backend, fused=cand.fused,
+                        stage_b=cand.stage_b, coalesce=cand.coalesce)
+        parts = ir.partition_plan(tree, cand.shards)
+        return eng.make_sharded_executor(
+            parts, static_data,
+            make_shard_mesh(cand.shards, device, simulate_mesh))
     return eng.make_executor(plan, static_data, backend=cand.backend,
                              fused=cand.fused, stage_b=cand.stage_b,
                              elem_exec=elem_exec, coalesce=cand.coalesce,
@@ -303,7 +317,8 @@ def autotune(seed: CodeSeed, access: dict, out_len: int, data_len: int,
              tune_cache_dir: str | None = None,
              plan_cache_dir: str | None = None, force: bool = False,
              exec_factory=None, oracle="reference",
-             measure_wrap=None, cache_extra: str = "", device=None):
+             measure_wrap=None, cache_extra: str = "", device=None,
+             simulate_mesh: bool = False):
     """Pick the best execution variant for this input; return
     ``(plan, run, TuningResult)`` where ``run(mutable, out_init)`` is the
     tuned executor on ``device`` (default: ``out_init``'s device, whose
@@ -314,8 +329,13 @@ def autotune(seed: CodeSeed, access: dict, out_len: int, data_len: int,
     derives the expected output from the seed's scatter oracle;
     pass an explicit array for custom executors, or ``None`` to skip the
     check.  ``force=True`` ignores (but still refreshes) the tuning
-    cache.  ``shard_counts`` is the reference's row-shard axis, not
-    ported: a count above 1 raises ``NotImplementedError``.
+    cache.  ``shard_counts`` widens the default space with a row-shard
+    axis (DESIGN.md §10), capped at the visible device count; a sharded
+    candidate's executor builds its own mesh of ``device``'s type, or,
+    with ``simulate_mesh=True``, places every shard on ``device`` (the
+    cap is then the largest shard count, and the tuning-cache key says
+    the mesh was simulated).  Every shard count in the space reaches the
+    measurement.
 
     ``measure_wrap(run) -> timed_callable`` changes what gets TIMED
     without changing what gets RETURNED or oracle-checked: the fixpoint
@@ -345,7 +365,7 @@ def autotune(seed: CodeSeed, access: dict, out_len: int, data_len: int,
             force=force,
             exec_factory=exec_factory, oracle=oracle,
             measure_wrap=measure_wrap, cache_extra=cache_extra,
-            device=device)
+            device=device, simulate_mesh=simulate_mesh)
         sp.set(picked_by=result.picked_by, cache_hit=result.cache_hit,
                measured=result.num_measured,
                plans_built=result.plans_built, best=result.best.label)
@@ -357,21 +377,25 @@ def _autotune_impl(seed: CodeSeed, access: dict, out_len: int,
                    out_init, *, space, lane_widths, shard_counts,
                    top_k, warmup, iters, tune_cache_dir, plan_cache_dir,
                    force, exec_factory, oracle,
-                   measure_wrap, cache_extra, device):
+                   measure_wrap, cache_extra, device, simulate_mesh):
     dev = eng.resolve_device(out_init.device if device is None else device)
     platform = tspace.platform_of(dev)
-    tspace.check_shard_counts(shard_counts or (1,))
+    shard_counts = shard_counts if shard_counts else (1,)
     if space is None:
         space = tspace.candidate_space(
             seed, platform=platform,
-            lane_widths=lane_widths if lane_widths else (128,))
+            lane_widths=lane_widths if lane_widths else (128,),
+            shard_counts=shard_counts,
+            devices=max(shard_counts) if simulate_mesh else None)
     if not space:
         raise ValueError("empty candidate space")
-    tspace.check_shard_counts([c.shards for c in space])
+    if simulate_mesh and any(c.shards > 1 for c in space):
+        cache_extra += "|mesh=simulated"
     if exec_factory is None:
         def exec_factory(plan, cand, static_data, elem_exec):
             return _default_exec_factory(plan, cand, static_data, elem_exec,
-                                         device=dev)
+                                         device=dev,
+                                         simulate_mesh=simulate_mesh)
     sig = tspace.space_signature(space)
 
     from repro_torch.core import validate as vmod
@@ -446,6 +470,15 @@ def _autotune_impl(seed: CodeSeed, access: dict, out_len: int,
                      top_k=top_k) as sp_rank:
         ranked = tcost.rank_candidates(space, features, platform,
                                        top_k=top_k)
+        # every shard count in the space must reach the measurement phase:
+        # the caller opened that axis explicitly, and the cost model's
+        # collective constant is far too coarse to close it analytically
+        missing = {c.shards for c in space} - {c.shards for c, _ in ranked}
+        if missing:
+            full = tcost.rank_candidates(space, features, platform,
+                                         top_k=None)
+            ranked += [next(t for t in full if t[0].shards == k)
+                       for k in sorted(missing)]
         sp_rank.set(ranked=len(ranked))
 
     if oracle == "reference":

@@ -26,8 +26,11 @@ cannot run honestly) on the platform:
   candidates, and ``kernel_prefetch`` never on the ``"cuda"`` platform:
   the kernels have no metadata prefetch, so it would time one kernel
   twice (the reference rules the same for ``"gpu"``);
-* the row-shard axis is not ported (``ROADMAP.md`` queue 1, items 3.4 and
-  10): a shard count above 1 raises.
+* the row-shard axis (DESIGN.md §10) is capped at the device count: a
+  candidate of ``shards > 1`` is valid only where that many devices of the
+  platform are visible, or where the caller simulates the mesh and says
+  how many devices it has (``devices=``); ``cuda`` candidates are never
+  sharded (``ir.partition_plan`` refuses their subtrees).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.core.plan import CostModel
 from repro_torch.core.seed import CodeSeed
+from repro_torch.launch import mesh as lmesh
 
 # reduces with a scatter_reduce_ form (engine's segsum backend)
 SEGMENT_REDUCES = frozenset({"add", "mul", "max", "min"})
@@ -59,7 +63,7 @@ class Candidate:
     lane_width: int = 128
     max_windows_replace: int | None = None
     coalesce: bool = False             # ir.coalesce_gathers lowering pass
-    shards: int = 1                    # row shards (not ported: always 1)
+    shards: int = 1                    # row shards over a device mesh (§10)
     # per-launch kernel params (None = emitter default of 1).  Upper
     # bounds, not exact values: results are bitwise-stable across every
     # setting, so the axes are pure performance knobs.
@@ -69,7 +73,9 @@ class Candidate:
     @property
     def plan_key(self) -> tuple:
         """Candidates with equal plan keys share one BlockPlan (and the
-        reorder work that goes with it)."""
+        reorder work that goes with it).  ``shards`` is deliberately NOT
+        part of the key: every shard count partitions the same parent
+        plan (``ir.partition_plan`` slices, it never re-analyzes)."""
         return (self.lane_width, self.max_windows_replace)
 
     def cost_model(self) -> CostModel:
@@ -131,8 +137,11 @@ def canonicalize(c: Candidate) -> Candidate:
 
 
 def is_valid(c: Candidate, seed: CodeSeed, platform: str,
-             allow_interpret: bool = False) -> bool:
-    """The platform/seed validity rules (module docstring)."""
+             allow_interpret: bool = False,
+             devices: int | None = None) -> bool:
+    """The platform/seed validity rules (module docstring).  ``devices``
+    caps the shard axis (default: the visible device count of
+    ``platform``) so the tuner never measures a mesh it cannot build."""
     if c.backend not in _BACKENDS or c.stage_b not in _STAGE_BS:
         return False
     if c.lane_width < 2:
@@ -141,23 +150,23 @@ def is_valid(c: Candidate, seed: CodeSeed, platform: str,
         return False
     if c.backend == "segsum" and seed.reduce not in SEGMENT_REDUCES:
         return False
-    if c.shards != 1:
+    if c.shards < 1:
         return False
+    if c.shards > 1:
+        if c.backend == "cuda":
+            # partition_plan refuses cuda subtrees (the kernels are
+            # single-device)
+            return False
+        if devices is None:
+            devices = len(lmesh.visible_devices(platform))
+        if c.shards > devices:
+            return False
     for knob in (c.kernel_rows, c.kernel_prefetch):
         if knob is not None and not (1 <= knob <= 64):
             return False
     if c.kernel_prefetch is not None and platform == "cuda":
         return False
     return True
-
-
-def check_shard_counts(shard_counts) -> None:
-    """The row-shard axis is not ported: raise for any count above 1."""
-    if any(int(k) > 1 for k in shard_counts):
-        from repro_torch.core.graphs import not_ported
-        raise not_ported("a row-shard axis in the tuner (shard counts "
-                         f"{tuple(shard_counts)})",
-                         "queue 1, items 3.4 and 10")
 
 
 # default per-launch kernel-param axes swept for cuda candidates (None =
@@ -174,6 +183,7 @@ def candidate_space(seed: CodeSeed, *, platform: str | None = None,
                     allow_interpret: bool = False,
                     kernel_rows_axis: tuple = _KERNEL_ROWS_AXIS,
                     kernel_prefetch_axis: tuple = _KERNEL_PREFETCH_AXIS,
+                    devices: int | None = None,
                     ) -> list["Candidate"]:
     """Enumerate the valid, canonical candidate list for ``seed`` on
     ``platform`` (default ``"cuda"``, the entry points' default device) —
@@ -184,12 +194,16 @@ def candidate_space(seed: CodeSeed, *, platform: str | None = None,
     x stage_b x coalesce, + segsum); ``"cuda"`` adds the 16 cuda forms
     (fused x stage_b x coalesce x ``kernel_rows``).  Widening
     ``lane_widths`` / ``window_cutoffs`` multiplies the *plan* axis, which
-    the search harness shares per :attr:`Candidate.plan_key`."""
+    the search harness shares per :attr:`Candidate.plan_key`.
+    ``shard_counts`` adds the row-shard axis, capped at ``devices``
+    (default: the visible device count of ``platform``; a simulated mesh
+    passes its own)."""
     platform = platform or "cuda"
     if platform not in PLATFORMS:
         raise ValueError(f"unknown platform {platform!r}; expected one of "
                          f"{PLATFORMS}")
-    check_shard_counts(shard_counts)
+    if devices is None and any(k > 1 for k in shard_counts):
+        devices = len(lmesh.visible_devices(platform))
     out: list[Candidate] = []
     seen: set[Candidate] = set()
     for n in lane_widths:
@@ -213,7 +227,8 @@ def candidate_space(seed: CodeSeed, *, platform: str | None = None,
                                             kernel_rows=kr,
                                             kernel_prefetch=kp)
                                         if not is_valid(c, seed, platform,
-                                                        allow_interpret):
+                                                        allow_interpret,
+                                                        devices):
                                             continue
                                         c = canonicalize(c)
                                         if c in seen:

@@ -901,3 +901,86 @@ def test_moe_row_gather_dispatch_bitwise_on_card(dtype, monkeypatch):
     assert torch.equal(_bits(got), _bits(want))
     assert all(torch.equal(aux[k], want_aux[k]) for k in aux)
     assert float(aux["moe_dropped_frac"]) >= 0.5
+
+
+# ---------------------------------------------------- sharded execution
+def _edges_case():
+    """A power-law graph with its edges sorted by destination, so its
+    plans cut into several non-empty shards."""
+    c = G.graph_case("powerlaw", 3000, 8)
+    o = np.lexsort((c.src, c.dst))
+    return c.src[o], c.dst[o], c.weight[o], c.num_nodes
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_apps_bitwise_on_card(k):
+    """A simulated mesh of ``k`` shards on the one card: sharded SpMV, SpMM
+    (min) and BFS / SSSP / PageRank (both drivers) bitwise the
+    single-device run of the ``torch`` backend on the card, with equal
+    sweeps and flags; ``segsum`` (atomic float sums on the card) within
+    the reference's tolerance."""
+    from repro_torch.core import graphs
+    from repro_torch.core.apps import PageRank
+    from repro_torch.launch.mesh import make_shard_mesh
+    dev = _cuda()
+    sim = dict(shards=k, simulate_mesh=True, device=dev)
+    gsim = dict(mesh=make_shard_mesh(k, device=dev, simulate=True),
+                device=dev)
+
+    def live(app):
+        return sum(p.num_rows > 0 for p in app._shard_parts)
+    m = _matrix("powerlaw")
+    vals, x = _data(m, np.float32)
+    xd = torch.as_tensor(x, device=dev)
+    single = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                           device=dev).matvec(xd)
+    app = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32, **sim)
+    assert app.mesh.devices == (dev,) * k
+    assert torch.equal(_bits(app.matvec(xd)), _bits(single))
+    seg = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                        backend="segsum", **sim).matvec(xd)
+    torch.testing.assert_close(seg, single, rtol=1e-5, atol=1e-5)
+    b = torch.as_tensor(np.stack([x, np.roll(x, 1), -x], axis=1),
+                        device=dev)
+    want = SpMM.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                         reduce="min", device=dev).matmat(b)
+    got = SpMM.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                        reduce="min", **sim).matmat(b)
+    assert torch.equal(_bits(got), _bits(want))
+    src, dst, w, n = _edges_case()
+    for driver in ("resident", "host"):
+        for cls, args in ((graphs.BFS, (src, dst, n)),
+                          (graphs.SSSP, (src, dst, w, n))):
+            a1 = cls.from_edges(*args, lane_width=32, driver=driver,
+                                device=dev)
+            ak = cls.from_edges(*args, lane_width=32, driver=driver, **gsim)
+            assert live(ak) >= 2
+            assert torch.equal(_bits(ak.run(0)), _bits(a1.run(0)))
+            assert ak.convergence == a1.convergence
+        p1 = PageRank.from_edges(src, dst, n, lane_width=32, device=dev)
+        pk = PageRank.from_edges(src, dst, n, lane_width=32, **gsim)
+        assert live(pk) >= 2
+        assert torch.equal(_bits(pk.run(20, driver=driver)),
+                           _bits(p1.run(20, driver=driver)))
+    with pytest.raises(ValueError, match="single-device"):
+        SpMV.from_coo(m.rows, m.cols, vals, m.shape, backend="cuda", **sim)
+
+
+def test_sharded_spmv_on_a_real_mesh():
+    """Shards on distinct cards (skips on a machine with one card): the
+    sharded SpMV bitwise the single-card run."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    dev = _cuda()
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two or more CUDA devices for a real mesh")
+    mesh = make_shard_mesh(k)
+    assert len(set(mesh.devices)) == k
+    m = _matrix("banded")
+    vals, x = _data(m, np.float32)
+    xd = torch.as_tensor(x, device=dev)
+    single = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                           device=dev).matvec(xd)
+    got = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
+                        mesh=mesh, device=dev).matvec(xd)
+    assert got.device == dev and torch.equal(_bits(got), _bits(single))

@@ -313,13 +313,23 @@ def test_resident_driver_reads_the_device_once_per_chunk(kind, sync_every,
 
 
 def test_not_yet_ported_options_raise():
+    """Sharding is ported; what still raises: the single-device ``cuda``
+    backend with ``shards=``, ``mesh`` or ``shards`` with a tuned graph
+    app, and ``run_multi`` on a sharded app."""
+    from repro_torch.launch.mesh import make_shard_mesh
     c = _case("powerlaw")
+    mesh = make_shard_mesh(2, device="cpu", simulate=True)
     for cls in (graphs.BFS, graphs.ConnectedComponents, apps.PageRank):
-        for kw in ({"shards": 2}, {"mesh": object()},
-                   {"shards": 2, "backend": "auto"}):
-            with pytest.raises(NotImplementedError,
-                               match="items 3.4 and 10"):
+        for kw, match in (({"mesh": mesh, "backend": "cuda"},
+                           "single-device"),
+                          ({"mesh": mesh, "backend": "auto"}, "mesh"),
+                          ({"shards": 2, "backend": "auto"}, "shards")):
+            with pytest.raises(ValueError, match=match):
                 cls.from_edges(c.src, c.dst, c.num_nodes, device="cpu", **kw)
+    sharded = graphs.BFS.from_edges(c.src, c.dst, c.num_nodes,
+                                    lane_width=LANE, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="run_multi"):
+        sharded.run_multi([0, 1])
     bfs = _port("bfs", "powerlaw", "torch")[0]
     assert bfs.report().sweeps == dataclasses.asdict(bfs.convergence)
     with pytest.raises(ValueError, match="unknown driver"):

@@ -49,6 +49,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import repro_torch.core.planio, repro_torch.obs.profile\n"
             "import repro_torch.serve.query, repro_torch.testing.faults\n"
             "import repro_torch.launch.serve_queries\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
             "import repro_torch.configs, repro_torch.models.lm\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "for a in repro_torch.configs.ARCHS:\n"
@@ -90,6 +91,20 @@ def test_default_device_raises_without_cuda(backend):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SpMV.from_csr(indptr, cols[order], vals[order], shape,
                       backend=backend)
+
+
+def test_sharded_default_device_raises_without_cuda():
+    """``shards=`` asks for CUDA devices too: a mesh of cards is never
+    quietly built on the CPU, simulated or not."""
+    _no_cuda()
+    from repro_torch.core.apps import SpMV
+    from repro_torch.launch.mesh import make_shard_mesh
+    with pytest.raises(ValueError, match="only 0 cuda device"):
+        make_shard_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_shard_mesh(2, simulate=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpMV.from_coo(*_coo(), shards=2, simulate_mesh=True)
 
 
 def test_executor_default_device_raises_without_cuda():

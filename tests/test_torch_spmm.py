@@ -191,11 +191,16 @@ def test_matvec_many_vs_reference_and_bucket_counter():
 
 
 def test_spmm_not_yet_ported_options_raise():
+    """Sharding is ported; the single-device ``cuda`` backend with
+    ``shards=`` and an explicit ``mesh`` with the tuner still raise."""
+    from repro_torch.launch.mesh import make_shard_mesh
     m = _matrix("banded")
     vals, bmat = _problem(m, np.float32, 2)
-    for kw in ({"shards": 2}, {"mesh": object()},
-               {"shards": 2, "backend": "auto"}):
-        with pytest.raises(NotImplementedError, match="items 3.4 and 10"):
+    mesh = make_shard_mesh(2, device="cpu", simulate=True)
+    for kw, match in (({"shards": 2, "simulate_mesh": True,
+                        "backend": "cuda"}, "single-device"),
+                      ({"mesh": mesh, "backend": "auto"}, "mesh")):
+        with pytest.raises(ValueError, match=match):
             SpMM.from_coo(*_coo(m, vals), device="cpu", **kw)
     sp = _port(m, vals, "add")
     assert sp.report().app == "SpMM"

@@ -282,13 +282,24 @@ def test_degenerate_inputs():
 
 
 def test_not_yet_ported_options_raise():
-    """Only sharding stays unported: ``mesh=`` / ``shards=`` raise, with or
-    without the tuner."""
+    """Sharding is ported; what still raises is what the reference refuses
+    too: the single-device ``cuda`` backend with ``shards=``, an explicit
+    ``mesh`` with the tuner, and a batched ``matvec_many`` on a sharded
+    SpMV."""
+    from repro_torch.launch.mesh import make_shard_mesh
     m = _matrix("banded")
-    for kw in ({"shards": 2}, {"mesh": object()},
-               {"shards": 2, "backend": "auto"}, {"shards": 1, "tune": True}):
-        with pytest.raises(NotImplementedError, match="items 3.4 and 10"):
+    mesh = make_shard_mesh(2, device="cpu", simulate=True)
+    for kw, err, match in (
+            ({"shards": 2, "simulate_mesh": True, "backend": "cuda"},
+             ValueError, "single-device"),
+            ({"mesh": mesh, "backend": "cuda"}, ValueError, "single-device"),
+            ({"mesh": mesh, "backend": "auto"}, ValueError, "mesh"),
+            ({"mesh": mesh, "tune": True}, ValueError, "mesh")):
+        with pytest.raises(err, match=match):
             SpMV.from_coo(*_args(m), device="cpu", **kw)
+    sharded = SpMV.from_coo(*_args(m), lane_width=8, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="matvec_many"):
+        sharded.matvec_many(np.stack([_x(m), _x(m, seed=1)]))
     sp = SpMV.from_coo(*_args(m), lane_width=8, device="cpu")
     assert sp.report().totals["launches"] == len(sp._run.tree.launches)
 

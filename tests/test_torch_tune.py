@@ -157,14 +157,20 @@ def test_segsum_validity_per_reduce():
 
 
 def test_shard_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="items 3.4 and 10"):
-        tspace.candidate_space(pseed.spmv_seed(), platform="cpu",
-                               shard_counts=(1, 2))
+    """The shard axis is ported and capped at the device count: on the one
+    CPU a count above 1 leaves the space unless the mesh is simulated, and
+    a ``cuda`` candidate is never sharded."""
+    assert all(c.shards == 1 for c in tspace.candidate_space(
+        pseed.spmv_seed(), platform="cpu", shard_counts=(1, 2)))
     rows, cols, vals, out_len, data_len = _coo(0)
-    with pytest.raises(NotImplementedError, match="items 3.4 and 10"):
-        _autotune_spmv(rows, cols, vals, out_len, data_len,
-                       shard_counts=(1, 2))
+    (_, _, result), _ = _autotune_spmv(rows, cols, vals, out_len,
+                                       data_len, shard_counts=(1, 2))
+    assert all(m.candidate.shards == 1 for m in result.measurements)
     assert not tspace.is_valid(Candidate(shards=2), pseed.spmv_seed(), "cpu")
+    assert tspace.is_valid(Candidate(shards=2), pseed.spmv_seed(), "cpu",
+                           devices=2)
+    assert not tspace.is_valid(Candidate(backend="cuda", shards=2),
+                               pseed.spmv_seed(), "cuda", devices=2)
 
 
 # ---------------------------------------------- cost model vs the reference
