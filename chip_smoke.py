@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving,
-the graph apps and concurrent query serving on the H100.
+"""On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving
+and training, the graph apps and concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -153,6 +153,31 @@ entry points of the three standalone kernels at real sizes, and fails
    resident sweep beside the single-device torch backend's, end-to-end ms
    per run and the peak memory of each run.
 
+13. LM training (``[train]``, run after ``[lm]``):
+   ``repro_torch.train.loop.Trainer.run()`` at the published widths, bf16
+   weights and ``synth_batch`` data from ``SEED``, ``remat="full"``, the
+   launcher's AdamW schedule (lr 3e-3, warmup ``steps // 10 + 1``), no
+   checkpoint inside the timed runs.  granite-3-2b whole (40 layers, 2.53
+   B parameters), batch 8, seq 512, 10 steps; qwen3-moe-235b-a22b at full
+   width cut to 1 of its 94 layers (3.73 B parameters, 44.7 GB with the
+   float32 moments), batch 4, seq 128 (one dispatch group of 512 tokens,
+   ``C = 40``), 6 steps.  Before its run the MoE model does one loss +
+   backward on the kernel path, every ``row_gather`` launch (forward,
+   recompute, backward: 6 a layer) held bitwise to the plain gather, then
+   the same on the plain gather: the losses bitwise, every gradient leaf
+   within ``TRAIN_GRAD_TOL``, every token row's embedding gradient and the
+   experts' gradients non-zero.  Each run: every loss finite, the last
+   below the first, the ``row_gather`` count 6 a layer and step (0 for
+   granite); prints each step's loss, the median step ms of steps 2 on
+   (host clock), tokens/s, ``6 N tokens`` per second as a share of the
+   bf16 dense peak, the peak memory above what earlier phases hold, a
+   profiled step, and ``row_gather`` at the backward of the dispatch
+   beside ``index_select``.  Resume: granite-3-2b at full width cut to 2
+   layers, 6 steps straight against 3 steps with an async checkpoint and
+   a fresh ``Trainer`` resumed to 6: parameters and moments bitwise equal
+   or within ``TRAIN_GRAD_TOL`` (the line says which), with the
+   checkpoint's bytes and its save and restore seconds.
+
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
 line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
@@ -166,6 +191,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -220,6 +246,19 @@ LM_CELLS = (
 )
 LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
 LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
+# the [train] phase: LM training through repro_torch.train.loop.Trainer at
+# the published widths, weights and data from SEED; "layers" cuts the depth
+TRAIN_CELLS = (
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=10),
+    dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=6),
+)
+TRAIN_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512,
+                    steps=6, first=3)
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
+# kernel-path vs plain-path gradients of one bf16 loss + backward: the
+# gathers are bitwise, but the token-id gather's backward (an index
+# accumulate) may sum in another order on the card, and bf16 keeps 8 bits
+TRAIN_GRAD_TOL = dict(rtol=2e-2, atol=2e-3)    # atol times the leaf's scale
 # the [shard] phase: simulated meshes (every shard on the one card) over the
 # pwtk analogue and the soc-Pokec analogue; shard counts per run
 SHARD = dict(spmv=(2, 4), spmm=4, tune=2, graph=4)
@@ -342,8 +381,8 @@ def profile_breakdown(fn, reps: int = 5):
                                / reps, e.count // reps) for e in top]
 
 
-def log_profile(tag: str, what: str, fn) -> None:
-    prof = profile_breakdown(fn)
+def log_profile(tag: str, what: str, fn, reps: int = 5) -> None:
+    prof = profile_breakdown(fn, reps)
     if prof is None:
         log(f"[profile] {tag} {what}: no device time recorded (not "
             "measured)")
@@ -1214,7 +1253,7 @@ class Smoke:
                                            s + steps - 1))
         if is_moe:
             for what, src, ids in gathers:
-                self.lm_gather_time(cfg, what, src, ids)
+                self.lm_gather_time(cfg, f"prefill {what}", src, ids)
         del model, cache, gathers
         torch.cuda.empty_cache()
 
@@ -1230,12 +1269,12 @@ class Smoke:
         nbytes = ids.numel() * 4 + (distinct + ids.numel()) * \
             src.shape[1] * src.element_size()
         bound_ms, _ = bound(nbytes)
-        log(f"[time] {self.tag} row_gather {cfg.name} prefill {what} "
+        log(f"[time] {self.tag} row_gather {cfg.name} {what} "
             f"({ids.numel()} rows of {tuple(src.shape)} {src.dtype}): "
             f"{ms:.4f} ms vs bound {bound_ms:.4f} ms ({nbytes} B), "
             f"{bound_ms / ms:.3f} of the bound; plain version "
             f"{plain_ms:.4f} ms; index_select (yardstick) {lib_ms:.4f} ms")
-        if what == "dispatch":
+        if what == "prefill dispatch":
             self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0, lib_ms)
 
     def lm_decode_check(self, cfg) -> None:
@@ -1272,6 +1311,239 @@ class Smoke:
             f"{', dropless' if cfg.family == 'moe' else ''}): max abs err "
             f"{err:.3e} within rtol {LM_TOL['rtol']}, atol {LM_TOL['atol']}")
         del model, cache, full
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- LM training
+    def train_config(self, spec):
+        from repro_torch.train import loop
+        from repro_torch.optim import adamw
+        return loop.TrainConfig(
+            steps=spec["steps"], batch=spec["batch"], seq=spec["seq"],
+            ckpt_every=spec["steps"] + 1, ckpt_dir=str(
+                ROOT / "build" / "train_ckpt" / spec["arch"]),
+            log_every=1, seed=SEED, opt=adamw.AdamWConfig(
+                lr=3e-3, warmup_steps=spec["steps"] // 10 + 1,
+                total_steps=spec["steps"]))   # the launcher's schedule
+
+    def train_phase(self) -> None:
+        """LM training at full width (see the module docstring, phase
+        13)."""
+        torch = self.torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        shutil.rmtree(ROOT / "build" / "train_ckpt", ignore_errors=True)
+        for spec in TRAIN_CELLS:
+            cfg = self.lm_config(spec)
+            if cfg.family == "moe":
+                self.train_gradients(cfg, spec)
+            self.train_run(cfg, spec)
+        self.train_resume(self.lm_config(TRAIN_RESUME))
+        shutil.rmtree(ROOT / "build" / "train_ckpt", ignore_errors=True)
+        log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
+
+    def train_batch(self, cfg, spec, step=0):
+        from repro_torch.data.pipeline import synth_batch
+        return {k: self.torch.as_tensor(v, device=self.dev)
+                for k, v in synth_batch(cfg, spec["batch"], spec["seq"],
+                                        step, SEED).items()}
+
+    def train_gradients(self, cfg, spec) -> None:
+        """One loss + backward on the kernel path, every row gather
+        (forward, recompute, backward) held bitwise to its plain version,
+        then the same on the plain row gather: losses bitwise, every
+        gradient leaf within ``TRAIN_GRAD_TOL``; the token rows' and the
+        experts' gradients non-zero."""
+        torch, RG = self.torch, self.RG
+        from repro_torch.models import lm
+        from repro_torch.models import moe as MOE
+        model, _ = self.lm_model(cfg)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        batch = self.train_batch(cfg, spec)
+        calls, backward = [0], []
+
+        def checked(src, ids, d_tile=512):
+            got = RG.row_gather(src, ids, d_tile)
+            calls[0] += 1
+            self.held("row_gather", got, RG.row_gather_plain(src, ids),
+                      f"{cfg.name} train {tuple(ids.shape)} of "
+                      f"{tuple(src.shape)}")
+            if torch._C._current_graph_task_id() != -1:  # in the backward
+                backward.append((src, ids))
+            return got
+
+        def loss_and_grads(gather):
+            MOE.row_gather = gather
+            try:
+                loss, _ = lm.loss_fn(model, cfg, batch)
+                loss.backward()
+            finally:
+                MOE.row_gather = RG.row_gather
+            grads = {k: p.grad for k, p in params.items()}
+            for p in params.values():
+                p.grad = None
+            return loss.detach(), grads
+
+        self.zero_counts()
+        loss, grads = loss_and_grads(checked)
+        counts = self.read_counts(main_path=False)
+        # a dispatch and a combine per layer in the forward, in the
+        # backward's recompute (remat "full") and as the backward's gathers
+        want = 6 * cfg.num_layers
+        check(counts["row_gather"] == calls[0] == want and
+              len(backward) == 4 * cfg.num_layers,
+              f"{cfg.name}: {counts['row_gather']} row gathers in a loss + "
+              f"backward ({len(backward)} during the backward), expected "
+              f"{want} ({4 * cfg.num_layers} during the backward)")
+        p_loss, p_grads = loss_and_grads(RG.row_gather_plain)
+        check(same_bits(loss, p_loss), f"{cfg.name}: the loss on the plain "
+              f"row gather differs ({float(loss)} vs {float(p_loss)})")
+        worst, bitwise = 0.0, 0
+        for k, g in grads.items():
+            w = p_grads[k].float()
+            scale = max(1.0, float(w.abs().max()))
+            err = float((g.float() - w).abs().max())
+            worst = max(worst, err / scale)
+            bitwise += same_bits(g, p_grads[k])
+            check(torch.allclose(g.float(), w, rtol=TRAIN_GRAD_TOL["rtol"],
+                                 atol=TRAIN_GRAD_TOL["atol"] * scale),
+                  f"{cfg.name}: gradient {k} on the kernel path differs from "
+                  f"the plain path's (max abs err {err}, scale {scale})")
+        rows = grads["embed"][batch["tokens"].long().unique()].float()
+        check(bool((rows.abs().amax(dim=1) > 0).all()),
+              f"{cfg.name}: a token row's embedding gradient is zero")
+        for k, g in grads.items():
+            if ".moe.w_" in k:
+                check(bool(g.abs().amax() > 0), f"{cfg.name}: {k} has a "
+                      "zero gradient on the kernel path")
+        log(f"[train] {cfg.name} loss + backward (batch {spec['batch']}, seq "
+            f"{spec['seq']}, remat {cfg.remat}): {calls[0]} row gathers "
+            f"({len(backward)} during the backward: its recompute's and its "
+            "own) each bitwise equal to the "
+            f"plain version; loss {float(loss):.6f} bitwise the plain path's; "
+            f"{bitwise} of {len(grads)} gradient leaves bitwise, the rest "
+            f"within rtol {TRAIN_GRAD_TOL['rtol']}, atol "
+            f"{TRAIN_GRAD_TOL['atol']} x scale (worst {worst:.3e} of the "
+            "scale); every token row's embedding gradient and the experts' "
+            "gradients non-zero")
+        src, ids = backward[-1]
+        del model, params, grads, p_grads, batch, rows
+        torch.cuda.empty_cache()
+        self.lm_gather_time(cfg, "train backward of the dispatch", src, ids)
+        del src, ids, backward
+        torch.cuda.empty_cache()
+
+    def train_run(self, cfg, spec) -> None:
+        """``Trainer.run()`` for ``spec["steps"]`` steps, the kernel counts
+        zeroed before and read after; then a profiled step."""
+        torch = self.torch
+        from repro_torch.train import loop
+        tc = self.train_config(spec)
+        base = torch.cuda.memory_allocated()    # held by earlier phases
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        out = loop.Trainer(cfg, tc, device=self.dev).run()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        model, metrics = out["params"], out["metrics"]
+        losses = [m["loss"] for m in metrics]
+        check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+              f"{cfg.name}: train losses {losses}")
+        check(losses[-1] < losses[0], f"{cfg.name}: the last loss "
+              f"{losses[-1]} is not below the first {losses[0]}")
+        per_step = 6 * cfg.num_layers if cfg.family == "moe" else 0
+        check(counts["row_gather"] == per_step * spec["steps"],
+              f"{cfg.name}: row_gather launched {counts['row_gather']} times "
+              f"in {spec['steps']} steps, expected {per_step} a step")
+        n = sum(p.numel() for p in model.parameters())
+        tokens = spec["batch"] * spec["seq"]
+        step_ms = statistics.median(m["step_time"] for m in metrics[1:]) * 1e3
+        flops = 6 * n * tokens
+        log(f"[train] {cfg.name} ({cfg.num_layers} layers, {n} parameters, "
+            f"remat {cfg.remat}) Trainer.run {spec['steps']} steps in "
+            f"{wall:.2f} s: losses {[round(x, 4) for x in losses]}; kernel "
+            f"launches { {k: c for k, c in counts.items() if c} } "
+            f"({per_step} row_gather a step)")
+        log(f"[time] {self.tag} {cfg.name} train batch {spec['batch']} seq "
+            f"{spec['seq']}: step {step_ms:.4f} ms (median of steps 2-"
+            f"{spec['steps']}, host clock), {tokens / step_ms * 1e3:.1f} "
+            f"tokens/s, 6 N tokens / step = {flops / step_ms * 1e3:.4e} "
+            f"FLOP/s = {flops / step_ms * 1e3 / BF16_OPS_PER_S:.4f} of the "
+            f"bf16 dense peak; first step {metrics[0]['step_time'] * 1e3:.1f} "
+            f"ms; peak memory {peak} B (above the {base} B held before)")
+        step_fn = loop.make_train_step(cfg, tc.opt)
+        batch = self.train_batch(cfg, spec, spec["steps"])
+        state = [out["opt"]]
+
+        def one_step():
+            state[0], _ = step_fn(model, state[0], batch)
+        log_profile(self.tag, f"{cfg.name} train step (batch "
+                    f"{spec['batch']}, seq {spec['seq']})", one_step, reps=2)
+        del out, model, state, batch
+        torch.cuda.empty_cache()
+
+    def train_resume(self, cfg) -> None:
+        """Run A: ``steps`` straight; run B: ``first`` steps with an async
+        checkpoint, then a fresh Trainer resumed to ``steps``: final
+        parameters and moments equal (bitwise, or within a tolerance)."""
+        torch = self.torch
+        from repro_torch.checkpoint import checkpoint as ck
+        from repro_torch.models import params as pr
+        from repro_torch.train import loop
+        spec = TRAIN_RESUME
+        root = ROOT / "build" / "train_ckpt"
+        tc = dataclasses.replace(self.train_config(spec), log_every=spec[
+            "steps"], ckpt_dir=str(root / "straight"))
+        self.zero_counts()
+        a = loop.Trainer(cfg, tc, device=self.dev).run()
+        b_dir = str(root / "resumed")
+        first = dataclasses.replace(tc, steps=spec["first"],
+                                    ckpt_every=spec["first"],
+                                    async_ckpt=True, ckpt_dir=b_dir)
+        b1 = loop.Trainer(cfg, first, device=self.dev).run()
+        check(ck.latest_step(b_dir) == spec["first"],
+              f"no checkpoint at step {spec['first']} in {b_dir}")
+        nbytes = sum(f.stat().st_size for f in (
+            Path(b_dir) / f"step_{spec['first']:08d}").iterdir())
+        t0 = time.perf_counter()
+        ck.save(str(root / "timed"), spec["first"],
+                loop.train_state(b1["params"], b1["opt"]), block=True)
+        write_s = time.perf_counter() - t0
+        skeleton = {"params": pr.stacked_map(lambda _: None, pr.stack_tree(
+            b1["params"].tree())), "opt": b1["opt"]}
+        t0 = time.perf_counter()
+        ck.restore(b_dir, spec["first"], skeleton)
+        restore_s = time.perf_counter() - t0
+        del b1
+        b = loop.Trainer(cfg, dataclasses.replace(tc, ckpt_dir=b_dir),
+                         device=self.dev).run()
+        self.read_counts()
+        check([m["step"] for m in b["metrics"]] ==
+              list(range(spec["first"], spec["steps"])),
+              f"the resumed run ran steps {[m['step'] for m in b['metrics']]}")
+        pairs = list(zip(a["params"].parameters(), b["params"].parameters()))
+        pairs += list(zip(pr.leaves_like(a["opt"], a["opt"]),
+                          pr.leaves_like(b["opt"], b["opt"])))
+        bitwise = all(same_bits(x, y) for x, y in pairs)
+        worst = 0.0
+        for x, y in pairs:
+            x, y = x.detach().float(), y.detach().float()
+            scale = max(1.0, float(x.abs().max()))
+            worst = max(worst, float((x - y).abs().max()) / scale)
+            check(bool(torch.allclose(x, y, rtol=TRAIN_GRAD_TOL["rtol"],
+                                      atol=TRAIN_GRAD_TOL["atol"] * scale)),
+                  "the resumed run's state differs from the straight run's")
+        log(f"[train] {cfg.name} ({cfg.num_layers} layers) resume: "
+            f"{spec['steps']} steps straight vs {spec['first']} + a fresh "
+            f"Trainer resumed to {spec['steps']}: parameters and moments "
+            f"{'bitwise equal' if bitwise else 'NOT bitwise equal'} (worst "
+            f"{worst:.3e} of the scale, within rtol {TRAIN_GRAD_TOL['rtol']}"
+            f", atol {TRAIN_GRAD_TOL['atol']} x scale); checkpoint {nbytes} "
+            f"B, a blocking save {write_s:.2f} s, restore {restore_s:.2f} s "
+            f"(msgpack{', zstd' if ck._zstd is not None else ', raw'})")
+        del a, b
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------- graph apps
@@ -2211,6 +2483,7 @@ class Smoke:
         self.gather_vload_phase()
         self.row_gather_phase()
         self.lm_phase()
+        self.train_phase()
         self.graph_phase()
         self.serve_phase()
         self.tune_phase()

@@ -3,9 +3,10 @@
 Every assigned architecture gets one ``configs/<id>.py`` exporting
 ``CONFIG`` (the exact published shape); ``CONFIG.reduced()`` is the same
 family at smoke-test scale.  A copy of the JAX package's
-``configs/base.py`` with torch dtypes.  ``remat`` and ``scan_layers`` are
-accepted and have no effect here: the port loops over its layers in
-Python and does not train yet.
+``configs/base.py`` with torch dtypes.  ``remat`` selects the activation
+checkpointing of a training forward (``models/lm.py``); ``scan_layers``
+is accepted and has no effect here: the port loops over its layers in
+Python.
 """
 from __future__ import annotations
 

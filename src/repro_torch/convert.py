@@ -21,7 +21,10 @@ The seed is the port's own (a ``CodeSeed`` with torch combines), passed
 beside the fields.
 
 Model weights cross the same way, as a nested dict of numpy arrays in the
-JAX package's parameter tree (``lm_params_from_numpy``).
+JAX package's parameter tree (``lm_params_from_numpy``), and back
+(``lm_params_to_numpy``).  The reference stacks every layer leaf on a
+leading axis; :func:`host_stacked` builds that layout from the port's
+per-layer tensors on the host, for the checkpoints too.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.core.plan import BlockPlan, PatternClass, PlanStats
 from repro_torch.core.seed import CodeSeed
+from repro_torch.models import params as pr
 
 _SCALARS = ("lane_width", "nnz", "out_len", "data_len", "num_blocks")
 # field -> (dtype kinds accepted, lanes per block: None = (B, L) free width)
@@ -108,10 +112,54 @@ def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
     exists."""
     from repro_torch.core.engine import resolve_device
     from repro_torch.models import lm
-    from repro_torch.models.params import tree_map
     dev = resolve_device(device)
-    values = tree_map(lambda a: _tensor(a, dev), dict(tree))
+    values = pr.tree_map(lambda a: _tensor(a, dev), dict(tree))
     stacked = values["layers"]
-    values["layers"] = [tree_map(lambda t, i=i: t[i], stacked)
+    values["layers"] = [pr.tree_map(lambda t, i=i: t[i], stacked)
                         for i in range(cfg.num_layers)]
     return lm.LM(cfg, values)
+
+
+def host_stacked(stree) -> dict:
+    """A tree in :func:`repro_torch.models.params.stack_tree`'s structure
+    as new host tensors, each layer leaf stacked on a leading axis: every
+    layer is copied from its device into its slice of one host tensor, so
+    nothing is stacked on the device."""
+    def one(leaf):
+        if not isinstance(leaf, list):
+            return leaf.detach().to("cpu", copy=True)
+        out = torch.empty(pr.stacked_shape(leaf), dtype=leaf[0].dtype)
+        for i, t in enumerate(leaf):
+            out[i].copy_(t.detach())
+        return out
+    return pr.stacked_map(one, stree)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the model's weights
+    as the JAX package's parameter tree of numpy arrays, layer leaves
+    stacked (bfloat16 leaves as ``ml_dtypes.bfloat16``, which needs that
+    package)."""
+    return pr.stacked_map(_numpy, host_stacked(pr.stack_tree(model.tree())))
+
+
+@torch.no_grad()
+def load_stacked(model, stree) -> None:
+    """Copy a tree in the reference's stacked layout (tensors on any
+    device, as :func:`host_stacked` or a checkpoint gives them) into the
+    model's parameters, in place."""
+    mine = pr.stack_tree(model.tree())
+    for dst, src in zip(pr.leaves_like(mine, mine),
+                        pr.leaves_like(mine, stree)):
+        if isinstance(dst, list):
+            for i, t in enumerate(dst):
+                t.copy_(src[i])
+        else:
+            dst.copy_(src)

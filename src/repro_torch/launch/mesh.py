@@ -14,8 +14,8 @@ all ``k`` shards on one device (the counterpart of
 ``make_shard_mesh(k, device=..., simulate=True)`` builds one, and nothing
 else repeats a device.
 
-``make_production_mesh`` (the 256/512-chip LM mesh) waits for LM training
-(``ROADMAP.md`` queue 1, item 14).
+``make_production_mesh`` (the 256/512-chip LM mesh) waits for a
+multi-card machine (``ROADMAP.md`` queue 1, item 20).
 """
 from __future__ import annotations
 

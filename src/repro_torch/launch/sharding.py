@@ -2,8 +2,8 @@
 
 A port of ``row_sharding`` from the JAX package's ``launch/sharding.py``.
 The LM's logical-axis rules (``Shd``, ``default_rules``,
-``batch_sharding``) wait for LM training and the vocab-sharded embedding
-(``ROADMAP.md`` queue 1, items 14 and 19).
+``batch_sharding``) wait for data-parallel training and the vocab-sharded
+embedding (``ROADMAP.md`` queue 1, item 19).
 """
 from __future__ import annotations
 

@@ -1,20 +1,26 @@
-"""Top-level language model: init / forward / decode for the ``dense`` and
-``moe`` families (the JAX package's ``models/lm.py``).
+"""Top-level language model: init / forward / loss / decode for the
+``dense`` and ``moe`` families (the JAX package's ``models/lm.py``).
 
 The reference scans its layers over parameters stacked on a leading
 "layers" axis; the port keeps one :class:`~repro_torch.models.blocks.
 DenseLayer` per layer in an ``nn.ModuleList`` and loops over them in
 Python, reading each layer's kind (gemma3's 5:1 local:global) on the host.
-The ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families raise, citing
-their ROADMAP item; ``loss_fn`` waits for the training slice (item 14).
+Under autograd each layer runs under ``cfg.remat``, as the reference's
+``_remat`` wraps its scan body: ``"full"`` recomputes the whole layer in
+the backward, ``"dots"`` keeps the matrix products' outputs and
+recomputes the rest, ``"none"`` keeps everything.  The ``ssm``,
+``hybrid``, ``encdec`` and ``vlm`` families raise, citing their ROADMAP
+item.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
@@ -57,19 +63,45 @@ def check_family(cfg) -> None:
         raise not_ported(cfg.family)
 
 
+# the matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` under the config's activation checkpointing, where autograd
+    records (a forward without gradients runs ``fn`` as it is)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r} is not full, dots or none")
+
+
 # --------------------------------------------------------------------- model
 class LM(nn.Module):
     """The model's parameters: ``embed`` (V, D), ``final_norm``, ``layers``
     (one :class:`~repro_torch.models.blocks.DenseLayer` each) and, untied,
     ``lm_head`` (D, V)."""
 
-    def __init__(self, cfg, values: Mapping):
+    def __init__(self, cfg, values: Mapping, axes: Mapping | None = None):
         super().__init__()
         check_family(cfg)
         if len(values["layers"]) != cfg.num_layers:
             raise ValueError(f"{len(values['layers'])} layers given, "
                              f"{cfg.name} has {cfg.num_layers}")
         self.cfg = cfg
+        self.axes = axes     # logical axes, stacked layout (None if unknown)
         self.embed = nn.Parameter(values["embed"], requires_grad=False)
         self.final_norm = pr.Tree(values["final_norm"])
         self.layers = nn.ModuleList(B.DenseLayer(v)
@@ -83,6 +115,15 @@ class LM(nn.Module):
 
     def forward(self, batch):
         return forward(self, self.cfg, batch)
+
+    def tree(self) -> dict:
+        """The parameters as the values tree the model was built from
+        (``"layers"`` a list of per-layer trees; no copy)."""
+        out = {"embed": self.embed, "final_norm": self.final_norm.tree(),
+               "layers": [layer.tree() for layer in self.layers]}
+        if not self.cfg.tie_embeddings:
+            out["lm_head"] = self.lm_head
+        return out
 
 
 def init_model(cfg, *, generator: torch.Generator | None = None,
@@ -107,8 +148,10 @@ def init_model(cfg, *, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         ptree["lm_head"] = pr.normal(g, (cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"), pdt)
-    values, _ = pr.split_ptree(ptree)
-    return LM(cfg, values)
+    values, axes = pr.split_ptree(ptree)
+    axes["layers"] = pr.tree_map(lambda a: ("layers",) + a,
+                                 axes["layers"][0])
+    return LM(cfg, values, axes)
 
 
 # ------------------------------------------------------------------ forward
@@ -142,12 +185,44 @@ def forward(p, cfg, batch):
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
     for layer, kind in zip(p["layers"], layer_kinds(cfg)):
-        x, aux_i = layer(x, cfg=cfg, kind_flag=int(kind),
-                         positions=positions)
+        x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
+                                      positions=positions)
         for k, v in aux_i.items():
             aux[k] = aux[k] + v
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, cfg, x), aux
+
+
+# --------------------------------------------------------------------- loss
+def loss_fn(p, cfg, batch, z_loss: float = 1e-4,
+            moe_loss_weight: float = 1e-2):
+    """Next-token cross entropy over ``batch["labels"]`` (masked by
+    ``loss_mask`` where given) plus the z-loss and, for MoE, the
+    load-balance loss -> (total, metrics).  ``ll`` is read with
+    ``torch.gather`` on the labels, equal to the reference's one-hot
+    product without a second (B, S, V) float32 tensor.  The metrics are
+    detached."""
+    logits, aux = forward(p, cfg, batch)
+    labels = batch["labels"]
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    zl = z_loss * ((lse ** 2) * mask).sum() / denom
+    total = loss + zl
+    metrics = {"nll": loss, "z_loss": zl}
+    if cfg.family == "moe":
+        moe_l = moe_loss_weight * aux["moe_aux_loss"] / cfg.num_layers
+        total = total + moe_l
+        metrics["moe_aux"] = aux["moe_aux_loss"] / cfg.num_layers
+        metrics["moe_dropped"] = aux["moe_dropped_frac"] / cfg.num_layers
+    metrics["loss"] = total
+    return total, {k: v.detach() for k, v in metrics.items()}
 
 
 # ------------------------------------------------------------------- decode

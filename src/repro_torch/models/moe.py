@@ -25,10 +25,26 @@ single-device serving path (its ``moe`` itself uses XLA scatter/gather):
   the choice axis.
 
 Both gathers are exact copies, so the buffer and the gathered rows are
-bitwise those of any other row copy on the same routing.  No float
-``index_add_`` / ``scatter_add_``: on the card those use atomics and would
-make runs differ bitwise.  For CPU tensors the row gather runs its plain
-version; on the card it launches the kernel or raises.
+bitwise those of any other row copy on the same routing.  For CPU tensors
+the row gather runs its plain version; on the card it launches the kernel
+or raises.
+
+**Backward: a row gather through the inverse map.**  The kernel writes
+into a tensor autograd does not see, so both gathers go through
+:class:`RowGather`, whose backward is again a row gather, on the same
+kernel, of the incoming gradient (with a zero row appended) through the
+inverse index map, then a sum over the ``fan`` rows each source row was
+copied to, in a fixed order (choice ``j`` ascending):
+
+* dispatch (``fan = k``): token ``t``'s gradient sums the buffer gradient
+  at the slots of its ``k`` entries, read in (token, choice) order through
+  the combine's map (the zero row for an entry past capacity);
+* combine (``fan = 1``): slot ``s``'s gradient is the gradient of the one
+  entry it fills (the zero row where no entry fills it).
+
+No float ``index_add_`` / ``scatter_add_`` runs forward or backward: on
+the card those use atomics and would make runs differ bitwise.  The
+gradient with respect to the gates flows through ``rows * gates``.
 """
 from __future__ import annotations
 
@@ -87,22 +103,58 @@ def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
 
 
-def _dispatch(xg, slot, tok, e: int, c: int):
+class RowGather(torch.autograd.Function):
+    """``row_gather(src + zero row, ids)`` (R, D) whose gradient is
+    ``row_gather(grad + zero row, back_ids)`` (T * fan, D) summed over
+    groups of ``fan`` consecutive rows (``back_ids`` lists, for each row
+    of ``src``, the ``fan`` output rows copied from it, or R where
+    none)."""
+
+    @staticmethod
+    def forward(ctx, src, ids, back_ids, fan: int):
+        ctx.save_for_backward(back_ids)
+        ctx.fan = fan
+        return row_gather(_with_zero_row(src), ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back_ids, = ctx.saved_tensors
+        rows = row_gather(_with_zero_row(grad), back_ids)
+        rows = rows.view(-1, ctx.fan, rows.shape[1])
+        out = rows[:, 0]
+        for j in range(1, ctx.fan):
+            out = out + rows[:, j]
+        return out, None, None, None
+
+
+def _entry_slots(slot, order):
+    """Each entry's slot (``e*c`` past capacity) in (token, choice)
+    order."""
+    return torch.empty_like(slot).scatter_(0, order, slot)
+
+
+def _dispatch(xg, slot, tok, order, e: int, c: int):
     """(Tg, D) token rows -> (E*C, D) dispatch buffer via one row gather."""
     tg = xg.shape[0]
     # slot e*c collects every dropped entry and is cut off
     slot_src = torch.full((e * c + 1,), tg, dtype=torch.int32,
                           device=xg.device)
     slot_src.scatter_(0, slot.long(), tok)
-    return row_gather(_with_zero_row(xg), slot_src[:e * c])
+    return RowGather.apply(xg, slot_src[:e * c], _entry_slots(slot, order),
+                           slot.numel() // tg)
 
 
 def _combine(flat, slot, order, gates):
     """(E*C, D) expert outputs -> (Tg, D): each token's k rows, gathered in
     (token, choice) order by one row gather, weighted and summed."""
     tg, k = gates.shape
-    ids = torch.empty_like(slot).scatter_(0, order, slot)
-    rows = row_gather(_with_zero_row(flat), ids).view(tg, k, -1)
+    ec = flat.shape[0]
+    # the entry filling each slot (the dropped entries' slot ec is cut off)
+    slot_entry = torch.full((ec + 1,), tg * k, dtype=torch.int32,
+                            device=flat.device)
+    slot_entry.scatter_(0, slot.long(), order.to(torch.int32))
+    rows = RowGather.apply(flat, _entry_slots(slot, order), slot_entry[:ec],
+                           1).view(tg, k, -1)
     return (rows * gates.to(flat.dtype)[..., None]).sum(dim=1)
 
 
@@ -128,7 +180,7 @@ def moe(p, x: torch.Tensor, cfg, group_size: int | None = None):
     ys, kept = [], []
     for gi in range(g):
         slot, tok, order, valid = _dispatch_indices(eidx[gi], k, e, c)
-        disp = _dispatch(xf[gi], slot, tok, e, c).view(e, c, d)
+        disp = _dispatch(xf[gi], slot, tok, order, e, c).view(e, c, d)
         # expert FFN (dense over the expert dim)
         h = F.silu(torch.einsum("ecd,edf->ecf", disp, wg)) * \
             torch.einsum("ecd,edf->ecf", disp, wu)

@@ -10,9 +10,18 @@ streams are not those of ``jax.random`` (weights cross from the JAX
 package only through :func:`repro_torch.convert.lm_params_from_numpy`).
 
 :class:`Tree` turns a value tree into an ``nn.Module``: dict nodes become
-child modules, tensor leaves parameters (frozen: the port serves and does
-not train yet), and ``p["name"]`` reads either, so the layer functions
-take a module or a plain dict of tensors alike.
+child modules, tensor leaves parameters, and ``p["name"]`` reads either,
+so the layer functions take a module or a plain dict of tensors alike.
+The parameters are created frozen, so serving builds no autograd graph;
+training unfreezes them (``model.requires_grad_(True)``, done by
+:mod:`repro_torch.train.loop`).
+
+The port keeps one module per layer, where the JAX package stacks every
+layer leaf on a leading "layers" axis.  :func:`stack_tree` gives a
+parameter tree the reference's stacked *structure* without copying: a
+layer leaf becomes the list of its per-layer tensors, in layer order.
+The optimizer state and the checkpoints use that structure, so their
+paths and shapes are the reference's.
 """
 from __future__ import annotations
 
@@ -36,14 +45,59 @@ class P:
                 f"{getattr(self.value, 'shape', None)}")
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` on every leaf of a tree of dicts and lists (one entry per
-    layer)."""
+    layer), and on the leaves at the same places of the trees ``rest``."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def stack_tree(tree):
+    """A parameter tree (``"layers"`` a list of per-layer trees) in the
+    JAX package's stacked structure: each layer leaf becomes the list of
+    its per-layer tensors; other leaves stay tensors.  Nothing is
+    copied."""
+    if isinstance(tree, Mapping):
+        return {k: stack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _zip_layers([stack_tree(t) for t in tree])
+    return tree
+
+
+def _zip_layers(trees):
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _zip_layers([t[k] for t in trees]) for k in first}
+    return list(trees)
+
+
+def stacked_shape(leaf) -> tuple:
+    """The shape of a leaf of :func:`stack_tree`'s structure: a list of
+    ``L`` layer tensors is ``(L, *shape)``."""
+    if isinstance(leaf, list):
+        return (len(leaf), *leaf[0].shape)
+    return tuple(leaf.shape)
+
+
+def stacked_map(fn, tree):
+    """``fn`` on every leaf of a stacked-structure tree (lists are
+    leaves)."""
+    if isinstance(tree, Mapping):
+        return {k: stacked_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def leaves_like(ref, tree) -> list:
+    """The nodes of ``tree`` at the leaves of the stacked-structure tree
+    ``ref``, keys sorted (the order of ``jax.tree.leaves``)."""
+    if isinstance(ref, Mapping):
+        return [x for k in sorted(ref) for x in leaves_like(ref[k], tree[k])]
+    return [tree]
 
 
 def split_ptree(ptree):
@@ -89,3 +143,10 @@ class Tree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def tree(self) -> dict:
+        """The parameters as a plain tree of dicts (no copy)."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update((name, child.tree())
+                   for name, child in self.named_children())
+        return out

@@ -984,3 +984,121 @@ def test_sharded_spmv_on_a_real_mesh():
     got = SpMV.from_coo(m.rows, m.cols, vals, m.shape, lane_width=32,
                         mesh=mesh, device=dev).matvec(xd)
     assert got.device == dev and torch.equal(_bits(got), _bits(single))
+
+
+# ----------------------------------------------------------- LM training
+def _moe_case(dev, dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-235b-a22b").reduced().replace(
+        param_dtype=dtype, compute_dtype=dtype, moe_group_size=40,
+        capacity_factor=0.5)                   # 40 slots for 80 entries
+    gen = torch.Generator(dev).manual_seed(1)
+    p = {k: v.value.requires_grad_(True)
+         for k, v in moe.init_moe(gen, cfg).items()}
+    x = torch.randn((4, 40, cfg.d_model), generator=gen, device=dev,
+                    dtype=dtype, requires_grad=True)
+    cot = torch.randn((4, 40, cfg.d_model), generator=gen, device=dev,
+                      dtype=dtype)
+    return cfg, p, x, cot
+
+
+def _moe_grads(moe, cfg, p, x, cot):
+    for t in [x, *p.values()]:
+        t.grad = None
+    y, aux = moe.moe(p, x, cfg)
+    ((y.float() * cot.float()).sum() + aux["moe_aux_loss"]).backward()
+    return [y.detach(), x.grad] + [p[k].grad for k in sorted(p)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_row_gather_backward_bitwise_on_card(dtype, monkeypatch):
+    """The MoE layer's forward and backward on the card: every row gather
+    (two forward and two backward launches per group) is bitwise the
+    plain gather on the same operands, and the output and every gradient
+    are bitwise those of the same layer on the plain row gather."""
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg, p, x, cot = _moe_case(dev, dtype)
+    calls = []
+
+    def checked(src, ids, d_tile=512):
+        got = RG.row_gather(src, ids, d_tile)
+        assert torch.equal(_bits(got), _bits(RG.row_gather_plain(src, ids)))
+        calls.append(tuple(ids.shape))
+        return got
+
+    monkeypatch.setattr(moe, "row_gather", checked)
+    RG.row_gather.launches = 0
+    got = _moe_grads(moe, cfg, p, x, cot)
+    torch.cuda.synchronize()
+    assert RG.row_gather.launches == len(calls) == 4 * 4   # 4 groups
+    monkeypatch.setattr(moe, "row_gather", RG.row_gather_plain)
+    want = _moe_grads(moe, cfg, p, x, cot)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert float(x.grad.abs().sum()) > 0
+
+
+def _train_step_on(dev, cfg, model, batch):
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    model = model.to(dev)
+    state = adamw.init(model.tree(), opt)
+    state, metrics = loop.make_train_step(cfg, opt)(
+        model, state, {k: torch.as_tensor(v, device=dev)
+                       for k, v in batch.items()})
+    return model, metrics
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_train_step_on_card_matches_cpu(arch):
+    """One float32 train step of a reduced model on the card and on the
+    CPU from the same weights and batch.  The loss and the gradient norm
+    agree at ``rtol=1e-4`` (float32 sums in other orders); every weight
+    after the update within ``2.5 lr`` plus that tolerance (AdamW's first
+    step moves a weight by about ``lr`` whatever its gradient's size, so a
+    near-zero gradient whose sign differs moves it by ``2 lr``)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import lm
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    batch = synth_batch(cfg, 4, 16, step=0)
+    card, got = _train_step_on(dev, cfg, copy.deepcopy(model), batch)
+    cpu, want = _train_step_on(torch.device("cpu"), cfg, model, batch)
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4,
+                                   err_msg=k)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        scale = max(1.0, float(b.detach().abs().max()))
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-4,
+                                   atol=2.5e-3 + 1e-5 * scale)
+
+
+@pytest.mark.parametrize("block", [True, False])
+def test_checkpoint_round_trip_of_card_tensors(block, tmp_path):
+    from repro_torch.checkpoint import checkpoint as ck
+    dev = _cuda()
+    gen = torch.Generator(dev).manual_seed(0)
+    tree = {"w": torch.randn((64, 33), generator=gen, device=dev),
+            "b": torch.randn(100, generator=gen, device=dev).to(
+                torch.bfloat16),
+            "opt": {"step": torch.tensor(7, dtype=torch.int32, device=dev),
+                    "q": torch.arange(-5, 5, dtype=torch.int8, device=dev)}}
+    want = {k: v.clone() for k, v in ck._flatten(tree).items()}
+    th = ck.save(str(tmp_path), 9, tree, block=block)
+    for t in ck._flatten(tree).values():   # in place at once: not torn
+        t.zero_()
+    if th is not None:
+        th.join(timeout=60)
+    back = ck.restore(str(tmp_path), 9, tree, shardings=dev)
+    for k, v in ck._flatten(back).items():
+        assert v.device == dev and v.dtype == want[k].dtype
+        assert torch.equal(_bits(v), _bits(want[k])), k

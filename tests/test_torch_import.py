@@ -52,6 +52,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
             "import repro_torch.configs, repro_torch.models.lm\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
+            "import repro_torch.checkpoint.checkpoint\n"
+            "import repro_torch.data.pipeline, repro_torch.train.loop\n"
+            "import repro_torch.launch.train\n"
             "for a in repro_torch.configs.ARCHS:\n"
             "    repro_torch.configs.get_config(a)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -145,6 +149,26 @@ def test_lm_launcher_default_device_raises_without_cuda(arch, capsys):
     assert "[serve]" not in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_model(get_config(arch).reduced())
+
+
+def test_training_default_device_raises_without_cuda(tmp_path, capsys):
+    """``Trainer``, its data iterator and ``python -m
+    repro_torch.launch.train`` ask for CUDA unless given the CPU, and
+    raise before they build a model."""
+    _no_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.launch import train
+    from repro_torch.train.loop import TrainConfig, Trainer
+    cfg = get_config("granite-3-2b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(steps=1, ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataIterator(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert "[train]" not in capsys.readouterr().out
+    assert not list(tmp_path.iterdir())
 
 
 def test_kernel_wrappers_never_take_the_plain_path_on_other_devices():

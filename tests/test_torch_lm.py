@@ -286,8 +286,9 @@ def test_dispatch_buffer_bitwise_reference_scatter(name, c):
     slot, tok, _, _ = rmoe._dispatch_indices(jnp.asarray(eidx), k, e, c)
     want = jnp.zeros((e * c + 1, 16), jnp.float32).at[slot].set(
         jnp.asarray(xg)[tok], mode="drop")[:e * c]
-    pslot, ptok, _, _ = moe._dispatch_indices(torch.as_tensor(eidx), k, e, c)
-    got = moe._dispatch(torch.as_tensor(xg), pslot, ptok, e, c)
+    pslot, ptok, porder, _ = moe._dispatch_indices(torch.as_tensor(eidx), k,
+                                                   e, c)
+    got = moe._dispatch(torch.as_tensor(xg), pslot, ptok, porder, e, c)
     assert got.numpy().tobytes() == np.asarray(want).tobytes()
 
 
