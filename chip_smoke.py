@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving
-and training, the graph apps and concurrent query serving on the H100.
+and training (dense, MoE and the recurrent rwkv6 and zamba2 families),
+the graph apps and concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -43,21 +44,29 @@ entry points of the three standalone kernels at real sizes, and fails
    ``gather_vload`` cases (the fused section at ``D`` 1 and 16 in f32, and
    16 in bf16) are also held bitwise to their plain version and to
    ``torch.take``;
-6. LM serving (``[lm]``): ``repro_torch.serve.engine.generate`` (greedy)
-   on granite-3-2b, whole (40 layers, 2.53 B parameters), batch 4, prompt
-   128, 32 steps, and on qwen3-moe-235b-a22b at full width cut to 4 of its
-   94 layers (128 experts, top 8), batch 4, prompt 128, 16 steps; bf16
-   weights drawn from ``SEED``.  The MoE layers' dispatch and combine run
-   on the ``row_gather`` kernel: its launches in the run (two per MoE layer
-   and forward) are counted, every one is held bitwise to the plain
+6. LM serving (``[lm]``): ``repro_torch.serve.engine.generate`` (greedy) on
+   granite-3-2b, whole (40 layers, 2.53 B parameters), batch 4, prompt 128,
+   32 steps, on qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers
+   (128 experts, top 8), batch 4, prompt 128, 16 steps, and on rwkv6-3b (32
+   layers, 2.70 B parameters, 4 WKV chunks of 32 in the prefill) and
+   zamba2-1.2b (38 Mamba2 layers and the weight-tied attention block after
+   every 6th; 1.10 B parameters), each whole, batch 4, prompt 128, 32
+   steps; bf16 weights drawn from ``SEED``; the recurrent models' parameter
+   counts must equal the reference's.  The MoE layers' dispatch and combine
+   run on the ``row_gather`` kernel: its launches in the run (two per MoE
+   layer and forward) are counted, every one is held bitwise to the plain
    version on the same rows, and the whole run repeated on the plain row
    gather gives bitwise the same tokens, final logits and cache.  Prints
    prefill ms, decode ms per step, tokens/s and peak memory, a profiler
-   breakdown of a prefill and a decode step, and ``row_gather`` at the
-   prefill's dispatch and combine beside ``index_select``.  Then, in
-   float32, decode == forward for each model (prompt 8, 4 decoded tokens,
-   batch 2; the MoE dropless, ``capacity_factor`` = experts) at
-   ``tests/test_serve.py``'s ``rtol=2e-2, atol=2e-3``;
+   breakdown of a prefill and a decode step (device busy, idle share,
+   kernel launches, top kernels), and ``row_gather`` at the prefill's
+   dispatch and combine beside ``index_select``.  Then, in float32, decode
+   == forward for each model (prompt 8, 4 decoded tokens, batch 2; the MoE
+   dropless, ``capacity_factor`` = experts) at ``tests/test_serve.py``'s
+   ``rtol=2e-2, atol=2e-3``; zamba2's over all 38 layers (the 2 after the
+   last shared block included): in float64 on the same weights at that
+   rule, and in float32 (decode == forward, and each against the float64
+   forward) at twice it, ``HYBRID_DECODE_TOL``;
 7. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
    ``ConnectedComponents`` (on the symmetrized edges) and ``PageRank`` (20
    iterations, damping 0.85) through ``from_edges(..., backend="cuda",
@@ -78,8 +87,8 @@ entry points of the three standalone kernels at real sizes, and fails
 8. serving: ``repro_torch.serve.query.QueryEngine`` over three endpoints,
    all ``backend="cuda"``, ``lane_width=128``, ``fused=True``, reusing the
    graph phase's BFS and SSSP apps and the pwtk ``coalesce=True`` SpMV (so
-   BFS and SSSP run the window kernel, SpMV the dense-slice one): 64 BFS and
-   32 SSSP requests (sources drawn with ``SEED``, ``max_batch`` 8) and 256
+   BFS and SSSP run the window kernel, SpMV the dense-slice one): 32 BFS and
+   16 SSSP requests (sources drawn with ``SEED``, ``max_batch`` 8) and 256
    float32 SpMV vectors (``max_batch`` 32), each from 4 client threads after
    ``warmup``, all submitted at once (a saturation burst).  Every request
    served (no shed, deadline or other error), the breaker closed, the
@@ -157,26 +166,29 @@ entry points of the three standalone kernels at real sizes, and fails
    ``repro_torch.train.loop.Trainer.run()`` at the published widths, bf16
    weights and ``synth_batch`` data from ``SEED``, ``remat="full"``, the
    launcher's AdamW schedule (lr 3e-3, warmup ``steps // 10 + 1``), no
-   checkpoint inside the timed runs.  granite-3-2b whole (40 layers, 2.53
-   B parameters), batch 8, seq 512, 10 steps; qwen3-moe-235b-a22b at full
+   checkpoint inside the timed runs.  granite-3-2b whole (40 layers, 2.53 B
+   parameters), batch 8, seq 512, 6 steps; qwen3-moe-235b-a22b at full
    width cut to 1 of its 94 layers (3.73 B parameters, 44.7 GB with the
    float32 moments), batch 4, seq 128 (one dispatch group of 512 tokens,
-   ``C = 40``), 6 steps.  Before its run the MoE model does one loss +
-   backward on the kernel path, every ``row_gather`` launch (forward,
-   recompute, backward: 6 a layer) held bitwise to the plain gather, then
-   the same on the plain gather: the losses bitwise, every gradient leaf
-   within ``TRAIN_GRAD_TOL``, every token row's embedding gradient and the
-   experts' gradients non-zero.  Each run: every loss finite, the last
-   below the first, the ``row_gather`` count 6 a layer and step (0 for
-   granite); prints each step's loss, the median step ms of steps 2 on
-   (host clock), tokens/s, ``6 N tokens`` per second as a share of the
-   bf16 dense peak, the peak memory above what earlier phases hold, a
-   profiled step, and ``row_gather`` at the backward of the dispatch
-   beside ``index_select``.  Resume: granite-3-2b at full width cut to 2
-   layers, 6 steps straight against 3 steps with an async checkpoint and
-   a fresh ``Trainer`` resumed to 6: parameters and moments bitwise equal
-   or within ``TRAIN_GRAD_TOL`` (the line says which), with the
-   checkpoint's bytes and its save and restore seconds.
+   ``C = 40``), 6 steps; zamba2-1.2b whole, batch 8, seq 512 (two SSD
+   chunks of 256), 6 steps; rwkv6-3b whole, batch 4, seq 256 (eight WKV
+   chunks of 32; ~34 GB with the float32 moments), 6 steps.  Before its run
+   the MoE model does one loss + backward on the kernel path, every
+   ``row_gather`` launch (forward, recompute, backward: 6 a layer) held
+   bitwise to the plain gather, then the same on the plain gather: the
+   losses bitwise, every gradient leaf within ``TRAIN_GRAD_TOL``, every
+   token row's embedding gradient and the experts' gradients non-zero.
+   Each run: every loss finite, the last below the first, the
+   ``row_gather`` count 6 a layer and step (0 for the dense and recurrent
+   models); prints each step's loss, the median step ms of steps 2 on (host
+   clock), tokens/s, ``6 N tokens`` per second as a share of the bf16 dense
+   peak, the peak memory above what earlier phases hold, a profiled step,
+   and ``row_gather`` at the backward of the dispatch beside
+   ``index_select``.  Resume: granite-3-2b at full width cut to 2 layers, 6
+   steps straight against 3 steps with an async checkpoint and a fresh
+   ``Trainer`` resumed to 6: parameters and moments bitwise equal or within
+   ``TRAIN_GRAD_TOL`` (the line says which), with the checkpoint's bytes
+   and its save and restore seconds.
 
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
@@ -228,8 +240,8 @@ GRAPH_S = 8                    # sources of the run_multi runs (D = 8)
 PAGERANK_ITERS = 20
 # the [serve] phase: concurrent queries through repro_torch.serve.query over
 # the graph phase's BFS / SSSP apps and the pwtk coalesce=True SpMV
-SERVE = {"bfs": dict(requests=64, threads=4, max_batch=8),
-         "sssp": dict(requests=32, threads=4, max_batch=8),
+SERVE = {"bfs": dict(requests=32, threads=4, max_batch=8),
+         "sssp": dict(requests=16, threads=4, max_batch=8),
          "spmv": dict(requests=256, threads=4, max_batch=32)}
 SERVE_BUCKET_S = 9             # matvec_many S of the bucket=True/False timing
 # the launcher's child run: the webbase-1M analogue's generator and size
@@ -243,14 +255,27 @@ LM_CELLS = (
     dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=32),
     dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
          steps=16),
+    dict(arch="rwkv6-3b", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="zamba2-1.2b", layers=None, batch=4, prompt=128, steps=32),
 )
+# the JAX package's parameter count of each whole model of the recurrent
+# cells (jax.eval_shape of its init_model at the published config)
+REFERENCE_PARAMS = {"rwkv6-3b": 2695825920, "zamba2-1.2b": 1104937856}
 LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
 LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
+# zamba2's float32 readings (Smoke.hybrid_decode_check): at full width its
+# float32 forward alone lies 1.047 of LM_TOL's bound from the float64
+# forward of the same weights (H100, PERF.md), so float32 decode and
+# forward, each that far from it, are held at twice LM_TOL
+HYBRID_DECODE_TOL = dict(rtol=2 * LM_TOL["rtol"], atol=2 * LM_TOL["atol"])
 # the [train] phase: LM training through repro_torch.train.loop.Trainer at
 # the published widths, weights and data from SEED; "layers" cuts the depth
 TRAIN_CELLS = (
-    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=10),
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=6),
     dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=6),
+    # two SSD chunks of 256 a layer; eight WKV chunks of 32
+    dict(arch="zamba2-1.2b", layers=None, batch=8, seq=512, steps=6),
+    dict(arch="rwkv6-3b", layers=None, batch=4, seq=256, steps=6),
 )
 TRAIN_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512,
                     steps=6, first=3)
@@ -355,10 +380,13 @@ def device_ms(fn, reps: int = 20, repeats: int = 5,
 
 def profile_breakdown(fn, reps: int = 5):
     """Device time per call under ``torch.profiler``: (wall ms, device-busy
-    ms, top kernels as (name, ms, launches)) per call, or None when the
-    profiler records no device activity.  Wall time includes the
+    ms, top kernels as (name, ms, launches), kernel launches) per call, or
+    None when the profiler records no device activity.  Wall time includes the
     profiler's own overhead, so the idle share it implies is an upper
-    bound."""
+    bound.  The device events are summed from the profiler's raw event
+    list: ``key_averages()`` builds the whole event tree first, which for
+    a train step of tens of thousands of launches takes longer than the
+    steps it profiles."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -371,14 +399,18 @@ def profile_breakdown(fn, reps: int = 5):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6 / reps
     if busy_ms <= 0:
         return None
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return wall_ms, busy_ms, [(e.key[:70], e.self_device_time_total / 1e3
-                               / reps, e.count // reps) for e in top]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return wall_ms, busy_ms, [(name[:70], ns / 1e6 / reps, count // reps)
+                              for name, (ns, count) in top], \
+        sum(count for _, count in by_name.values()) // reps
 
 
 def log_profile(tag: str, what: str, fn, reps: int = 5) -> None:
@@ -387,10 +419,10 @@ def log_profile(tag: str, what: str, fn, reps: int = 5) -> None:
         log(f"[profile] {tag} {what}: no device time recorded (not "
             "measured)")
         return
-    wall_ms, busy_ms, top = prof
+    wall_ms, busy_ms, top, launches = prof
     log(f"[profile] {tag} {what}: device busy {busy_ms:.4f} ms of "
         f"{wall_ms:.4f} ms wall per call under the profiler (idle share <= "
-        f"{1 - busy_ms / wall_ms:.3f})")
+        f"{1 - busy_ms / wall_ms:.3f}); {launches} kernel launches per call")
     for kname, kms, kcount in top:
         log(f"[profile]   {kms:.4f} ms in {kcount} launches: {kname}")
 
@@ -420,6 +452,15 @@ def add_at_oracle(m, vals, x) -> np.ndarray:
     for c in range(x2.shape[1]):
         np.add.at(out[:, c], m.rows, v * x2[m.cols, c])
     return out.reshape((m.shape[0],) + x.shape[1:])
+
+
+def tol_ratio(got, want, tol):
+    """(max abs err, the worst error over ``tol``'s bound ``atol + rtol *
+    |want|``, all finite and within it)."""
+    err = np.abs(got - want)
+    ratio = float((err / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+    return float(err.max()), ratio, bool(np.isfinite(got).all()
+                                         and ratio <= 1.0)
 
 
 def same_bits(a, b) -> bool:
@@ -1151,6 +1192,7 @@ class Smoke:
 
     def lm_model(self, cfg):
         torch = self.torch
+        from repro_torch.configs import get_config
         from repro_torch.models import lm
         gen = torch.Generator(self.dev).manual_seed(SEED)
         t0 = time.perf_counter()
@@ -1158,9 +1200,14 @@ class Smoke:
         torch.cuda.synchronize()
         n = sum(p.numel() for p in model.parameters())
         nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        want = REFERENCE_PARAMS.get(cfg.name) if cfg.num_layers == \
+            get_config(cfg.name).num_layers else None
+        check(want in (None, n), f"{cfg.name}: {n} parameters, the "
+              f"reference has {want}")
         log(f"[lm] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
-            f"{str(cfg.param_dtype)[6:]}): {n} parameters, {nbytes} B, "
-            f"init {time.perf_counter() - t0:.2f} s")
+            f"{str(cfg.param_dtype)[6:]}): {n} parameters"
+            f"{' (the reference count)' if want else ''}, {nbytes} B, init "
+            f"{time.perf_counter() - t0:.2f} s")
         return model, gen
 
     def lm_serve(self, cfg, spec) -> None:
@@ -1279,18 +1326,76 @@ class Smoke:
 
     def lm_decode_check(self, cfg) -> None:
         """decode == forward (``tests/test_serve.py``'s rule) in float32;
-        MoE in the dropless regime, where no capacity couples tokens."""
+        MoE in the dropless regime, where no capacity couples tokens.  The
+        hybrid family goes on to :meth:`hybrid_decode_check`."""
         torch = self.torch
-        from repro_torch.models import lm
-        from repro_torch.serve import engine
-        cfg = cfg.replace(param_dtype=torch.float32,
-                          compute_dtype=torch.float32)
         if cfg.family == "moe":
             cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
+        f32 = cfg.replace(param_dtype=torch.float32,
+                          compute_dtype=torch.float32)
         b, s, n = LM_CHECK["batch"], LM_CHECK["prompt"], LM_CHECK["decoded"]
-        model, gen = self.lm_model(cfg)
+        model, gen = self.lm_model(f32)
         toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
                              device=self.dev, dtype=torch.int32)
+        got, want = self.decode_vs_forward(model, f32, toks)
+        if cfg.family == "hybrid":
+            self.hybrid_decode_check(model, cfg, toks, got, want)
+        else:
+            err, ratio, ok = tol_ratio(got, want, LM_TOL)
+            check(ok, f"{cfg.name}: decode differs from forward in float32 "
+                  f"(max abs err {err}, {ratio:.3f} of the bound)")
+            note = ", dropless" if cfg.family == "moe" else ""
+            log(f"[lm] {cfg.name} float32 decode == forward (prompt {s}, "
+                f"{n} decoded, batch {b}{note}): max abs err {err:.3e}, "
+                f"{ratio:.3f} of the bound of rtol {LM_TOL['rtol']}, atol "
+                f"{LM_TOL['atol']} (logits' scale "
+                f"{float(np.abs(want).max()):.1f})")
+        del model
+        torch.cuda.empty_cache()
+
+    def hybrid_decode_check(self, model, cfg, toks, got32, fwd32) -> None:
+        """zamba2 over all its layers (the trailing ones after the last
+        shared block included).  The same weights in float64 (the scan in
+        float64 too; the cache's SSD state stays float32, as the reference
+        defines it) give the yardstick: float64 decode == forward at
+        ``LM_TOL``; float32 decode == forward, and each of the float32
+        decode and forward against the float64 forward, at
+        ``HYBRID_DECODE_TOL``, every reading also as a share of
+        ``LM_TOL``'s bound."""
+        torch = self.torch
+        f64 = cfg.replace(param_dtype=torch.float64,
+                          compute_dtype=torch.float64)
+        model.double()
+        got64, fwd64 = self.decode_vs_forward(model, f64, toks)
+        held = {"float64 decode == forward": (got64, fwd64, LM_TOL),
+                "float32 forward vs float64 forward": (
+                    fwd32, fwd64, HYBRID_DECODE_TOL),
+                "float32 decode vs float64 forward": (
+                    got32, fwd64, HYBRID_DECODE_TOL),
+                "float32 decode == forward": (got32, fwd32,
+                                              HYBRID_DECODE_TOL)}
+        where = (f"prompt {LM_CHECK['prompt']}, {LM_CHECK['decoded']} "
+                 f"decoded, batch {LM_CHECK['batch']}, {cfg.num_layers} "
+                 f"layers: the shared block after every "
+                 f"{cfg.shared_attn_every}th, then "
+                 f"{cfg.num_layers % cfg.shared_attn_every} trailing layers")
+        for what, (got, want, tol) in held.items():
+            err, ratio, ok = tol_ratio(got, want, tol)
+            lm_ratio = tol_ratio(got, want, LM_TOL)[1]
+            check(ok, f"{cfg.name}: {what} fails (max abs err {err}, "
+                  f"{ratio:.3f} of the bound)")
+            log(f"[lm] {cfg.name} {what} ({where}): max abs err {err:.3e}, "
+                f"{ratio:.3f} of the bound of rtol {tol['rtol']}, atol "
+                f"{tol['atol']} ({lm_ratio:.3f} of LM_TOL's; logits' scale "
+                f"{float(np.abs(want).max()):.1f})")
+
+    def decode_vs_forward(self, model, cfg, toks):
+        """Prefill of ``LM_CHECK["prompt"]`` tokens and decode of the rest
+        against the forward over all of ``toks``: the decoded logits and
+        the forward's at the same positions, as numpy arrays."""
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        s, n = LM_CHECK["prompt"], LM_CHECK["decoded"]
         full, _ = lm.forward(model, cfg, {"tokens": toks})
         cache, last = engine.prefill(model, cfg, {"tokens": toks[:, :s]},
                                      s + n + 4)
@@ -1299,19 +1404,8 @@ class Smoke:
             logits, cache = lm.decode_step(model, cfg, cache,
                                            toks[:, i:i + 1], i)
             steps.append(logits[:, 0])
-        got = torch.stack(steps, 1).cpu().numpy()
-        want = full[:, s - 1:].cpu().numpy()
-        err = float(np.abs(got - want).max())
-        check(bool(np.isfinite(got).all()) and np.allclose(got, want,
-                                                           **LM_TOL),
-              f"{cfg.name}: decode differs from forward in float32 (max abs "
-              f"err {err})")
-        log(f"[lm] {cfg.name} float32 decode == forward (prompt {s}, {n} "
-            f"decoded, batch {b}"
-            f"{', dropless' if cfg.family == 'moe' else ''}): max abs err "
-            f"{err:.3e} within rtol {LM_TOL['rtol']}, atol {LM_TOL['atol']}")
-        del model, cache, full
-        torch.cuda.empty_cache()
+        return self.torch.stack(steps, 1).cpu().numpy(), \
+            full[:, s - 1:].cpu().numpy()
 
     # -------------------------------------------------------- LM training
     def train_config(self, spec):
@@ -2474,27 +2568,23 @@ class Smoke:
 
     def run(self) -> None:
         t0 = time.perf_counter()
-        self.build_kernels()
-        self.make_plans()
-        self.stage_a_phase()
-        self.main_paths()
-        self.matvec_many_phase()
-        self.segment_reduce_phase()
-        self.gather_vload_phase()
-        self.row_gather_phase()
-        self.lm_phase()
-        self.train_phase()
-        self.graph_phase()
-        self.serve_phase()
-        self.tune_phase()
-        self.shard_phase()
-        self.main_timings()
-        self.stage_a_timings()
+        for phase in (self.build_kernels, self.make_plans,
+                      self.stage_a_phase, self.main_paths,
+                      self.matvec_many_phase, self.segment_reduce_phase,
+                      self.gather_vload_phase, self.row_gather_phase,
+                      self.lm_phase, self.train_phase, self.graph_phase,
+                      self.serve_phase, self.tune_phase, self.shard_phase,
+                      self.main_timings, self.stage_a_timings):
+            t1 = time.perf_counter()
+            phase()
+            log(f"[phase] {phase.__name__} {time.perf_counter() - t1:.1f} s")
         for key, c in self.compared.items():
             check(c > 0, f"{key} was never compared with its plain version")
             check(self.main_counts[key] > 0,
                   f"{key} was never launched on its main path")
+        t1 = time.perf_counter()
         self.card_tests()
+        log(f"[phase] card_tests {time.perf_counter() - t1:.1f} s")
         for key, entry in self.line.items():
             entry["launches"] = self.main_counts[key]
         log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")

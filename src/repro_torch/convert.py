@@ -24,7 +24,10 @@ Model weights cross the same way, as a nested dict of numpy arrays in the
 JAX package's parameter tree (``lm_params_from_numpy``), and back
 (``lm_params_to_numpy``).  The reference stacks every layer leaf on a
 leading axis; :func:`host_stacked` builds that layout from the port's
-per-layer tensors on the host, for the checkpoints too.
+per-layer tensors on the host, for the checkpoints too.  Subtrees outside
+``layers`` (``embed``, ``final_norm``, ``lm_head``, zamba2's weight-tied
+``shared`` block) cross unstacked, and every leaf keeps its dtype (the
+float32 leaves inside a bf16 rwkv6 or Mamba2 layer included).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --batch 4 --prompt-len 32 --steps 16
 
-A port of the JAX package's ``launch/serve.py`` for the ``dense`` and
-``moe`` families, with the same flags and ``[serve]`` lines, plus
+A port of the JAX package's ``launch/serve.py`` for the ``dense``,
+``moe``, ``ssm`` (``--arch rwkv6-3b``) and ``hybrid`` (``--arch
+zamba2-1.2b``) families, with the same flags and ``[serve]`` lines, plus
 ``--device`` (default ``cuda``, which raises where torch sees no CUDA
 device) and ``--seed`` (of the weights and the prompt).  ``--reduced`` is
 on by default, as there; ``--no-reduced`` serves the published widths.

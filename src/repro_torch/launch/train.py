@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --preset tiny --steps 100
 
-A port of the JAX package's ``launch/train.py`` for the ``dense`` and
-``moe`` families, with the same flags, ``PRESETS`` and ``[train]`` lines,
+A port of the JAX package's ``launch/train.py`` for the ``dense``,
+``moe``, ``ssm`` (``--arch rwkv6-3b``) and ``hybrid`` (``--arch
+zamba2-1.2b``) families, with the same flags, ``PRESETS`` and ``[train]`` lines,
 plus ``--device`` (default ``cuda``, which raises where torch sees no CUDA
 device).  Presets scale the architecture's family to a size trainable on
 one device; ``--full`` uses the published config unchanged (granite-3-2b

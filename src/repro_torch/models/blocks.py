@@ -4,17 +4,21 @@
 The ``dense`` and ``moe`` families share :class:`DenseLayer`; the port
 loops over its layers in Python, so gemma3's 5:1 local:global pattern is a
 per-layer ``kind_flag`` read on the host, not a ``lax.switch``.  The
-other families' blocks are not ported yet and raise, citing their ROADMAP
-item.
+``ssm`` family (rwkv6) has :class:`RwkvLayer`, the ``hybrid`` family
+(zamba2) :class:`MambaLayer` and the weight-tied
+:class:`SharedAttnBlock`.  The ``encdec`` blocks are not ported yet and
+raise, citing their ROADMAP item.
 """
 from __future__ import annotations
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
 from repro_torch.models import not_ported
 from repro_torch.models import params as pr
+from repro_torch.models import rwkv6 as R6
 
 
 # --------------------------------------------------------------- dense / moe
@@ -86,35 +90,106 @@ class DenseLayer(pr.Tree):
         return dense_layer_decode(self, x, cache, **kw)
 
 
-# ------------------------------------------- families not ported yet
-def init_rwkv_layer(*args, **kwargs):
-    raise not_ported("ssm")
+# --------------------------------------------------------------------- rwkv
+def init_rwkv_layer(generator, cfg) -> dict:
+    return {
+        "ln_t": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "time_mix": R6.init_rwkv6(generator, cfg),
+        "ln_c": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "channel_mix": R6.init_rwkv_channel_mix(generator, cfg),
+    }
 
 
-def rwkv_layer(*args, **kwargs):
-    raise not_ported("ssm")
+def rwkv_layer(p, x, *, cfg, state=None):
+    """state: (wkv, x_last_t, x_last_c) or None (zeros) -> (x, new state
+    triple)."""
+    wkv, xlt, xlc = (None, None, None) if state is None else state
+    hin = L.rmsnorm(p["ln_t"], x, cfg.norm_eps)
+    h, (wkv2, xlt2) = R6.rwkv6_time_mix(p["time_mix"], hin, cfg, state=wkv,
+                                        x_last=xlt)
+    x = x + h
+    hin = L.rmsnorm(p["ln_c"], x, cfg.norm_eps)
+    h, xlc2 = R6.rwkv_channel_mix(p["channel_mix"], hin, cfg, x_last=xlc)
+    return x + h, (wkv2, xlt2, xlc2)
 
 
-def init_mamba_layer(*args, **kwargs):
-    raise not_ported("hybrid")
+class RwkvLayer(pr.Tree):
+    """One rwkv6 layer's parameters (``ln_t``, ``time_mix``, ``ln_c``,
+    ``channel_mix``); a whole sequence or one decoded token alike."""
+
+    def forward(self, x, **kw):
+        return rwkv_layer(self, x, **kw)
 
 
-def mamba_layer(*args, **kwargs):
-    raise not_ported("hybrid")
+# ------------------------------------------------------------------- hybrid
+def init_mamba_layer(generator, cfg) -> dict:
+    return {
+        "ln": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "mamba": M2.init_mamba2(generator, cfg),
+    }
 
 
-def init_shared_attn_block(*args, **kwargs):
-    raise not_ported("hybrid")
+def init_shared_attn_block(generator, cfg) -> dict:
+    """zamba2: one weight-tied attention+MLP block reused every k layers."""
+    return {
+        "ln_attn": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "attn": A.init_attention(generator, cfg),
+        "ln_mlp": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "mlp": MLP.init_mlp(generator, cfg),
+    }
 
 
-def shared_attn_block(*args, **kwargs):
-    raise not_ported("hybrid")
+def mamba_layer(p, x, *, cfg, state=None, conv_state=None):
+    hin = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    h, new_state, new_conv = M2.mamba2_block(p["mamba"], hin, cfg,
+                                             state=state,
+                                             conv_state=conv_state)
+    return x + h, new_state, new_conv
 
 
-def shared_attn_block_decode(*args, **kwargs):
-    raise not_ported("hybrid")
+def shared_attn_block(p, x, *, cfg, positions, return_kv: bool = False):
+    h = A.attention(p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
+                    cfg=cfg, kind="full", positions=positions,
+                    return_kv=return_kv)
+    kv = None
+    if return_kv:
+        h, kv = h
+    x = x + h
+    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    if return_kv:
+        return x + h, kv
+    return x + h
 
 
+def shared_attn_block_decode(p, x, cache, *, cfg, cur_pos: int):
+    h, cache = A.attention_decode(
+        p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps), cache,
+        cfg=cfg, kind="full", cur_pos=cur_pos)
+    x = x + h
+    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    return x + h, cache
+
+
+class MambaLayer(pr.Tree):
+    """One zamba2 Mamba2 layer's parameters (``ln``, ``mamba``)."""
+
+    def forward(self, x, **kw):
+        return mamba_layer(self, x, **kw)
+
+
+class SharedAttnBlock(pr.Tree):
+    """zamba2's weight-tied attention+GeGLU block: one set of parameters,
+    applied after every ``shared_attn_every``-th Mamba2 layer, each
+    application with its own KV history when decoding."""
+
+    def forward(self, x, **kw):
+        return shared_attn_block(self, x, **kw)
+
+    def decode(self, x, cache, **kw):
+        return shared_attn_block_decode(self, x, cache, **kw)
+
+
+# ------------------------------------ encdec: not ported yet (item 17)
 def init_encoder_layer(*args, **kwargs):
     raise not_ported("encdec")
 

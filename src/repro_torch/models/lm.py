@@ -1,16 +1,27 @@
 """Top-level language model: init / forward / loss / decode for the
-``dense`` and ``moe`` families (the JAX package's ``models/lm.py``).
+``dense``, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families (the
+JAX package's ``models/lm.py``).
 
 The reference scans its layers over parameters stacked on a leading
-"layers" axis; the port keeps one :class:`~repro_torch.models.blocks.
-DenseLayer` per layer in an ``nn.ModuleList`` and loops over them in
-Python, reading each layer's kind (gemma3's 5:1 local:global) on the host.
-Under autograd each layer runs under ``cfg.remat``, as the reference's
-``_remat`` wraps its scan body: ``"full"`` recomputes the whole layer in
-the backward, ``"dots"`` keeps the matrix products' outputs and
-recomputes the rest, ``"none"`` keeps everything.  The ``ssm``,
-``hybrid``, ``encdec`` and ``vlm`` families raise, citing their ROADMAP
-item.
+"layers" axis; the port keeps one layer module per layer
+(:class:`~repro_torch.models.blocks.DenseLayer`, ``RwkvLayer`` or
+``MambaLayer``) in an ``nn.ModuleList`` and loops over them in Python,
+reading each layer's kind (gemma3's 5:1 local:global) on the host.  The
+hybrid family's weight-tied ``SharedAttnBlock`` is one module, ``shared``,
+beside ``embed`` and ``final_norm``, applied after every
+``shared_attn_every``-th layer.  Under autograd each layer runs under
+``cfg.remat``, as the reference's ``_remat`` wraps its scan body (for
+hybrid the shared block inside it): ``"full"`` recomputes the whole layer
+in the backward, ``"dots"`` keeps the matrix products' outputs and
+recomputes the rest, ``"none"`` keeps everything.  The ``encdec`` and
+``vlm`` families raise, citing their ROADMAP item.
+
+The recurrent families carry states, not a growing KV cache: rwkv6 the
+``wkv`` (L, B, H, K, K) float32 state and two token-shift carries; zamba2
+the SSD state (L, B, H, P, N) float32, a causal-conv tail and one KV
+history per application of the shared block.  ``decode_step`` runs every
+layer, the ``num_layers % shared_attn_every`` trailing ones of a hybrid
+model included (the reference's decode skips those; ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import not_ported
 from repro_torch.models import params as pr
 
@@ -58,9 +70,20 @@ def layer_runs(kinds: np.ndarray) -> list[tuple[int, int, int, int]]:
     return runs
 
 
+# family -> (layer init, layer class)
+_LAYERS = {"dense": (B.init_dense_layer, B.DenseLayer),
+           "moe": (B.init_dense_layer, B.DenseLayer),
+           "ssm": (B.init_rwkv_layer, B.RwkvLayer),
+           "hybrid": (B.init_mamba_layer, B.MambaLayer)}
+
+
 def check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _LAYERS:
         raise not_ported(cfg.family)
+
+
+def _has_shared(cfg) -> bool:
+    return cfg.family == "hybrid" and cfg.shared_attn_every > 0
 
 
 # the matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
@@ -91,8 +114,8 @@ def _remat(fn, cfg):
 # --------------------------------------------------------------------- model
 class LM(nn.Module):
     """The model's parameters: ``embed`` (V, D), ``final_norm``, ``layers``
-    (one :class:`~repro_torch.models.blocks.DenseLayer` each) and, untied,
-    ``lm_head`` (D, V)."""
+    (one layer module of the family each), untied ``lm_head`` (D, V) and,
+    for hybrid, ``shared`` (the weight-tied attention block)."""
 
     def __init__(self, cfg, values: Mapping, axes: Mapping | None = None):
         super().__init__()
@@ -104,11 +127,13 @@ class LM(nn.Module):
         self.axes = axes     # logical axes, stacked layout (None if unknown)
         self.embed = nn.Parameter(values["embed"], requires_grad=False)
         self.final_norm = pr.Tree(values["final_norm"])
-        self.layers = nn.ModuleList(B.DenseLayer(v)
-                                    for v in values["layers"])
+        layer_cls = _LAYERS[cfg.family][1]
+        self.layers = nn.ModuleList(layer_cls(v) for v in values["layers"])
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(values["lm_head"],
                                         requires_grad=False)
+        if _has_shared(cfg):
+            self.shared = B.SharedAttnBlock(values["shared"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -123,6 +148,8 @@ class LM(nn.Module):
                "layers": [layer.tree() for layer in self.layers]}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
+        if _has_shared(self.cfg):
+            out["shared"] = self.shared.tree()
         return out
 
 
@@ -142,12 +169,14 @@ def init_model(cfg, *, generator: torch.Generator | None = None,
     ptree = {
         "embed": L.init_embedding(g, cfg.vocab_size, cfg.d_model, pdt),
         "final_norm": L.init_rmsnorm(g, cfg.d_model, pdt),
-        "layers": [B.init_dense_layer(g, cfg)
+        "layers": [_LAYERS[cfg.family][0](g, cfg)
                    for _ in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
         ptree["lm_head"] = pr.normal(g, (cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"), pdt)
+    if _has_shared(cfg):
+        ptree["shared"] = B.init_shared_attn_block(g, cfg)
     values, axes = pr.split_ptree(ptree)
     axes["layers"] = pr.tree_map(lambda a: ("layers",) + a,
                                  axes["layers"][0])
@@ -173,6 +202,25 @@ def positions_for(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
+def _rwkv_body(layer, x, cfg):
+    return layer(x, cfg=cfg)[0]
+
+
+def _hybrid_body(layer, shared, x, cfg, positions):
+    """One Mamba2 layer and, after every ``shared_attn_every``-th layer,
+    the shared block (``shared`` None elsewhere)."""
+    x, _, _ = layer(x, cfg=cfg)
+    if shared is not None:
+        x = shared(x, cfg=cfg, positions=positions)
+    return x
+
+
+def shared_after(cfg, i: int) -> bool:
+    """Whether the hybrid shared block runs after layer ``i``."""
+    k = cfg.shared_attn_every if _has_shared(cfg) else 0
+    return bool(k) and i % k == k - 1
+
+
 def forward(p, cfg, batch):
     """Full-sequence forward -> (logits (B,S,V), aux dict).
 
@@ -184,11 +232,19 @@ def forward(p, cfg, batch):
     positions = positions_for(b, s, tokens.device)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
-    for layer, kind in zip(p["layers"], layer_kinds(cfg)):
-        x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
-                                      positions=positions)
-        for k, v in aux_i.items():
-            aux[k] = aux[k] + v
+    if cfg.family == "ssm":
+        for layer in p["layers"]:
+            x = _remat(_rwkv_body, cfg)(layer, x, cfg)
+    elif cfg.family == "hybrid":
+        for i, layer in enumerate(p["layers"]):
+            shared = p["shared"] if shared_after(cfg, i) else None
+            x = _remat(_hybrid_body, cfg)(layer, shared, x, cfg, positions)
+    else:
+        for layer, kind in zip(p["layers"], layer_kinds(cfg)):
+            x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
+                                          positions=positions)
+            for k, v in aux_i.items():
+                aux[k] = aux[k] + v
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, cfg, x), aux
 
@@ -228,14 +284,44 @@ def loss_fn(p, cfg, batch, z_loss: float = 1e-4,
 # ------------------------------------------------------------------- decode
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None, *,
                device="cuda") -> dict:
-    """Zeroed decode cache: ``k``/``v`` (global layers, L_g, B, max_len,
-    Kh, Dh) and ``k_local``/``v_local`` (sliding-window layers: a RING
-    buffer of ``min(window, max_len)`` slots — O(window) state regardless
-    of context length)."""
+    """Zeroed decode cache.  dense/moe: ``k``/``v`` (global layers, L_g,
+    B, max_len, Kh, Dh) and ``k_local``/``v_local`` (sliding-window
+    layers: a RING buffer of ``min(window, max_len)`` slots — O(window)
+    state regardless of context length).  ssm: ``wkv`` (L, B, H, K, K)
+    float32 and the token-shift carries ``xlt``/``xlc`` (L, B, D).
+    hybrid: ``ssm`` (L, B, H, P, N) float32, ``conv`` (L, B, 3, C) and,
+    with a shared block, ``shared_k``/``shared_v`` (one KV history per
+    application: ``num_layers // shared_attn_every``, B, max_len, Kh,
+    Dh)."""
     check_family(cfg)
     dtype = dtype or cfg.compute_dtype
     dev = resolve_device(device)
     kh, hd = cfg.num_kv_heads, cfg.head_dim
+    n_layers = cfg.num_layers
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.family == "ssm":
+        h, hk = cfg.rwkv_heads, cfg.rwkv_head_dim
+        return {"wkv": zeros((n_layers, batch_size, h, hk, hk),
+                             torch.float32),
+                "xlt": zeros((n_layers, batch_size, cfg.d_model),
+                             cfg.compute_dtype),
+                "xlc": zeros((n_layers, batch_size, cfg.d_model),
+                             cfg.compute_dtype)}
+    if cfg.family == "hybrid":
+        h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        cache = {"ssm": zeros((n_layers, batch_size, h, hp, n),
+                              torch.float32),
+                 "conv": zeros((n_layers, batch_size, M2.D_CONV - 1,
+                                conv_ch))}
+        if _has_shared(cfg):
+            nseg = n_layers // cfg.shared_attn_every
+            for key in ("shared_k", "shared_v"):
+                cache[key] = zeros((nseg, batch_size, max_len, kh, hd))
+        return cache
     kinds = layer_kinds(cfg)
     n_local = int((kinds == 1).sum())
     n_global = cfg.num_layers - n_local
@@ -259,6 +345,34 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0):
     check_family(cfg)
     cur_pos = int(cur_pos)
     x = _embed_tokens(p, cfg, tokens)
+    if cfg.family == "ssm":
+        for i, layer in enumerate(p["layers"]):
+            state = (cache["wkv"][i], cache["xlt"][i], cache["xlc"][i])
+            x, new = layer(x, cfg=cfg, state=state)
+            for old, t in zip(state, new):
+                old.copy_(t)
+    elif cfg.family == "hybrid":
+        # every layer, the trailing num_layers % shared_attn_every too; the
+        # shared block after each whole segment, with that application's
+        # own KV history
+        for i, layer in enumerate(p["layers"]):
+            x, ssm, conv = layer(x, cfg=cfg, state=cache["ssm"][i],
+                                 conv_state=cache["conv"][i])
+            cache["ssm"][i].copy_(ssm)
+            cache["conv"][i].copy_(conv)
+            if shared_after(cfg, i):
+                si = i // cfg.shared_attn_every
+                x, _ = p["shared"].decode(
+                    x, {"k": cache["shared_k"][si],
+                        "v": cache["shared_v"][si]}, cfg=cfg,
+                    cur_pos=cur_pos)
+    else:
+        x = _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len)
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return _logits(p, cfg, x), cache
+
+
+def _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len):
     # interleaved runs: local layers hit the ring stack, global layers the
     # full stack (split caches, see init_cache)
     for kind, l0, l1, k0 in layer_runs(layer_kinds(cfg)):
@@ -269,5 +383,4 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0):
             x, _ = p["layers"][l0 + j].decode(
                 x, layer_cache, cfg=cfg, kind_flag=kind, cur_pos=cur_pos,
                 prefix_len=prefix_len, ring=(kind == 1))
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return _logits(p, cfg, x), cache
+    return x

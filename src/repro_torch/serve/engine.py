@@ -1,9 +1,12 @@
-"""Batched LM serving engine: prefill + decode over the model's KV cache
-(the JAX package's ``serve/engine.py``, for the ``dense`` and ``moe``
-families).
+"""Batched LM serving engine: prefill + decode over the model's cache
+(the JAX package's ``serve/engine.py``, for the ``dense``, ``moe``,
+``ssm`` and ``hybrid`` families).
 
-``prefill`` replays the forward's layer bodies with ``return_kv=True`` so
-each layer's k/v lands in the cache; ``decode_step``
+``prefill`` replays the forward's layer bodies: with ``return_kv=True`` so
+each attention layer's k/v lands in the cache, and for the recurrent
+families each layer's final states (rwkv6's ``wkv`` and token-shift
+carries, Mamba2's SSD state and conv tail; the KV of each application of
+zamba2's shared block in its own history); ``decode_step``
 (:mod:`repro_torch.models.lm`) is the single-token step, which the engine
 loops for batched greedy or temperature generation.  Everything runs on the
 device of the model and the tokens; the MoE layers' dispatch and combine
@@ -26,6 +29,31 @@ def prefill(p, cfg, batch, max_len: int):
     x = lm._embed_tokens(p, cfg, tokens)
     positions = lm.positions_for(b, s, dev)
     cache = lm.init_cache(cfg, b, max_len, device=dev)
+    if cfg.family == "ssm":
+        for i, layer in enumerate(p["layers"]):
+            x, states = layer(x, cfg=cfg)
+            for key, t in zip(("wkv", "xlt", "xlc"), states):
+                cache[key][i] = t
+    elif cfg.family == "hybrid":
+        for i, layer in enumerate(p["layers"]):
+            x, ssm, conv = layer(x, cfg=cfg)
+            cache["ssm"][i] = ssm
+            cache["conv"][i] = conv
+            if lm.shared_after(cfg, i):
+                si = i // cfg.shared_attn_every
+                x, (k, v) = p["shared"](x, cfg=cfg, positions=positions,
+                                        return_kv=True)
+                cache["shared_k"][si, :, :s] = k
+                cache["shared_v"][si, :, :s] = v
+    else:
+        x = _prefill_attention_layers(p, cfg, cache, x, positions)
+    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return cache, lm._logits(p, cfg, x[:, -1:, :])
+
+
+def _prefill_attention_layers(p, cfg, cache, x, positions):
+    s = x.shape[1]
+    dev = x.device
     if "k_local" in cache:   # ring stacks (sliding-window layers)
         w = cache["k_local"].shape[2]
         slot_pos = (s - 1) - ((s - 1 - np.arange(w)) % w)
@@ -46,8 +74,7 @@ def prefill(p, cfg, batch, max_len: int):
         else:
             cache["k_local"][i] = k[:, take] * valid
             cache["v_local"][i] = v[:, take] * valid
-    x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return cache, lm._logits(p, cfg, x[:, -1:, :])
+    return x
 
 
 def generate(p, cfg, batch, steps: int, max_len: int,

@@ -84,7 +84,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
         else:
             l, metrics = lm.loss_fn(model, cfg, batch)
             l.backward()
-            g = pr.tree_map(lambda p: p.grad, params)
+            g = pr.tree_map(_grad, params)
         opt_state, opt_metrics = adamw.update(params, g, opt_state, opt_cfg)
         for p in leaves:
             p.grad = None
@@ -93,9 +93,17 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
     return step
 
 
+def _grad(p) -> torch.Tensor:
+    """A parameter's gradient; zeros, as ``jax.grad`` gives, where the loss
+    does not reach it (a hybrid model shallower than ``shared_attn_every``
+    never applies its shared block)."""
+    return torch.zeros_like(p) if p.grad is None else p.grad
+
+
 def _accumulate(p, acc) -> None:
     """Add a parameter's gradient into its float32 sum and drop it."""
-    acc.add_(p.grad)
+    if p.grad is not None:
+        acc.add_(p.grad)
     p.grad = None
 
 

@@ -57,7 +57,8 @@ def _one_thread():
 # ----------------------------------------------------------- checkpoints
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b",
+                                  "rwkv6_3b", "zamba2_1p2b"])
 def test_payload_layout_is_the_references(arch, dtype, quantize, tmp_path):
     rcfg = rget_config(arch).reduced().replace(
         param_dtype=getattr(jnp, dtype))
@@ -210,7 +211,8 @@ def test_train_loss_decreases_and_resumes(tmp_path):
     assert int(out2["opt"]["step"]) == 65
 
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b",
+                                  "rwkv6_3b", "zamba2_1p2b"])
 def test_resume_is_bitwise_the_straight_run(arch, tmp_path):
     cfg = get_config(arch).reduced()
     opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)

@@ -966,6 +966,28 @@ def test_sharded_apps_bitwise_on_card(k):
         SpMV.from_coo(m.rows, m.cols, vals, m.shape, backend="cuda", **sim)
 
 
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_cc_from_edges_on_card(k):
+    """``ConnectedComponents.from_edges(mesh=...)`` on a simulated mesh of
+    ``k`` shards on the card, both drivers: labels, sweeps and flags
+    bitwise the single-device ``torch`` run (``chip_smoke.py``'s full-size
+    CC cell shards the graph phase's plan instead of building it again)."""
+    from repro_torch.core import graphs
+    from repro_torch.launch.mesh import make_shard_mesh
+    dev = _cuda()
+    src, dst, _, n = _edges_case()
+    mesh = make_shard_mesh(k, device=dev, simulate=True)
+    for driver in ("resident", "host"):
+        c1 = graphs.ConnectedComponents.from_edges(src, dst, n, lane_width=32,
+                                                   driver=driver, device=dev)
+        ck = graphs.ConnectedComponents.from_edges(src, dst, n, lane_width=32,
+                                                   driver=driver, mesh=mesh,
+                                                   device=dev)
+        assert ck.mesh is mesh and len(ck._shard_parts) == k
+        assert torch.equal(_bits(ck.run()), _bits(c1.run()))
+        assert ck.convergence == c1.convergence
+
+
 def test_sharded_spmv_on_a_real_mesh():
     """Shards on distinct cards (skips on a machine with one card): the
     sharded SpMV bitwise the single-card run."""
@@ -1080,6 +1102,81 @@ def test_train_step_on_card_matches_cpu(arch):
         np.testing.assert_allclose(a.detach().cpu().numpy(),
                                    b.detach().numpy(), rtol=1e-4,
                                    atol=2.5e-3 + 1e-5 * scale)
+
+
+# ------------------------------------------------ recurrent LM families
+RECURRENT = {"rwkv6-3b": None,       # 64 tokens: 2 WKV chunks of 32
+             "zamba2-1.2b": 8}       # 8 layers, not a multiple of 6
+SERVE_TOL = dict(rtol=2e-2, atol=2e-3)     # tests/test_serve.py
+
+
+def _recurrent_case(arch):
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    if RECURRENT[arch]:
+        cfg = cfg.replace(num_layers=RECURRENT[arch])
+    cpu = lm.init_model(cfg, generator=torch.Generator().manual_seed(4),
+                        device="cpu")
+    return dev, cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_generate_on_card_matches_cpu(arch):
+    """Greedy ``generate`` of a reduced float32 rwkv6 / zamba2 on the card
+    and on the CPU from the same weights: the prefill's logits and the
+    final cache within ``tests/test_serve.py``'s rule, the tokens equal
+    (zamba2 at 8 layers: decode runs the 2 trailing layers)."""
+    from repro_torch.serve import engine
+    dev, cfg, cpu, card = _recurrent_case(arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int32)
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        cache, last = engine.prefill(model, cfg,
+                                     {"tokens": toks.to(where)}, 80)
+        out, fin = engine.generate(model, cfg, {"tokens": toks.to(where)},
+                                   steps=8, max_len=80)
+        if where == dev:
+            got = (last.cpu(), out.cpu(), {k: v.cpu() for k, v in
+                                           fin.items()})
+    np.testing.assert_allclose(got[0].numpy(), last.numpy(), **SERVE_TOL)
+    assert torch.equal(got[1], out)
+    for k, v in fin.items():
+        np.testing.assert_allclose(got[2][k].float().numpy(),
+                                   v.float().numpy(), **SERVE_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_loss_and_backward_on_card_match_cpu(arch):
+    """``loss_fn`` + backward of a reduced float32 rwkv6 / zamba2 on the
+    card and on the CPU: the loss and every gradient leaf within
+    ``tests/test_serve.py``'s rule (atol times the leaf's scale)."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import lm
+    dev, cfg, cpu, card = _recurrent_case(arch)
+    batch = synth_batch(cfg, 2, 64, step=0)
+    grads = []
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        model.requires_grad_(True)
+        loss, _ = lm.loss_fn(model, cfg, {k: torch.as_tensor(v, device=where)
+                                          for k, v in batch.items()})
+        loss.backward()
+        grads.append((float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                    model.named_parameters()}))
+    (lc, gc), (lw, gw) = grads
+    np.testing.assert_allclose(lc, lw, **SERVE_TOL)
+    assert sorted(gc) == sorted(gw)
+    for k, w in gw.items():
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(gc[k].numpy(), w.numpy(),
+                                   rtol=SERVE_TOL["rtol"],
+                                   atol=SERVE_TOL["atol"] * scale,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("block", [True, False])

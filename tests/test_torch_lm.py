@@ -3,8 +3,9 @@
 
 The reference's ``materialize_init`` weights cross into the port through
 ``repro_torch.convert.lm_params_from_numpy``; tokens are made with numpy.
-At ``reduced()`` configs (float32, 2 layers, d 64) for every ``dense`` and
-``moe`` arch:
+At ``reduced()`` configs (float32, 2 layers, d 64; zamba2 6 layers, so
+its shared block runs once) for every ``dense``, ``moe``, ``ssm`` (rwkv6)
+and ``hybrid`` (zamba2) arch:
 
 * ``forward`` logits, teacher-forced ``prefill`` + ``decode_step`` (the
   reference's tokens fed, so a near-tie in argmax cannot cascade) and the
@@ -47,7 +48,8 @@ from repro_torch.models import layers, lm, moe
 from repro_torch.serve import engine
 
 LM_ARCHS = ["granite_3_2b", "gemma_7b", "gemma3_27b", "h2o_danube_3_4b",
-            "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
+            "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_3b",
+            "zamba2_1p2b"]
 MOE_ARCHS = ["qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
 RTOL, ATOL = 1e-4, 1e-5
 SERVE_TOL = dict(rtol=2e-2, atol=2e-3)     # tests/test_serve.py
@@ -339,11 +341,10 @@ def test_dispatch_pattern_stats_equal(lane_width):
 
 
 # -------------------------------------------------------- port-only checks
-@pytest.mark.parametrize("arch", ["whisper_small", "rwkv6_3b",
-                                  "zamba2_1p2b", "paligemma_3b"])
+@pytest.mark.parametrize("arch", ["whisper_small", "paligemma_3b"])
 def test_other_families_raise_with_their_item(arch):
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[5-8]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1[78]"):
         lm.init_model(cfg, device="cpu")
 
 

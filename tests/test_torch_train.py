@@ -5,8 +5,8 @@ package.
 The reference's ``materialize_init`` weights cross into the port through
 ``repro_torch.convert.lm_params_from_numpy`` and come back, stacked, through
 ``lm_params_to_numpy``; batches are the reference's ``synth_batch``.  At
-``reduced()`` configs (float32, 2 layers, d 64) for every ``dense`` and
-``moe`` arch:
+``reduced()`` configs (float32, 2 layers, d 64; zamba2 6) for every
+``dense``, ``moe``, ``ssm`` and ``hybrid`` arch:
 
 * ``loss_fn``'s loss and metrics, and every gradient leaf against
   ``jax.grad`` of the reference's ``loss_fn`` (for MoE the routing of
@@ -55,16 +55,19 @@ from repro_torch.optim import adamw
 from repro_torch.train import loop
 
 LM_ARCHS = ["granite_3_2b", "gemma_7b", "gemma3_27b", "h2o_danube_3_4b",
-            "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
+            "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_3b",
+            "zamba2_1p2b"]
 RTOL, ATOL = 1e-4, 1e-5
+# zamba2's whole-model gradients (see test_gradients_match_reference)
+HYBRID_GRAD_ATOL = 1e-4
 B, S = 2, 12
 
 
-def _close(got, want, err_msg=""):
+def _close(got, want, err_msg="", atol=ATOL):
     want = np.asarray(want, np.float32)
     scale = max(1.0, float(np.abs(want).max(initial=0.0)))
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=RTOL,
-                               atol=ATOL * scale, err_msg=err_msg)
+                               atol=atol * scale, err_msg=err_msg)
 
 
 def _flat(tree, prefix=""):
@@ -184,6 +187,15 @@ def _reference_moe_inputs(vals, rcfg, tokens, monkeypatch):
 
 
 def test_gradients_match_reference(case, monkeypatch):
+    """Every gradient leaf against ``jax.grad``.  For zamba2 (6 Mamba2
+    layers and the shared block, random weights: the residual stream grows
+    from 1 to ~33) float32 rounding is amplified through the backward: the
+    reference's own jitted and eager gradients differ by more than the
+    dense rule's ``ATOL`` (``test_torch_recurrent.py::
+    test_hybrid_gradient_rounding_exceeds_the_dense_rule``).  So the
+    hybrid family is held here at ``atol=HYBRID_GRAD_ATOL * scale``, and
+    layer by layer, where no amplification enters, at ``ATOL``
+    (``test_torch_recurrent.py::test_layer_gradients_match_reference``)."""
     model = _model(case)
     if case.cfg.family == "moe":   # the routing first: equal top-k choices
         tokens = case.batch["tokens"]
@@ -205,9 +217,10 @@ def test_gradients_match_reference(case, monkeypatch):
     _, _, got = _port_grads(model, case.cfg, case.batch)
     got, want = _flat(got), _flat(want)
     assert sorted(got) == sorted(want)
+    atol = HYBRID_GRAD_ATOL if case.cfg.family == "hybrid" else ATOL
     for path in want:
         assert tuple(got[path].shape) == want[path].shape, path
-        _close(got[path], want[path], path)
+        _close(got[path], want[path], path, atol=atol)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -250,8 +263,17 @@ def test_remat_checkpoints_only_under_autograd(monkeypatch):
 # ------------------------------------------------------------ train steps
 @pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", ["granite_3_2b", "gemma3_27b",
-                                  "qwen3_moe_235b_a22b"])
+                                  "qwen3_moe_235b_a22b", "rwkv6_3b",
+                                  "zamba2_1p2b"])
 def test_train_steps_match_reference(arch, microbatches):
+    """Five AdamW steps against the reference's jitted ones.  zamba2's
+    steps each start from the reference's parameters and moments: its
+    rounding (see test_gradients_match_reference) is amplified by AdamW's
+    near-sign updates, so free-running runs part within a step or two. The
+    reference's own eager and jitted steps differ by 1.2e-3 of the grad
+    norm at step 1, and the port's lies between them (seed 1, 4 x 12
+    tokens).  Its loss is held at the dense rule, its grad norm and both
+    moments at ``HYBRID_GRAD_ATOL``."""
     rcfg = rget_config(arch).reduced()
     cfg = get_config(arch).reduced()
     vals, _ = rpr.materialize_init(rlm.init_model, jax.random.PRNGKey(1),
@@ -265,13 +287,31 @@ def test_train_steps_match_reference(arch, microbatches):
     oc = adamw.AdamWConfig(**ocfg)
     step = loop.make_train_step(cfg, oc, microbatches=microbatches)
     rstate, state = radamw.init(vals, roc), adamw.init(model.tree(), oc)
+    hybrid = cfg.family == "hybrid"
+    atol = HYBRID_GRAD_ATOL if hybrid else ATOL
     for i in range(5):
         batch = rsynth_batch(rcfg, 4, S, step=i)
+        if hybrid:          # this step starts where the reference's does
+            convert.load_stacked(model, pr.tree_map(
+                lambda a: torch.tensor(np.asarray(a)), vals))
+            for k in ("m", "v"):
+                for dst, src in zip(
+                        pr.leaves_like(state[k], state[k]),
+                        pr.leaves_like(state[k], rstate[k])):
+                    dst.copy_(torch.tensor(np.asarray(src)))
         vals, rstate, want = rstep(vals, rstate, batch)
         state, got = step(model, state, _tbatch(batch))
         assert sorted(got) == sorted(want)
         _close(got["loss"], want["loss"], f"step {i} loss")
-        _close(got["grad_norm"], want["grad_norm"], f"step {i} grad norm")
+        _close(got["grad_norm"], want["grad_norm"], f"step {i} grad norm",
+               atol=atol)
+        if hybrid:
+            for k in ("m", "v"):
+                g, w = _flat(state[k]), _flat(rstate[k])
+                assert sorted(g) == sorted(w)
+                for path in w:
+                    _close(g[path], w[path], f"step {i} {k}{path}",
+                           atol=atol)
         assert all(p.grad is None for p in model.parameters())
     assert int(state["step"]) == 5
 
@@ -309,8 +349,8 @@ def test_trainer_refuses_what_needs_sharding_rules(tmp_path):
                      device="cpu")
     one = ShardMesh(devices=(torch.device("cpu"),), data=1)
     assert loop.Trainer(cfg, _tc(tmp_path), mesh=one).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[5-8]"):
-        loop.Trainer(get_config("rwkv6_3b").reduced(), _tc(tmp_path),
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1[78]"):
+        loop.Trainer(get_config("whisper_small").reduced(), _tc(tmp_path),
                      device="cpu")
 
 
