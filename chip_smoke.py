@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving
-and training (dense, MoE and the recurrent rwkv6 and zamba2 families),
-the graph apps and concurrent query serving on the H100.
+and training (dense, MoE, the recurrent rwkv6 and zamba2, the
+encoder-decoder whisper and the prefix-LM paligemma), the graph apps and
+concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -45,14 +46,20 @@ entry points of the three standalone kernels at real sizes, and fails
    16 in bf16) are also held bitwise to their plain version and to
    ``torch.take``;
 6. LM serving (``[lm]``): ``repro_torch.serve.engine.generate`` (greedy) on
-   granite-3-2b, whole (40 layers, 2.53 B parameters), batch 4, prompt 128,
-   32 steps, on qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers
-   (128 experts, top 8), batch 4, prompt 128, 16 steps, and on rwkv6-3b (32
-   layers, 2.70 B parameters, 4 WKV chunks of 32 in the prefill) and
-   zamba2-1.2b (38 Mamba2 layers and the weight-tied attention block after
-   every 6th; 1.10 B parameters), each whole, batch 4, prompt 128, 32
-   steps; bf16 weights drawn from ``SEED``; the recurrent models' parameter
-   counts must equal the reference's.  The MoE layers' dispatch and combine
+   granite-3-2b, whole (40 layers, 2.53 B parameters), on qwen3-moe-235b-a22b
+   at full width cut to 4 of its 94 layers (128 experts, top 8), and on
+   rwkv6-3b (32 layers, 2.70 B parameters, 4 WKV chunks of 32 in the
+   prefill) and zamba2-1.2b (38 Mamba2 layers and the weight-tied attention
+   block after every 6th; 1.10 B parameters), each batch 4, prompt 128, 16
+   steps; and on whisper-small (12 encoder layers over 1,500 frames and 12
+   decoder layers with cross attention; 0.29 B parameters) and
+   paligemma-3b (18 layers, 256 patch tokens in front of the prompt under
+   the prefix-LM mask; 2.51 B parameters), each whole, batch 4, prompt
+   128, 32 steps; bf16 weights, whisper's frames and paligemma's patch
+   embeddings (standard normal float32, the stubbed frontends' inputs)
+   drawn from ``SEED``; the parameter counts of the recurrent,
+   encoder-decoder and vlm models must equal the reference's.  The MoE
+   layers' dispatch and combine
    run on the ``row_gather`` kernel: its launches in the run (two per MoE
    layer and forward) are counted, every one is held bitwise to the plain
    version on the same rows, and the whole run repeated on the plain row
@@ -66,7 +73,11 @@ entry points of the three standalone kernels at real sizes, and fails
    ``rtol=2e-2, atol=2e-3``; zamba2's over all 38 layers (the 2 after the
    last shared block included): in float64 on the same weights at that
    rule, and in float32 (decode == forward, and each against the float64
-   forward) at twice it, ``HYBRID_DECODE_TOL``;
+   forward) at twice it, ``HYBRID_DECODE_TOL``; whisper's with all 1,500
+   frames; paligemma's with all 256 patch tokens, in float64 on the same
+   weights at that rule (its float32 rounding alone passes the bound), and
+   in float32 its decode no farther from the float64 forward than
+   ``VLM_ROUNDING`` times its float32 forward;
 7. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
    ``ConnectedComponents`` (on the symmetrized edges) and ``PageRank`` (20
    iterations, damping 0.85) through ``from_edges(..., backend="cuda",
@@ -167,12 +178,15 @@ entry points of the three standalone kernels at real sizes, and fails
    weights and ``synth_batch`` data from ``SEED``, ``remat="full"``, the
    launcher's AdamW schedule (lr 3e-3, warmup ``steps // 10 + 1``), no
    checkpoint inside the timed runs.  granite-3-2b whole (40 layers, 2.53 B
-   parameters), batch 8, seq 512, 6 steps; qwen3-moe-235b-a22b at full
+   parameters), batch 8, seq 512, 4 steps; qwen3-moe-235b-a22b at full
    width cut to 1 of its 94 layers (3.73 B parameters, 44.7 GB with the
    float32 moments), batch 4, seq 128 (one dispatch group of 512 tokens,
    ``C = 40``), 6 steps; zamba2-1.2b whole, batch 8, seq 512 (two SSD
    chunks of 256), 6 steps; rwkv6-3b whole, batch 4, seq 256 (eight WKV
-   chunks of 32; ~34 GB with the float32 moments), 6 steps.  Before its run
+   chunks of 32; ~34 GB with the float32 moments), 3 steps; whisper-small
+   and paligemma-3b whole, batch 8, seq 512 (whisper's encoder over 1,500
+   frames, paligemma's layers over 256 + 512 positions), 6 steps.  Before
+   its run
    the MoE model does one loss + backward on the kernel path, every
    ``row_gather`` launch (forward, recompute, backward: 6 a layer) held
    bitwise to the plain gather, then the same on the plain gather: the
@@ -182,7 +196,10 @@ entry points of the three standalone kernels at real sizes, and fails
    ``row_gather`` count 6 a layer and step (0 for the dense and recurrent
    models); prints each step's loss, the median step ms of steps 2 on (host
    clock), tokens/s, ``6 N tokens`` per second as a share of the bf16 dense
-   peak, the peak memory above what earlier phases hold, a profiled step,
+   peak (counted per stack: whisper's encoder parameters over ``batch x
+   enc_len`` frames, paligemma's layers over ``batch x (num_prefix +
+   seq)`` positions; see :func:`train_flops`), the peak memory above what
+   earlier phases hold, a profiled step,
    and ``row_gather`` at the backward of the dispatch beside
    ``index_select``.  Resume: granite-3-2b at full width cut to 2 layers, 6
    steps straight against 3 steps with an async checkpoint and a fresh
@@ -252,15 +269,21 @@ LAUNCHER_S = 600               # time limit of the launcher's child run
 # the [lm] phase: LM serving through repro_torch.serve.engine at the
 # published widths, weights from SEED; "layers" cuts the depth
 LM_CELLS = (
-    dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=16),
     dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
          steps=16),
-    dict(arch="rwkv6-3b", layers=None, batch=4, prompt=128, steps=32),
-    dict(arch="zamba2-1.2b", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="rwkv6-3b", layers=None, batch=4, prompt=128, steps=16),
+    dict(arch="zamba2-1.2b", layers=None, batch=4, prompt=128, steps=16),
+    # 1,500 encoder frames; 256 patch tokens in front of the prompt
+    dict(arch="whisper-small", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="paligemma-3b", layers=None, batch=4, prompt=128, steps=32),
 )
-# the JAX package's parameter count of each whole model of the recurrent
-# cells (jax.eval_shape of its init_model at the published config)
-REFERENCE_PARAMS = {"rwkv6-3b": 2695825920, "zamba2-1.2b": 1104937856}
+# the JAX package's parameter count of each whole model of the recurrent,
+# encoder-decoder and vlm cells (jax.eval_shape of its init_model at the
+# published config)
+REFERENCE_PARAMS = {"rwkv6-3b": 2695825920, "zamba2-1.2b": 1104937856,
+                    "whisper-small": 294683904,
+                    "paligemma-3b": 2508662784}
 LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
 LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
 # zamba2's float32 readings (Smoke.hybrid_decode_check): at full width its
@@ -268,14 +291,20 @@ LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
 # forward of the same weights (H100, PERF.md), so float32 decode and
 # forward, each that far from it, are held at twice LM_TOL
 HYBRID_DECODE_TOL = dict(rtol=2 * LM_TOL["rtol"], atol=2 * LM_TOL["atol"])
+# paligemma's float32 rounding alone passes LM_TOL's bound (Smoke.
+# vlm_decode_check): its float32 decode is held to lie no farther from the
+# float64 forward than VLM_ROUNDING times its float32 forward does
+VLM_ROUNDING = 2.0
 # the [train] phase: LM training through repro_torch.train.loop.Trainer at
 # the published widths, weights and data from SEED; "layers" cuts the depth
 TRAIN_CELLS = (
-    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=6),
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=4),
     dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=6),
     # two SSD chunks of 256 a layer; eight WKV chunks of 32
     dict(arch="zamba2-1.2b", layers=None, batch=8, seq=512, steps=6),
-    dict(arch="rwkv6-3b", layers=None, batch=4, seq=256, steps=6),
+    dict(arch="rwkv6-3b", layers=None, batch=4, seq=256, steps=3),
+    dict(arch="whisper-small", layers=None, batch=8, seq=512, steps=6),
+    dict(arch="paligemma-3b", layers=None, batch=8, seq=512, steps=6),
 )
 TRAIN_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512,
                     steps=6, first=3)
@@ -531,6 +560,24 @@ def bound(nbytes: float, nops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def train_flops(cfg, n_enc: int, n_rest: int, batch: int,
+                seq: int) -> tuple[int, str]:
+    """``6 N tokens`` of one train step, counted per stack: each stack's
+    parameters times the positions it sees (``n_enc``, the encoder's
+    layers and norm, over the ``batch x enc_len`` frames; ``n_rest``, all
+    the others, over the tokens, after the patch prefix for vlm) ->
+    (FLOP, how it was counted)."""
+    if cfg.family == "encdec":
+        return 6 * (n_enc * batch * cfg.enc_len + n_rest * batch * seq), (
+            f"6 x ({n_enc} encoder x {batch} x {cfg.enc_len} frames + "
+            f"{n_rest} decoder and embedding x {batch} x {seq} tokens)")
+    from repro_torch.models.lm import prefix_slots
+    pos = prefix_slots(cfg) + seq
+    return 6 * n_rest * batch * pos, f"6 x {n_rest} x {batch} x {pos} " + (
+        f"positions ({pos - seq} patches + {seq} tokens)"
+        if pos > seq else "tokens")
 
 
 def launch_bytes_ops(cm, d: int = 1) -> tuple[int, int]:
@@ -1210,6 +1257,15 @@ class Smoke:
             f"{time.perf_counter() - t0:.2f} s")
         return model, gen
 
+    @staticmethod
+    def lm_batch(cfg, tokens, gen) -> dict:
+        """``tokens`` with the stubbed frontends' inputs drawn from
+        ``gen``, as ``repro_torch.launch.serve`` draws them: paligemma's
+        patch embeddings, whisper's frames."""
+        from repro_torch.launch.serve import frontend_inputs
+        return {"tokens": tokens,
+                **frontend_inputs(cfg, tokens.shape[0], gen)}
+
     def lm_serve(self, cfg, spec) -> None:
         """Greedy generation through ``engine.generate``: the kernel
         launches of the run counted, every row gather held bitwise to its
@@ -1225,7 +1281,9 @@ class Smoke:
         model, gen = self.lm_model(cfg)
         tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                                device=self.dev, dtype=torch.int32)
-        batch, max_len = {"tokens": tokens}, s + steps + 4
+        batch = self.lm_batch(cfg, tokens, gen)
+        pl = lm.prefix_slots(cfg)
+        max_len = pl + s + steps + 4
         is_moe = cfg.family == "moe"
         calls, gathers = [0], []    # the first dispatch and combine kept
 
@@ -1252,7 +1310,7 @@ class Smoke:
                 counts = self.read_counts()
                 first_s = time.perf_counter() - t0
                 logits, _ = lm.decode_step(model, cfg, cache, out[:, -1:],
-                                           s + steps - 1)
+                                           pl + s + steps - 1, pl)
             finally:
                 MOE.row_gather = RG.row_gather
             return out, logits, cache, counts, first_s
@@ -1266,7 +1324,9 @@ class Smoke:
               f"{cfg.name}: bad tokens {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(logits).all()),
               f"{cfg.name}: non-finite logits")
-        log(f"[lm] {cfg.name} generate (batch {b}, prompt {s}, {steps} "
+        what = {"vlm": f" after {pl} patch tokens", "encdec": f", "
+                f"{cfg.enc_len} encoder frames"}.get(cfg.family, "")
+        log(f"[lm] {cfg.name} generate (batch {b}, prompt {s}{what}, {steps} "
             f"greedy steps): first call {first_s:.2f} s, kernel launches "
             f"{ {k: c for k, c in counts.items() if c} }, tokens[0][:12] "
             f"{out[0, :12].tolist()}")
@@ -1297,7 +1357,7 @@ class Smoke:
                     lambda: engine.prefill(model, cfg, batch, max_len))
         log_profile(self.tag, f"{cfg.name} decode step (batch {b})",
                     lambda: lm.decode_step(model, cfg, cache, out[:, -1:],
-                                           s + steps - 1))
+                                           pl + s + steps - 1, pl))
         if is_moe:
             for what, src, ids in gathers:
                 self.lm_gather_time(cfg, f"prefill {what}", src, ids)
@@ -1327,7 +1387,8 @@ class Smoke:
     def lm_decode_check(self, cfg) -> None:
         """decode == forward (``tests/test_serve.py``'s rule) in float32;
         MoE in the dropless regime, where no capacity couples tokens.  The
-        hybrid family goes on to :meth:`hybrid_decode_check`."""
+        hybrid family goes on to :meth:`hybrid_decode_check`, vlm to
+        :meth:`vlm_decode_check`."""
         torch = self.torch
         if cfg.family == "moe":
             cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
@@ -1337,14 +1398,19 @@ class Smoke:
         model, gen = self.lm_model(f32)
         toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
                              device=self.dev, dtype=torch.int32)
-        got, want = self.decode_vs_forward(model, f32, toks)
+        batch = self.lm_batch(f32, toks, gen)
+        got, want = self.decode_vs_forward(model, f32, batch)
         if cfg.family == "hybrid":
             self.hybrid_decode_check(model, cfg, toks, got, want)
+        elif cfg.family == "vlm":
+            self.vlm_decode_check(model, cfg, batch, got, want)
         else:
             err, ratio, ok = tol_ratio(got, want, LM_TOL)
             check(ok, f"{cfg.name}: decode differs from forward in float32 "
                   f"(max abs err {err}, {ratio:.3f} of the bound)")
-            note = ", dropless" if cfg.family == "moe" else ""
+            note = {"moe": ", dropless", "vlm": f", after {cfg.num_prefix} "
+                    "patch tokens", "encdec": f", {cfg.enc_len} encoder "
+                    "frames"}.get(cfg.family, "")
             log(f"[lm] {cfg.name} float32 decode == forward (prompt {s}, "
                 f"{n} decoded, batch {b}{note}): max abs err {err:.3e}, "
                 f"{ratio:.3f} of the bound of rtol {LM_TOL['rtol']}, atol "
@@ -1366,7 +1432,7 @@ class Smoke:
         f64 = cfg.replace(param_dtype=torch.float64,
                           compute_dtype=torch.float64)
         model.double()
-        got64, fwd64 = self.decode_vs_forward(model, f64, toks)
+        got64, fwd64 = self.decode_vs_forward(model, f64, {"tokens": toks})
         held = {"float64 decode == forward": (got64, fwd64, LM_TOL),
                 "float32 forward vs float64 forward": (
                     fwd32, fwd64, HYBRID_DECODE_TOL),
@@ -1389,20 +1455,69 @@ class Smoke:
                 f"{tol['atol']} ({lm_ratio:.3f} of LM_TOL's; logits' scale "
                 f"{float(np.abs(want).max()):.1f})")
 
-    def decode_vs_forward(self, model, cfg, toks):
-        """Prefill of ``LM_CHECK["prompt"]`` tokens and decode of the rest
-        against the forward over all of ``toks``: the decoded logits and
-        the forward's at the same positions, as numpy arrays."""
+    def vlm_decode_check(self, model, cfg, batch, got32, fwd32) -> None:
+        """paligemma with all its patch tokens.  Its float32 rounding alone
+        passes ``LM_TOL``'s bound: the scaled tied embedding gives each
+        token's own logit ~d_model, and an absolute error of that scale's
+        float32 rounding lands on the logits near 0 (on the CPU at full
+        width and depth, ``d_ff`` 2048 and a vocabulary of 8192, the
+        reference's own float32 forward lies 36.6 of the bound from a
+        float64 one, the port's 25.7).  So the same weights in float64 give
+        the yardstick: float64 decode == forward at ``LM_TOL``; the float32
+        decode no farther from the float64 forward than ``VLM_ROUNDING``
+        times the float32 forward is; every reading also as a share of
+        ``LM_TOL``'s bound."""
+        torch = self.torch
+        f64 = cfg.replace(param_dtype=torch.float64,
+                          compute_dtype=torch.float64)
+        model.double()
+        got64, fwd64 = self.decode_vs_forward(model, f64, batch)
+        where = (f"prompt {LM_CHECK['prompt']}, {LM_CHECK['decoded']} "
+                 f"decoded, batch {LM_CHECK['batch']}, after "
+                 f"{cfg.num_prefix} patch tokens")
+        errs = {}
+        for what, got, want in (
+                ("float64 decode == forward", got64, fwd64),
+                ("float32 forward vs float64 forward", fwd32, fwd64),
+                ("float32 decode vs float64 forward", got32, fwd64),
+                ("float32 decode == forward", got32, fwd32)):
+            err, ratio, ok = tol_ratio(got, want, LM_TOL)
+            errs[what] = err
+            if what.startswith("float64"):
+                check(ok, f"{cfg.name}: {what} fails (max abs err {err}, "
+                      f"{ratio:.3f} of the bound)")
+            log(f"[lm] {cfg.name} {what} ({where}): max abs err {err:.3e}, "
+                f"{ratio:.3f} of the bound of rtol {LM_TOL['rtol']}, atol "
+                f"{LM_TOL['atol']} (logits' scale "
+                f"{float(np.abs(want).max()):.1f})")
+        own = errs["float32 forward vs float64 forward"]
+        dec = errs["float32 decode vs float64 forward"]
+        check(dec <= VLM_ROUNDING * own, f"{cfg.name}: the float32 decode "
+              f"lies {dec} from the float64 forward, more than "
+              f"{VLM_ROUNDING} x the float32 forward's {own}")
+        log(f"[lm] {cfg.name} float32 decode's distance from the float64 "
+            f"forward {dec / own:.3f} of the float32 forward's (held <= "
+            f"{VLM_ROUNDING})")
+
+    def decode_vs_forward(self, model, cfg, batch):
+        """Prefill of ``LM_CHECK["prompt"]`` tokens (after vlm's patch
+        prefix; whisper's frames in the encoder) and decode of the rest
+        against the forward over all of ``batch["tokens"]``: the decoded
+        logits and the forward's at the same positions, as numpy
+        arrays."""
         from repro_torch.models import lm
         from repro_torch.serve import engine
         s, n = LM_CHECK["prompt"], LM_CHECK["decoded"]
-        full, _ = lm.forward(model, cfg, {"tokens": toks})
-        cache, last = engine.prefill(model, cfg, {"tokens": toks[:, :s]},
-                                     s + n + 4)
+        toks = batch["tokens"]
+        pl = lm.prefix_slots(cfg)
+        full, _ = lm.forward(model, cfg, batch)
+        cache, last = engine.prefill(model, cfg, dict(batch,
+                                                      tokens=toks[:, :s]),
+                                     pl + s + n + 4)
         steps = [last[:, -1]]
         for i in range(s, s + n):
             logits, cache = lm.decode_step(model, cfg, cache,
-                                           toks[:, i:i + 1], i)
+                                           toks[:, i:i + 1], pl + i, pl)
             steps.append(logits[:, 0])
         return self.torch.stack(steps, 1).cpu().numpy(), \
             full[:, s - 1:].cpu().numpy()
@@ -1552,9 +1667,12 @@ class Smoke:
               f"{cfg.name}: row_gather launched {counts['row_gather']} times "
               f"in {spec['steps']} steps, expected {per_step} a step")
         n = sum(p.numel() for p in model.parameters())
+        n_enc = sum(p.numel() for name, p in model.named_parameters()
+                    if name.startswith("enc_"))
         tokens = spec["batch"] * spec["seq"]
         step_ms = statistics.median(m["step_time"] for m in metrics[1:]) * 1e3
-        flops = 6 * n * tokens
+        flops, counted = train_flops(cfg, n_enc, n - n_enc, spec["batch"],
+                                     spec["seq"])
         log(f"[train] {cfg.name} ({cfg.num_layers} layers, {n} parameters, "
             f"remat {cfg.remat}) Trainer.run {spec['steps']} steps in "
             f"{wall:.2f} s: losses {[round(x, 4) for x in losses]}; kernel "
@@ -1564,7 +1682,8 @@ class Smoke:
             f"{spec['seq']}: step {step_ms:.4f} ms (median of steps 2-"
             f"{spec['steps']}, host clock), {tokens / step_ms * 1e3:.1f} "
             f"tokens/s, 6 N tokens / step = {flops / step_ms * 1e3:.4e} "
-            f"FLOP/s = {flops / step_ms * 1e3 / BF16_OPS_PER_S:.4f} of the "
+            f"FLOP/s ({counted}) = "
+            f"{flops / step_ms * 1e3 / BF16_OPS_PER_S:.4f} of the "
             f"bf16 dense peak; first step {metrics[0]['step_time'] * 1e3:.1f} "
             f"ms; peak memory {peak} B (above the {base} B held before)")
         step_fn = loop.make_train_step(cfg, tc.opt)

@@ -109,17 +109,21 @@ def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
     """The port's model (:class:`repro_torch.models.lm.LM`) holding the
     weights of the JAX package's ``materialize_init(lm.init_model, key,
     cfg)`` values, handed over as a nested dict of numpy arrays.  Layer
-    leaves are stacked on a leading layer axis (``scan_layers=True``) and
-    are unstacked into one module per layer; every array keeps its dtype.
+    leaves (``layers``, and whisper's ``enc_layers``) are stacked on a
+    leading layer axis (``scan_layers=True``) and are unstacked into one
+    module per layer; every array keeps its dtype.
     ``device`` defaults to ``"cuda"``, which raises when no CUDA device
     exists."""
     from repro_torch.core.engine import resolve_device
     from repro_torch.models import lm
     dev = resolve_device(device)
     values = pr.tree_map(lambda a: _tensor(a, dev), dict(tree))
-    stacked = values["layers"]
-    values["layers"] = [pr.tree_map(lambda t, i=i: t[i], stacked)
-                        for i in range(cfg.num_layers)]
+    for key, n in (("layers", cfg.num_layers),
+                   ("enc_layers", cfg.enc_layers)):
+        if key in values:
+            stacked = values[key]
+            values[key] = [pr.tree_map(lambda t, i=i: t[i], stacked)
+                           for i in range(n)]
     return lm.LM(cfg, values)
 
 

@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --batch 4 --prompt-len 32 --steps 16
 
-A port of the JAX package's ``launch/serve.py`` for the ``dense``,
-``moe``, ``ssm`` (``--arch rwkv6-3b``) and ``hybrid`` (``--arch
-zamba2-1.2b``) families, with the same flags and ``[serve]`` lines, plus
-``--device`` (default ``cuda``, which raises where torch sees no CUDA
-device) and ``--seed`` (of the weights and the prompt).  ``--reduced`` is
+A port of the JAX package's ``launch/serve.py`` for every family (``--arch
+rwkv6-3b``, ``zamba2-1.2b``, ``whisper-small``, ``paligemma-3b`` among
+them), with the same flags and ``[serve]`` lines, plus ``--device``
+(default ``cuda``, which raises where torch sees no CUDA device) and
+``--seed`` (of the weights, the prompt and whisper's frames or
+paligemma's patch embeddings, standard normal float32, as the
+reference's stubbed frontends take them).  ``--reduced`` is
 on by default, as there; ``--no-reduced`` serves the published widths.
 ``main(argv)`` returns the generated tokens.
 """
@@ -22,6 +24,20 @@ from repro_torch.configs import get_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import engine
+
+
+def frontend_inputs(cfg, batch: int, generator: torch.Generator) -> dict:
+    """The stubbed frontends' inputs, standard normal float32 drawn from
+    ``generator`` on its device: paligemma's patch embeddings
+    ``prefix_embeds`` (batch, num_prefix, D), whisper's frame embeddings
+    ``enc_frames`` (batch, enc_len, D); none for the text-only families."""
+    shapes = {"vlm": ("prefix_embeds", cfg.num_prefix),
+              "encdec": ("enc_frames", cfg.enc_len)}
+    if cfg.family not in shapes:
+        return {}
+    key, n = shapes[cfg.family]
+    return {key: torch.randn((batch, n, cfg.d_model), generator=generator,
+                             device=generator.device, dtype=torch.float32)}
 
 
 def main(argv=None) -> torch.Tensor:
@@ -45,8 +61,9 @@ def main(argv=None) -> torch.Tensor:
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
         device=dev, dtype=torch.int32)}
+    batch.update(frontend_inputs(cfg, args.batch, gen))
 
-    max_len = args.prompt_len + args.steps + 4
+    max_len = lm.prefix_slots(cfg) + args.prompt_len + args.steps + 4
     t0 = time.perf_counter()
     with torch.inference_mode():
         toks, _ = engine.generate(model, cfg, batch, steps=args.steps,

@@ -3,10 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --preset tiny --steps 100
 
-A port of the JAX package's ``launch/train.py`` for the ``dense``,
-``moe``, ``ssm`` (``--arch rwkv6-3b``) and ``hybrid`` (``--arch
-zamba2-1.2b``) families, with the same flags, ``PRESETS`` and ``[train]`` lines,
-plus ``--device`` (default ``cuda``, which raises where torch sees no CUDA
+A port of the JAX package's ``launch/train.py`` for every family (``--arch
+rwkv6-3b``, ``zamba2-1.2b``, ``whisper-small``, ``paligemma-3b`` among
+them), with the same flags, ``PRESETS`` and ``[train]`` lines, plus
+``--device`` (default ``cuda``, which raises where torch sees no CUDA
 device).  Presets scale the architecture's family to a size trainable on
 one device; ``--full`` uses the published config unchanged (granite-3-2b
 fits one H100).  The mesh is the local one of ``--device``'s type and

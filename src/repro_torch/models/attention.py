@@ -3,15 +3,14 @@ decode path over an externally managed KV cache (the JAX package's
 ``models/attention.py``).
 
 Plain torch einsums and a float32 softmax, as the reference computes
-attention outside any Pallas kernel.  ``cross_attention`` (whisper) waits
-with the encdec family (ROADMAP item 17).
+attention outside any Pallas kernel.  ``cross_attention`` is whisper's
+decoder reading the encoder's output: no RoPE and no mask.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models import not_ported
 from repro_torch.models import params as pr
 
 NEG_INF = -2.0 ** 30
@@ -127,5 +126,26 @@ def attention_decode(p, x, cache, *, cfg, kind: str, cur_pos: int,
     return out, {"k": k, "v": v}
 
 
-def cross_attention(*args, **kwargs):
-    raise not_ported("encdec")
+def cross_kv(p, kv_src):
+    """The cross attention's k/v (B, T_enc, Kh, Dh) of the encoder's
+    output ``kv_src``, in its dtype."""
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(kv_src.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(kv_src.dtype))
+    return k, v
+
+
+def cross_attention_kv(p, x, k, v, *, cfg):
+    """x (B, S, D) attending to every position of the encoder's k/v: a
+    zero float32 (B, S, T_enc) mask through :func:`_sdpa`."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = q * (cfg.head_dim ** -0.5)
+    zero = torch.zeros((x.shape[0], x.shape[1], k.shape[1]),
+                       dtype=torch.float32, device=x.device)
+    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), zero, cfg.logit_softcap)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def cross_attention(p, x, kv_src, *, cfg):
+    """Encoder-decoder cross attention (whisper). No RoPE, no mask."""
+    k, v = cross_kv(p, kv_src.to(x.dtype))
+    return cross_attention_kv(p, x, k, v, cfg=cfg)

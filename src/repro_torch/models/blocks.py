@@ -1,13 +1,14 @@
 """Per-family transformer blocks: init + full-sequence apply + decode apply
 (the JAX package's ``models/blocks.py``).
 
-The ``dense`` and ``moe`` families share :class:`DenseLayer`; the port
-loops over its layers in Python, so gemma3's 5:1 local:global pattern is a
-per-layer ``kind_flag`` read on the host, not a ``lax.switch``.  The
-``ssm`` family (rwkv6) has :class:`RwkvLayer`, the ``hybrid`` family
-(zamba2) :class:`MambaLayer` and the weight-tied
-:class:`SharedAttnBlock`.  The ``encdec`` blocks are not ported yet and
-raise, citing their ROADMAP item.
+The ``dense``, ``moe`` and ``vlm`` families share :class:`DenseLayer`
+(``vlm``, paligemma, with the prefix-LM mask); the port loops over its
+layers in Python, so gemma3's 5:1 local:global pattern is a per-layer
+``kind_flag`` read on the host, not a ``lax.switch``.  The ``ssm`` family
+(rwkv6) has :class:`RwkvLayer`, the ``hybrid`` family (zamba2)
+:class:`MambaLayer` and the weight-tied :class:`SharedAttnBlock`, the
+``encdec`` family (whisper) :class:`EncoderLayer` and
+:class:`DecoderLayer`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
-from repro_torch.models import not_ported
 from repro_torch.models import params as pr
 from repro_torch.models import rwkv6 as R6
 
@@ -54,6 +54,8 @@ def _ffn(p, x, cfg):
 def dense_layer(p, x, *, cfg, kind_flag: int, positions,
                 prefix_len: int = 0, return_kv: bool = False):
     kind, theta = _attn_kind(cfg, kind_flag)
+    if cfg.family == "vlm":
+        kind = "prefix"
     h = A.attention(p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
                     cfg=cfg, kind=kind, positions=positions, theta=theta,
                     prefix_len=prefix_len, return_kv=return_kv)
@@ -70,6 +72,8 @@ def dense_layer(p, x, *, cfg, kind_flag: int, positions,
 def dense_layer_decode(p, x, cache, *, cfg, kind_flag: int, cur_pos: int,
                        prefix_len: int = 0, ring: bool = False):
     kind, theta = _attn_kind(cfg, kind_flag)
+    if cfg.family == "vlm":
+        kind = "prefix"
     h, cache = A.attention_decode(
         p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps), cache,
         cfg=cfg, kind=kind, cur_pos=cur_pos, theta=theta,
@@ -80,7 +84,7 @@ def dense_layer_decode(p, x, cache, *, cfg, kind_flag: int, cur_pos: int,
 
 
 class DenseLayer(pr.Tree):
-    """One dense or MoE layer's parameters (``ln_attn``, ``attn``,
+    """One dense, MoE or vlm layer's parameters (``ln_attn``, ``attn``,
     ``ln_mlp`` and ``mlp`` or ``moe``) and its two applications."""
 
     def forward(self, x, **kw):
@@ -189,22 +193,85 @@ class SharedAttnBlock(pr.Tree):
         return shared_attn_block_decode(self, x, cache, **kw)
 
 
-# ------------------------------------ encdec: not ported yet (item 17)
-def init_encoder_layer(*args, **kwargs):
-    raise not_ported("encdec")
+# ------------------------------------------------------------------- encdec
+def init_encoder_layer(generator, cfg) -> dict:
+    return {
+        "ln_attn": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "attn": A.init_attention(generator, cfg),
+        "ln_mlp": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "mlp": MLP.init_mlp(generator, cfg),
+    }
 
 
-def encoder_layer(*args, **kwargs):
-    raise not_ported("encdec")
+def encoder_layer(p, x, *, cfg, positions):
+    """Bidirectional self-attention (RoPE over the frame positions) and the
+    MLP."""
+    h = A.attention(p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
+                    cfg=cfg, kind="bidir", positions=positions)
+    x = x + h
+    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    return x + h
 
 
-def init_decoder_layer(*args, **kwargs):
-    raise not_ported("encdec")
+def init_decoder_layer(generator, cfg) -> dict:
+    return {
+        "ln_self": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "self_attn": A.init_attention(generator, cfg),
+        "ln_cross": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "cross_attn": A.init_attention(generator, cfg),
+        "ln_mlp": L.init_rmsnorm(generator, cfg.d_model, cfg.param_dtype),
+        "mlp": MLP.init_mlp(generator, cfg),
+    }
 
 
-def decoder_layer(*args, **kwargs):
-    raise not_ported("encdec")
+def decoder_layer(p, x, enc_out, *, cfg, positions, return_kv: bool = False):
+    """Causal self-attention, cross attention on ``enc_out``, the MLP.
+    ``return_kv``: also (self k, self v, cross k, cross v)."""
+    h = A.attention(p["self_attn"], L.rmsnorm(p["ln_self"], x, cfg.norm_eps),
+                    cfg=cfg, kind="causal", positions=positions,
+                    return_kv=return_kv)
+    kv = None
+    if return_kv:
+        h, kv = h
+    x = x + h
+    xin = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+    ck, cv = A.cross_kv(p["cross_attn"], enc_out.to(x.dtype))
+    x = x + A.cross_attention_kv(p["cross_attn"], xin, ck, cv, cfg=cfg)
+    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    if return_kv:
+        return x + h, (kv[0], kv[1], ck, cv)
+    return x + h
 
 
-def decoder_layer_decode(*args, **kwargs):
-    raise not_ported("encdec")
+def decoder_layer_decode(p, x, cache, enc_kv, *, cfg, cur_pos: int):
+    """One token: self-attention over ``cache`` (written in place), cross
+    attention against the encoder's cached ``enc_kv`` k/v."""
+    h, cache = A.attention_decode(
+        p["self_attn"], L.rmsnorm(p["ln_self"], x, cfg.norm_eps), cache,
+        cfg=cfg, kind="causal", cur_pos=cur_pos)
+    x = x + h
+    xin = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+    x = x + A.cross_attention_kv(p["cross_attn"], xin, enc_kv["k"],
+                                 enc_kv["v"], cfg=cfg)
+    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    return x + h, cache
+
+
+class EncoderLayer(pr.Tree):
+    """One whisper encoder layer's parameters (``ln_attn``, ``attn``,
+    ``ln_mlp``, ``mlp``)."""
+
+    def forward(self, x, **kw):
+        return encoder_layer(self, x, **kw)
+
+
+class DecoderLayer(pr.Tree):
+    """One whisper decoder layer's parameters (``ln_self``, ``self_attn``,
+    ``ln_cross``, ``cross_attn``, ``ln_mlp``, ``mlp``) and its two
+    applications."""
+
+    def forward(self, x, enc_out, **kw):
+        return decoder_layer(self, x, enc_out, **kw)
+
+    def decode(self, x, cache, enc_kv, **kw):
+        return decoder_layer_decode(self, x, cache, enc_kv, **kw)

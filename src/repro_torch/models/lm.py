@@ -1,20 +1,29 @@
-"""Top-level language model: init / forward / loss / decode for the
-``dense``, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families (the
-JAX package's ``models/lm.py``).
+"""Top-level language model: init / forward / loss / decode for every
+family: ``dense``, ``moe``, ``ssm`` (rwkv6), ``hybrid`` (zamba2),
+``encdec`` (whisper) and ``vlm`` (paligemma) (the JAX package's
+``models/lm.py``).
 
 The reference scans its layers over parameters stacked on a leading
 "layers" axis; the port keeps one layer module per layer
-(:class:`~repro_torch.models.blocks.DenseLayer`, ``RwkvLayer`` or
-``MambaLayer``) in an ``nn.ModuleList`` and loops over them in Python,
-reading each layer's kind (gemma3's 5:1 local:global) on the host.  The
-hybrid family's weight-tied ``SharedAttnBlock`` is one module, ``shared``,
-beside ``embed`` and ``final_norm``, applied after every
-``shared_attn_every``-th layer.  Under autograd each layer runs under
-``cfg.remat``, as the reference's ``_remat`` wraps its scan body (for
-hybrid the shared block inside it): ``"full"`` recomputes the whole layer
-in the backward, ``"dots"`` keeps the matrix products' outputs and
-recomputes the rest, ``"none"`` keeps everything.  The ``encdec`` and
-``vlm`` families raise, citing their ROADMAP item.
+(:class:`~repro_torch.models.blocks.DenseLayer`, ``RwkvLayer``,
+``MambaLayer`` or ``DecoderLayer``) in an ``nn.ModuleList`` and loops over
+them in Python, reading each layer's kind (gemma3's 5:1 local:global) on
+the host.  The hybrid family's weight-tied ``SharedAttnBlock`` is one
+module, ``shared``, beside ``embed`` and ``final_norm``, applied after
+every ``shared_attn_every``-th layer; the encdec family's encoder is a
+second list, ``enc_layers`` (``EncoderLayer``), and its ``enc_norm``.
+Under autograd each layer runs under ``cfg.remat``, as the reference's
+``_remat`` wraps its scan body (for hybrid the shared block inside it):
+``"full"`` recomputes the whole layer in the backward, ``"dots"`` keeps
+the matrix products' outputs and recomputes the rest, ``"none"`` keeps
+everything.
+
+The vlm family puts ``prefix_embeds`` (B, P, D), unscaled, in front of
+the token embeddings; its layers attend with the prefix-LM mask (full
+attention within the prefix) and the logits are those of the last ``S``
+positions.  The encdec family runs the bidirectional encoder over
+``enc_frames`` (B, T_enc, D) once; each decoder layer attends causally to
+the tokens and, through ``cross_attention``, to the encoder's output.
 
 The recurrent families carry states, not a growing KV cache: rwkv6 the
 ``wkv`` (L, B, H, K, K) float32 state and two token-shift carries; zamba2
@@ -37,7 +46,6 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
-from repro_torch.models import not_ported
 from repro_torch.models import params as pr
 
 
@@ -73,13 +81,15 @@ def layer_runs(kinds: np.ndarray) -> list[tuple[int, int, int, int]]:
 # family -> (layer init, layer class)
 _LAYERS = {"dense": (B.init_dense_layer, B.DenseLayer),
            "moe": (B.init_dense_layer, B.DenseLayer),
+           "vlm": (B.init_dense_layer, B.DenseLayer),
            "ssm": (B.init_rwkv_layer, B.RwkvLayer),
-           "hybrid": (B.init_mamba_layer, B.MambaLayer)}
+           "hybrid": (B.init_mamba_layer, B.MambaLayer),
+           "encdec": (B.init_decoder_layer, B.DecoderLayer)}
 
 
 def check_family(cfg) -> None:
     if cfg.family not in _LAYERS:
-        raise not_ported(cfg.family)
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _has_shared(cfg) -> bool:
@@ -114,15 +124,18 @@ def _remat(fn, cfg):
 # --------------------------------------------------------------------- model
 class LM(nn.Module):
     """The model's parameters: ``embed`` (V, D), ``final_norm``, ``layers``
-    (one layer module of the family each), untied ``lm_head`` (D, V) and,
-    for hybrid, ``shared`` (the weight-tied attention block)."""
+    (one layer module of the family each), untied ``lm_head`` (D, V), for
+    hybrid ``shared`` (the weight-tied attention block) and for encdec
+    ``enc_layers`` (one ``EncoderLayer`` each) and ``enc_norm``."""
 
     def __init__(self, cfg, values: Mapping, axes: Mapping | None = None):
         super().__init__()
         check_family(cfg)
-        if len(values["layers"]) != cfg.num_layers:
-            raise ValueError(f"{len(values['layers'])} layers given, "
-                             f"{cfg.name} has {cfg.num_layers}")
+        for key, n in (("layers", cfg.num_layers),
+                       ("enc_layers", cfg.enc_layers)):
+            if key in values and len(values[key]) != n:
+                raise ValueError(f"{len(values[key])} {key} given, "
+                                 f"{cfg.name} has {n}")
         self.cfg = cfg
         self.axes = axes     # logical axes, stacked layout (None if unknown)
         self.embed = nn.Parameter(values["embed"], requires_grad=False)
@@ -134,6 +147,10 @@ class LM(nn.Module):
                                         requires_grad=False)
         if _has_shared(cfg):
             self.shared = B.SharedAttnBlock(values["shared"])
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                B.EncoderLayer(v) for v in values["enc_layers"])
+            self.enc_norm = pr.Tree(values["enc_norm"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -150,6 +167,9 @@ class LM(nn.Module):
             out["lm_head"] = self.lm_head
         if _has_shared(self.cfg):
             out["shared"] = self.shared.tree()
+        if self.cfg.family == "encdec":
+            out["enc_layers"] = [layer.tree() for layer in self.enc_layers]
+            out["enc_norm"] = self.enc_norm.tree()
         return out
 
 
@@ -177,9 +197,14 @@ def init_model(cfg, *, generator: torch.Generator | None = None,
                                      ("embed", "vocab"), pdt)
     if _has_shared(cfg):
         ptree["shared"] = B.init_shared_attn_block(g, cfg)
+    if cfg.family == "encdec":
+        ptree["enc_layers"] = [B.init_encoder_layer(g, cfg)
+                               for _ in range(cfg.enc_layers)]
+        ptree["enc_norm"] = L.init_rmsnorm(g, cfg.d_model, pdt)
     values, axes = pr.split_ptree(ptree)
-    axes["layers"] = pr.tree_map(lambda a: ("layers",) + a,
-                                 axes["layers"][0])
+    for key in ("layers", "enc_layers"):
+        if key in axes:
+            axes[key] = pr.tree_map(lambda a: ("layers",) + a, axes[key][0])
     return LM(cfg, values, axes)
 
 
@@ -221,15 +246,44 @@ def shared_after(cfg, i: int) -> bool:
     return bool(k) and i % k == k - 1
 
 
+def prefix_slots(cfg) -> int:
+    """The positions in front of the tokens: vlm's ``num_prefix`` patch
+    tokens, none for the other families.  A vlm cache holds them in its
+    first slots, so decoding starts at ``prefix_slots + prompt``."""
+    return cfg.num_prefix if cfg.family == "vlm" else 0
+
+
+def embed_inputs(p, cfg, batch):
+    """The first layer's input and its positions: the token embeddings
+    and, for vlm, ``prefix_embeds`` (cast, not scaled) in front of them ->
+    (x (B, P + S, D), positions, prefix_len P)."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(p, cfg, tokens)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        prefix = batch["prefix_embeds"].to(cfg.compute_dtype)
+        x = torch.cat([prefix, x], dim=1)
+        prefix_len = prefix.shape[1]
+    return x, positions_for(x.shape[0], x.shape[1], x.device), prefix_len
+
+
+def encode(p, cfg, enc_frames):
+    """The encdec encoder over ``enc_frames`` (B, T_enc, D): every layer
+    (each under ``cfg.remat``) and ``enc_norm``."""
+    e = enc_frames.to(cfg.compute_dtype)
+    positions = positions_for(e.shape[0], e.shape[1], e.device)
+    for layer in p["enc_layers"]:
+        e = _remat(layer, cfg)(e, cfg=cfg, positions=positions)
+    return L.rmsnorm(p["enc_norm"], e, cfg.norm_eps)
+
+
 def forward(p, cfg, batch):
     """Full-sequence forward -> (logits (B,S,V), aux dict).
 
-    batch: tokens (B,S) int32."""
+    batch: tokens (B,S) int32 [+ prefix_embeds (B,P,D) for vlm,
+    enc_frames (B,T_enc,D) for encdec]."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = _embed_tokens(p, cfg, tokens)
-    positions = positions_for(b, s, tokens.device)
+    x, positions, prefix_len = embed_inputs(p, cfg, batch)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
     if cfg.family == "ssm":
@@ -239,14 +293,19 @@ def forward(p, cfg, batch):
         for i, layer in enumerate(p["layers"]):
             shared = p["shared"] if shared_after(cfg, i) else None
             x = _remat(_hybrid_body, cfg)(layer, shared, x, cfg, positions)
+    elif cfg.family == "encdec":
+        enc_out = encode(p, cfg, batch["enc_frames"])
+        for layer in p["layers"]:
+            x = _remat(layer, cfg)(x, enc_out, cfg=cfg, positions=positions)
     else:
         for layer, kind in zip(p["layers"], layer_kinds(cfg)):
             x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
-                                          positions=positions)
+                                          positions=positions,
+                                          prefix_len=prefix_len)
             for k, v in aux_i.items():
                 aux[k] = aux[k] + v
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return _logits(p, cfg, x), aux
+    return _logits(p, cfg, x[:, prefix_len:]), aux
 
 
 # --------------------------------------------------------------------- loss
@@ -292,7 +351,9 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, *,
     hybrid: ``ssm`` (L, B, H, P, N) float32, ``conv`` (L, B, 3, C) and,
     with a shared block, ``shared_k``/``shared_v`` (one KV history per
     application: ``num_layers // shared_attn_every``, B, max_len, Kh,
-    Dh)."""
+    Dh).  vlm: as dense (the prefix takes the first ``num_prefix``
+    slots).  encdec: ``k``/``v`` of the decoder layers and the encoder's
+    ``cross_k``/``cross_v`` (L, B, enc_len, Kh, Dh)."""
     check_family(cfg)
     dtype = dtype or cfg.compute_dtype
     dev = resolve_device(device)
@@ -335,13 +396,17 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, *,
         for key in ("k", "v"):
             cache[key] = torch.zeros((n_global, batch_size, max_len, kh, hd),
                                      dtype=dtype, device=dev)
+    if cfg.family == "encdec":
+        for key in ("cross_k", "cross_v"):
+            cache[key] = zeros((n_layers, batch_size, cfg.enc_len, kh, hd))
     return cache
 
 
 def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0):
     """One token for every sequence. tokens (B, 1) int32; cur_pos the
-    current write position.  Writes the cache in place and returns
-    (logits (B,1,V), cache)."""
+    current write position (for vlm counted from the first prefix slot,
+    ``prefix_len`` the prefix's length).  Writes the cache in place and
+    returns (logits (B,1,V), cache)."""
     check_family(cfg)
     cur_pos = int(cur_pos)
     x = _embed_tokens(p, cfg, tokens)
@@ -366,6 +431,12 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0):
                     x, {"k": cache["shared_k"][si],
                         "v": cache["shared_v"][si]}, cfg=cfg,
                     cur_pos=cur_pos)
+    elif cfg.family == "encdec":
+        for i, layer in enumerate(p["layers"]):
+            x, _ = layer.decode(
+                x, {"k": cache["k"][i], "v": cache["v"][i]},
+                {"k": cache["cross_k"][i], "v": cache["cross_v"][i]},
+                cfg=cfg, cur_pos=cur_pos)
     else:
         x = _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)

@@ -1,9 +1,10 @@
 """Batched LM serving engine: prefill + decode over the model's cache
-(the JAX package's ``serve/engine.py``, for the ``dense``, ``moe``,
-``ssm`` and ``hybrid`` families).
+(the JAX package's ``serve/engine.py``, for every family).
 
 ``prefill`` replays the forward's layer bodies: with ``return_kv=True`` so
-each attention layer's k/v lands in the cache, and for the recurrent
+each attention layer's k/v lands in the cache (for vlm the patch prefix's
+too, in the first ``P`` slots; for encdec also each decoder layer's cross
+k/v of the encoder's output, computed once), and for the recurrent
 families each layer's final states (rwkv6's ``wkv`` and token-shift
 carries, Mamba2's SSD state and conv tail; the KV of each application of
 zamba2's shared block in its own history); ``decode_step``
@@ -23,12 +24,9 @@ from repro_torch.models import lm
 
 def prefill(p, cfg, batch, max_len: int):
     """Run the prompt, returning (cache, last_logits (B, 1, V))."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    dev = tokens.device
-    x = lm._embed_tokens(p, cfg, tokens)
-    positions = lm.positions_for(b, s, dev)
-    cache = lm.init_cache(cfg, b, max_len, device=dev)
+    x, positions, prefix_len = lm.embed_inputs(p, cfg, batch)
+    b, s = positions.shape
+    cache = lm.init_cache(cfg, b, max_len, device=x.device)
     if cfg.family == "ssm":
         for i, layer in enumerate(p["layers"]):
             x, states = layer(x, cfg=cfg)
@@ -45,13 +43,23 @@ def prefill(p, cfg, batch, max_len: int):
                                         return_kv=True)
                 cache["shared_k"][si, :, :s] = k
                 cache["shared_v"][si, :, :s] = v
+    elif cfg.family == "encdec":
+        enc_out = lm.encode(p, cfg, batch["enc_frames"])
+        for i, layer in enumerate(p["layers"]):
+            x, (k, v, ck, cv) = layer(x, enc_out, cfg=cfg,
+                                      positions=positions, return_kv=True)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+            cache["cross_k"][i] = ck
+            cache["cross_v"][i] = cv
     else:
-        x = _prefill_attention_layers(p, cfg, cache, x, positions)
+        x = _prefill_attention_layers(p, cfg, cache, x, positions,
+                                      prefix_len)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return cache, lm._logits(p, cfg, x[:, -1:, :])
 
 
-def _prefill_attention_layers(p, cfg, cache, x, positions):
+def _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len):
     s = x.shape[1]
     dev = x.device
     if "k_local" in cache:   # ring stacks (sliding-window layers)
@@ -65,7 +73,8 @@ def _prefill_attention_layers(p, cfg, cache, x, positions):
     for layer, kind in zip(p["layers"], lm.layer_kinds(cfg)):
         kind = int(kind)
         x, _, (k, v) = layer(x, cfg=cfg, kind_flag=kind,
-                             positions=positions, return_kv=True)
+                             positions=positions, prefix_len=prefix_len,
+                             return_kv=True)
         i = seen[kind]
         seen[kind] += 1
         if kind == 0:        # full-length stacks (global layers)
@@ -85,8 +94,10 @@ def generate(p, cfg, batch, steps: int, max_len: int,
     ``temperature == 0`` is greedy (``argmax``, the first of equal maxima);
     otherwise each token is drawn with ``torch.multinomial`` from the
     softmax of the logits over ``temperature``, using ``generator`` (on the
-    tokens' device) when one is given."""
+    tokens' device) when one is given.  For vlm, ``max_len`` counts the
+    ``num_prefix`` patch slots too."""
     s = batch["tokens"].shape[1]
+    prefix_len = lm.prefix_slots(cfg)
     cache, last_logits = prefill(p, cfg, batch, max_len)
 
     def sample(logits):
@@ -100,7 +111,8 @@ def generate(p, cfg, batch, steps: int, max_len: int,
     tok = sample(last_logits)
     out = [tok]
     for i in range(steps - 1):
-        logits, cache = lm.decode_step(p, cfg, cache, tok[:, None], s + i)
+        logits, cache = lm.decode_step(p, cfg, cache, tok[:, None],
+                                       s + prefix_len + i, prefix_len)
         tok = sample(logits)
         out.append(tok)
     return torch.stack(out, dim=1), cache

@@ -58,7 +58,8 @@ def _one_thread():
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b",
-                                  "rwkv6_3b", "zamba2_1p2b"])
+                                  "rwkv6_3b", "zamba2_1p2b", "whisper_small",
+                                  "paligemma_3b"])
 def test_payload_layout_is_the_references(arch, dtype, quantize, tmp_path):
     rcfg = rget_config(arch).reduced().replace(
         param_dtype=getattr(jnp, dtype))
@@ -212,7 +213,8 @@ def test_train_loss_decreases_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b",
-                                  "rwkv6_3b", "zamba2_1p2b"])
+                                  "rwkv6_3b", "zamba2_1p2b", "whisper_small",
+                                  "paligemma_3b"])
 def test_resume_is_bitwise_the_straight_run(arch, tmp_path):
     cfg = get_config(arch).reduced()
     opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
@@ -302,3 +304,26 @@ def test_data_iterator_raises_the_workers_error():
             next(it)
     finally:
         it.close()
+
+
+def test_host_stacked_round_trips_the_encoder():
+    """whisper's ``enc_layers`` stack, load and cross to numpy and back
+    like ``layers``."""
+    cfg = get_config("whisper_small").reduced()
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(6),
+                          device="cpu")
+    stacked = convert.host_stacked(pr.stack_tree(model.tree()))
+    assert stacked["enc_layers"]["attn"]["wq"].shape == (
+        cfg.enc_layers, cfg.d_model, cfg.num_heads, cfg.head_dim)
+    assert stacked["layers"]["cross_attn"]["wk"].shape == (
+        cfg.num_layers, cfg.d_model, cfg.num_kv_heads, cfg.head_dim)
+    other = lm.init_model(cfg, generator=torch.Generator().manual_seed(7),
+                          device="cpu")
+    convert.load_stacked(other, stacked)
+    for a, b in zip(model.parameters(), other.parameters()):
+        assert torch.equal(a, b)
+    back = convert.lm_params_from_numpy(
+        cfg, convert.lm_params_to_numpy(model), device="cpu")
+    assert len(back.enc_layers) == cfg.enc_layers
+    for a, b in zip(model.parameters(), back.parameters()):
+        assert torch.equal(a, b)

@@ -1179,6 +1179,81 @@ def test_recurrent_loss_and_backward_on_card_match_cpu(arch):
                                    err_msg=k)
 
 
+# ------------------------------------------- encoder-decoder and vlm
+MODALITY = ("paligemma-3b", "whisper-small")
+
+
+def _modality_case(arch):
+    """A reduced float32 whisper (2 encoder layers over 16 frames) or
+    paligemma (8 patch tokens) on the CPU and its copy on the card, and a
+    ``synth_batch`` of 2 x 16 tokens with its frames or patches."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import lm
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = lm.init_model(cfg, generator=torch.Generator().manual_seed(6),
+                        device="cpu")
+    batch = synth_batch(cfg, 2, 16, step=0)
+    return dev, cfg, cpu, copy.deepcopy(cpu).to(dev), batch
+
+
+@pytest.mark.parametrize("arch", MODALITY)
+def test_modality_generate_on_card_matches_cpu(arch):
+    """Greedy ``generate`` of a reduced float32 whisper / paligemma on the
+    card and on the CPU from the same weights and inputs: the prefill's
+    logits and the final cache (paligemma's prefix slots, whisper's cross
+    k/v) within ``tests/test_serve.py``'s rule, the tokens equal."""
+    from repro_torch.serve import engine
+    dev, cfg, cpu, card, batch = _modality_case(arch)
+    batch = {k: v for k, v in batch.items() if k not in ("labels",
+                                                         "loss_mask")}
+    max_len = cfg.num_prefix + 16 + 8 + 4
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        b = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+        cache, last = engine.prefill(model, cfg, b, max_len)
+        out, fin = engine.generate(model, cfg, b, steps=8, max_len=max_len)
+        if where == dev:
+            got = (last.cpu(), out.cpu(), {k: v.cpu() for k, v in
+                                           fin.items()})
+    np.testing.assert_allclose(got[0].numpy(), last.numpy(), **SERVE_TOL)
+    assert torch.equal(got[1], out)
+    assert sorted(got[2]) == sorted(fin)
+    for k, v in fin.items():
+        np.testing.assert_allclose(got[2][k].float().numpy(),
+                                   v.float().numpy(), **SERVE_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", MODALITY)
+def test_modality_loss_and_backward_on_card_match_cpu(arch):
+    """``loss_fn`` + backward of a reduced float32 whisper / paligemma on
+    the card and on the CPU: the loss and every gradient leaf (whisper's
+    encoder included) within ``tests/test_serve.py``'s rule (atol times
+    the leaf's scale)."""
+    from repro_torch.models import lm
+    dev, cfg, cpu, card, batch = _modality_case(arch)
+    grads = []
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        model.requires_grad_(True)
+        loss, _ = lm.loss_fn(model, cfg, {k: torch.as_tensor(v, device=where)
+                                          for k, v in batch.items()})
+        loss.backward()
+        grads.append((float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                             model.named_parameters()}))
+    (lc, gc), (lw, gw) = grads
+    np.testing.assert_allclose(lc, lw, **SERVE_TOL)
+    assert sorted(gc) == sorted(gw)
+    for k, w in gw.items():
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(gc[k].numpy(), w.numpy(),
+                                   rtol=SERVE_TOL["rtol"],
+                                   atol=SERVE_TOL["atol"] * scale,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("block", [True, False])
 def test_checkpoint_round_trip_of_card_tensors(block, tmp_path):
     from repro_torch.checkpoint import checkpoint as ck

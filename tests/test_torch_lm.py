@@ -2,10 +2,11 @@
 ``serve.engine``, ``launch.serve``) against the JAX package.
 
 The reference's ``materialize_init`` weights cross into the port through
-``repro_torch.convert.lm_params_from_numpy``; tokens are made with numpy.
-At ``reduced()`` configs (float32, 2 layers, d 64; zamba2 6 layers, so
-its shared block runs once) for every ``dense``, ``moe``, ``ssm`` (rwkv6)
-and ``hybrid`` (zamba2) arch:
+``repro_torch.convert.lm_params_from_numpy``; tokens, whisper's encoder
+frames and paligemma's patch embeddings are made with numpy.  At
+``reduced()`` configs (float32, 2 layers, d 64; zamba2 6 layers, so its
+shared block runs once; whisper 2 encoder layers over 16 frames,
+paligemma 8 patch tokens) for every arch:
 
 * ``forward`` logits, teacher-forced ``prefill`` + ``decode_step`` (the
   reference's tokens fed, so a near-tie in argmax cannot cascade) and the
@@ -21,7 +22,10 @@ and ``hybrid`` (zamba2) arch:
 * the MoE dispatch: ``_dispatch_indices`` exactly, the dispatch buffer
   through ``row_gather`` bitwise that of the reference's scatter, ``moe``
   within the float32 tolerance once the routing is asserted equal, and
-  ``dispatch_pattern_stats`` equal.
+  ``dispatch_pattern_stats`` equal;
+* the encdec and vlm layers one by one: ``cross_attention``, the encoder
+  and decoder layers (full sequence and decode), and a vlm layer with a
+  prefix, which a causal mask on the same inputs fails.
 
 On the CPU the row gather runs its plain version; on the card the same
 layer runs the CUDA kernel (``tests/test_torch_cuda.py``).
@@ -36,6 +40,8 @@ import pytest
 import torch
 
 from repro.configs import get_config as rget_config
+from repro.models import attention as rattention
+from repro.models import blocks as rblocks
 from repro.models import layers as rlayers
 from repro.models import lm as rlm
 from repro.models import moe as rmoe
@@ -44,12 +50,13 @@ from repro.serve import engine as rengine
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.models import layers, lm, moe
+from repro_torch.models import attention, blocks, layers, lm, moe
+from repro_torch.models import params as pr
 from repro_torch.serve import engine
 
 LM_ARCHS = ["granite_3_2b", "gemma_7b", "gemma3_27b", "h2o_danube_3_4b",
             "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_3b",
-            "zamba2_1p2b"]
+            "zamba2_1p2b", "whisper_small", "paligemma_3b"]
 MOE_ARCHS = ["qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
 RTOL, ATOL = 1e-4, 1e-5
 SERVE_TOL = dict(rtol=2e-2, atol=2e-3)     # tests/test_serve.py
@@ -79,6 +86,21 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
+def modality_inputs(cfg, b: int, seed: int = 7) -> dict:
+    """The stubbed frontends' inputs, standard normal float32: vlm's
+    ``prefix_embeds`` (b, num_prefix, D), encdec's ``enc_frames`` (b,
+    enc_len, D); none for the text-only families."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = rng.standard_normal(
+            (b, cfg.num_prefix, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["enc_frames"] = rng.standard_normal(
+            (b, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
 @dataclasses.dataclass
 class Case:
     rcfg: object
@@ -86,6 +108,20 @@ class Case:
     vals: dict
     model: torch.nn.Module
     tokens: np.ndarray
+    extras: dict            # modality_inputs, numpy
+
+    @property
+    def prefix_len(self) -> int:
+        """The slots of vlm's patch prefix in front of the tokens."""
+        return lm.prefix_slots(self.cfg)
+
+    def jbatch(self, tokens) -> dict:
+        return {"tokens": jnp.asarray(tokens),
+                **{k: jnp.asarray(v) for k, v in self.extras.items()}}
+
+    def tbatch(self, tokens) -> dict:
+        return {"tokens": torch.as_tensor(tokens),
+                **{k: torch.as_tensor(v) for k, v in self.extras.items()}}
 
 
 @pytest.fixture(scope="module", params=LM_ARCHS)
@@ -98,11 +134,12 @@ def case(request):
                                  device="cpu")
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S_TOTAL)).astype(np.int32)
-    return Case(rcfg, cfg, vals, model, tokens)
+    return Case(rcfg, cfg, vals, model, tokens, modality_inputs(cfg, B))
 
 
-def _rdecode(rcfg):
-    return jax.jit(functools.partial(rlm.decode_step, cfg=rcfg))
+def _rdecode(rcfg, prefix_len: int = 0):
+    return jax.jit(functools.partial(rlm.decode_step, cfg=rcfg,
+                                     prefix_len=prefix_len))
 
 
 # ------------------------------------------------------------------ configs
@@ -154,34 +191,35 @@ def test_layer_functions_match_reference(fn):
 
 # ---------------------------------------------------------- whole model
 def test_forward_matches_reference(case):
-    want, raux = rlm.forward(case.vals, case.rcfg,
-                             {"tokens": jnp.asarray(case.tokens)})
-    got, aux = lm.forward(case.model, case.cfg,
-                          {"tokens": torch.as_tensor(case.tokens)})
+    want, raux = rlm.forward(case.vals, case.rcfg, case.jbatch(case.tokens))
+    got, aux = lm.forward(case.model, case.cfg, case.tbatch(case.tokens))
+    assert got.shape == (B, S_TOTAL, case.cfg.vocab_size)
     _close(got, want)
     for k in raux:
         _close(aux[k], raux[k])
 
 
 def test_teacher_forced_decode_matches_reference(case):
-    rcfg, cfg, toks = case.rcfg, case.cfg, case.tokens
+    rcfg, cfg, toks, pl = case.rcfg, case.cfg, case.tokens, case.prefix_len
+    max_len = pl + S_TOTAL + 4
     rcache, rlast = jax.jit(functools.partial(
-        rengine.prefill, cfg=rcfg, max_len=S_TOTAL + 4))(
-        case.vals, batch={"tokens": jnp.asarray(toks[:, :S_PROMPT])})
-    cache, last = engine.prefill(
-        case.model, cfg, {"tokens": torch.as_tensor(toks[:, :S_PROMPT])},
-        S_TOTAL + 4)
+        rengine.prefill, cfg=rcfg, max_len=max_len))(
+        case.vals, batch=case.jbatch(toks[:, :S_PROMPT]))
+    cache, last = engine.prefill(case.model, cfg,
+                                 case.tbatch(toks[:, :S_PROMPT]), max_len)
     _close(last, rlast)
     assert set(cache) == set(rcache)
     for key in cache:
+        assert cache[key].shape == rcache[key].shape, key
         _close(cache[key], rcache[key])
-    rstep = _rdecode(rcfg)
+    rstep = _rdecode(rcfg, pl)
     for i in range(S_PROMPT, S_TOTAL):
         want, rcache = rstep(case.vals, cache=rcache,
                              tokens=jnp.asarray(toks[:, i:i + 1]),
-                             cur_pos=jnp.int32(i))
+                             cur_pos=jnp.int32(pl + i))
         got, cache = lm.decode_step(case.model, cfg, cache,
-                                    torch.as_tensor(toks[:, i:i + 1]), i)
+                                    torch.as_tensor(toks[:, i:i + 1]),
+                                    pl + i, pl)
         _close(got, want, f"decode position {i}")
 
 
@@ -191,27 +229,29 @@ def test_decode_matches_forward(case):
     cfg = case.cfg
     if cfg.family == "moe":
         cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
-    toks = torch.as_tensor(case.tokens)
-    full, _ = lm.forward(case.model, cfg, {"tokens": toks})
+    toks, pl = torch.as_tensor(case.tokens), case.prefix_len
+    full, _ = lm.forward(case.model, cfg, case.tbatch(toks))
     cache, last = engine.prefill(case.model, cfg,
-                                 {"tokens": toks[:, :S_PROMPT]}, S_TOTAL + 4)
+                                 case.tbatch(toks[:, :S_PROMPT]),
+                                 pl + S_TOTAL + 4)
     np.testing.assert_allclose(last[:, -1].numpy(),
                                full[:, S_PROMPT - 1].numpy(), **SERVE_TOL)
     for i in range(S_PROMPT, S_TOTAL):
         step, cache = lm.decode_step(case.model, cfg, cache,
-                                     toks[:, i:i + 1], i)
+                                     toks[:, i:i + 1], pl + i, pl)
         np.testing.assert_allclose(step[:, 0].numpy(), full[:, i].numpy(),
                                    **SERVE_TOL, err_msg=f"step {i}")
 
 
 def test_generate_greedy_matches_reference(case):
     steps = 6
-    want, _ = rengine.generate(
-        case.vals, case.rcfg, {"tokens": jnp.asarray(case.tokens)},
-        steps=steps, max_len=S_TOTAL + steps + 4)
-    got, cache = engine.generate(
-        case.model, case.cfg, {"tokens": torch.as_tensor(case.tokens)},
-        steps=steps, max_len=S_TOTAL + steps + 4)
+    max_len = case.prefix_len + S_TOTAL + steps + 4
+    want, _ = rengine.generate(case.vals, case.rcfg,
+                               case.jbatch(case.tokens), steps=steps,
+                               max_len=max_len)
+    got, cache = engine.generate(case.model, case.cfg,
+                                 case.tbatch(case.tokens), steps=steps,
+                                 max_len=max_len)
     assert got.dtype == torch.int32 and got.shape == (B, steps)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -340,11 +380,152 @@ def test_dispatch_pattern_stats_equal(lane_width):
         assert got == want
 
 
+# ------------------------------------------------- encdec and vlm layers
+def _layer_params(init, rcfg, seed):
+    """A reference layer's random parameters, as jax arrays and as the
+    port's tensors."""
+    vals, _ = rpr.materialize_init(init, jax.random.PRNGKey(seed), rcfg)
+    return vals, pr.tree_map(lambda a: torch.tensor(np.asarray(a)),
+                             jax.tree.map(np.asarray, vals))
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _positions(b, s):
+    return np.tile(np.arange(s, dtype=np.int32), (b, 1))
+
+
+def test_cross_attention_matches_reference():
+    """Queries of 5 tokens against 11 encoder frames: no RoPE, no mask."""
+    rcfg = rget_config("whisper_small").reduced()
+    cfg = get_config("whisper_small").reduced()
+    jp, tp = _layer_params(rattention.init_attention, rcfg, 11)
+    x, enc = _normal((B, 5, cfg.d_model), 12), _normal((B, 11, cfg.d_model),
+                                                       13)
+    want = rattention.cross_attention(jp, jnp.asarray(x), jnp.asarray(enc),
+                                      cfg=rcfg)
+    got = attention.cross_attention(tp, torch.as_tensor(x),
+                                    torch.as_tensor(enc), cfg=cfg)
+    assert got.shape == (B, 5, cfg.d_model)
+    _close(got, want)
+    # every frame is attended: a frame changed moves every query's output
+    enc2 = enc.copy()
+    enc2[:, -1] += 1.0
+    moved = attention.cross_attention(tp, torch.as_tensor(x),
+                                      torch.as_tensor(enc2), cfg=cfg)
+    assert bool((moved - got).abs().amax(dim=-1).gt(0).all())
+
+
+def test_encoder_layer_matches_reference():
+    rcfg = rget_config("whisper_small").reduced()
+    cfg = get_config("whisper_small").reduced()
+    jp, tp = _layer_params(rblocks.init_encoder_layer, rcfg, 14)
+    x, pos = _normal((B, cfg.enc_len, cfg.d_model), 15), _positions(
+        B, cfg.enc_len)
+    want = rblocks.encoder_layer(jp, jnp.asarray(x), cfg=rcfg,
+                                 positions=jnp.asarray(pos), shd=None)
+    got = blocks.encoder_layer(tp, torch.as_tensor(x), cfg=cfg,
+                               positions=torch.as_tensor(pos))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["forward", "return_kv", "decode"])
+def test_decoder_layer_matches_reference(mode):
+    """The decoder layer over 6 tokens and 16 encoder frames; ``decode``:
+    one token at position 4 against a cache holding 4 earlier tokens
+    and the encoder's cross k/v."""
+    rcfg = rget_config("whisper_small").reduced()
+    cfg = get_config("whisper_small").reduced()
+    jp, tp = _layer_params(rblocks.init_decoder_layer, rcfg, 16)
+    enc = _normal((B, cfg.enc_len, cfg.d_model), 17)
+    if mode == "decode":
+        kh, hd, t = cfg.num_kv_heads, cfg.head_dim, 8
+        kv = {k: _normal((B, t, kh, hd), 18 + i) for i, k in enumerate(
+            ("k", "v"))}
+        for a in kv.values():
+            a[:, 4:] = 0.0
+        ekv = {k: _normal((B, cfg.enc_len, kh, hd), 20 + i)
+               for i, k in enumerate(("k", "v"))}
+        x = _normal((B, 1, cfg.d_model), 22)
+        want, wcache = rblocks.decoder_layer_decode(
+            jp, jnp.asarray(x), {k: jnp.asarray(a) for k, a in kv.items()},
+            {k: jnp.asarray(a) for k, a in ekv.items()}, cfg=rcfg,
+            cur_pos=4, shd=None)
+        tcache = {k: torch.tensor(a) for k, a in kv.items()}
+        got, cache = blocks.decoder_layer_decode(
+            tp, torch.as_tensor(x), tcache,
+            {k: torch.tensor(a) for k, a in ekv.items()}, cfg=cfg,
+            cur_pos=4)
+        _close(got, want)
+        for k in kv:
+            _close(cache[k], wcache[k], k)
+        return
+    x, pos = _normal((B, 6, cfg.d_model), 23), _positions(B, 6)
+    rk = mode == "return_kv"
+    want = rblocks.decoder_layer(jp, jnp.asarray(x), jnp.asarray(enc),
+                                 cfg=rcfg, positions=jnp.asarray(pos),
+                                 shd=None, return_kv=rk)
+    got = blocks.decoder_layer(tp, torch.as_tensor(x), torch.as_tensor(enc),
+                               cfg=cfg, positions=torch.as_tensor(pos),
+                               return_kv=rk)
+    if rk:
+        (want, wkv), (got, gkv) = want, got
+        assert len(gkv) == len(wkv) == 4
+        for g, w in zip(gkv, wkv):
+            assert tuple(g.shape) == w.shape
+            _close(g, w)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["forward", "decode"])
+def test_vlm_layer_with_a_prefix_matches_reference(mode):
+    """paligemma's layer under the prefix-LM mask: over 4 prefix and 6
+    token positions, and decoding at position 2 of a 6-slot prefix (the
+    slots after it still seen).  The same layer run causal (the dense
+    family's mask) on the same inputs fails the rule."""
+    rcfg = rget_config("paligemma_3b").reduced()
+    cfg = get_config("paligemma_3b").reduced()
+    causal = cfg.replace(family="dense")
+    jp, tp = _layer_params(rblocks.init_dense_layer, rcfg, 24)
+    if mode == "forward":
+        prefix, s = 4, 10
+        x, pos = _normal((B, s, cfg.d_model), 25), _positions(B, s)
+        want, _ = rblocks.dense_layer(jp, jnp.asarray(x), cfg=rcfg,
+                                      kind_flag=0, positions=jnp.asarray(pos),
+                                      shd=None, prefix_len=prefix)
+
+        def run(c):
+            return blocks.dense_layer(tp, torch.as_tensor(x), cfg=c,
+                                      kind_flag=0,
+                                      positions=torch.as_tensor(pos),
+                                      prefix_len=prefix)[0]
+    else:
+        prefix, cur, t = 6, 2, 8
+        kh, hd = cfg.num_kv_heads, cfg.head_dim
+        kv = {k: _normal((B, t, kh, hd), 26 + i)
+              for i, k in enumerate(("k", "v"))}
+        x = _normal((B, 1, cfg.d_model), 28)
+        want, _ = rblocks.dense_layer_decode(
+            jp, jnp.asarray(x), {k: jnp.asarray(a) for k, a in kv.items()},
+            cfg=rcfg, kind_flag=0, cur_pos=cur, shd=None, prefix_len=prefix)
+
+        def run(c):
+            cache = {k: torch.tensor(a) for k, a in kv.items()}
+            return blocks.dense_layer_decode(
+                tp, torch.as_tensor(x), cache, cfg=c, kind_flag=0,
+                cur_pos=cur, prefix_len=prefix)[0]
+    _close(run(cfg), want)
+    with pytest.raises(AssertionError):
+        _close(run(causal), want)
+
+
 # -------------------------------------------------------- port-only checks
-@pytest.mark.parametrize("arch", ["whisper_small", "paligemma_3b"])
-def test_other_families_raise_with_their_item(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[78]"):
+def test_unknown_family_raises():
+    cfg = get_config("granite_3_2b").reduced().replace(family="retnet")
+    with pytest.raises(ValueError, match="unknown model family"):
         lm.init_model(cfg, device="cpu")
 
 
@@ -377,3 +558,15 @@ def test_serve_launcher_on_cpu(capsys):
     out = capsys.readouterr().out
     assert toks.shape == (2, 3) and "[serve] arch=qwen3-moe-235b-a22b" in out
     assert "6 tokens in" in out
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "paligemma-3b"])
+def test_serve_launcher_draws_the_modality_inputs(arch, capsys):
+    """whisper's frames and paligemma's patches come from the launcher's
+    generator; paligemma's cache holds its prefix too."""
+    from repro_torch.launch import serve
+    toks = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "6",
+                       "--steps", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert toks.shape == (2, 3) and f"[serve] arch={arch}" in out
+    assert toks.dtype == torch.int32

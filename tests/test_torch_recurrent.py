@@ -16,7 +16,8 @@ magnitude of the reference's array (at least 1), as in
 * ``_causal_conv`` with and without a tail; ``mamba2_block`` chunked and
   as the decode recurrence;
 * ``init_model`` and ``init_cache`` leaf for leaf (shapes, dtypes, logical
-  axes) against the reference's;
+  axes) against the reference's, for whisper (its encoder stack and cross
+  k/v cache) and paligemma too;
 * rwkv6 whole over several chunks (forward, gradients, decode == forward);
 * zamba2 at 8 layers (not a multiple of ``shared_attn_every``): the port's
   decode equals the reference's *forward*; the reference's own decode
@@ -50,7 +51,8 @@ from repro_torch.serve import engine
 
 RTOL, ATOL = 1e-4, 1e-5
 SERVE_TOL = dict(rtol=2e-2, atol=2e-3)     # tests/test_serve.py
-ARCHS = ["rwkv6_3b", "zamba2_1p2b"]
+# the archs whose parameter and cache trees are held leaf for leaf
+ARCHS = ["rwkv6_3b", "zamba2_1p2b", "whisper_small", "paligemma_3b"]
 
 
 def _close(got, want, err_msg=""):
