@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving
 and training (dense, MoE, the recurrent rwkv6 and zamba2, the
-encoder-decoder whisper and the prefix-LM paligemma), the graph apps and
-concurrent query serving on the H100.
+encoder-decoder whisper and the prefix-LM paligemma), data-parallel
+training and the vocab-sharded decode embedding on simulated meshes, the
+graph apps and concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -148,7 +149,11 @@ entry points of the three standalone kernels at real sizes, and fails
    its design before the ``"add_all"`` combine (``PERF.md``);
 11. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
-   ladder's shapes) in a child process;
+   ladder's shapes), in three shares (every third test), each in a child
+   process while this one does untimed work: beside phases 3-4's checks,
+   beside the graph phase's generation and plan builds, and beside the
+   ``[shard]`` phase's graph builds; each is joined before the next timed
+   work;
 12. sharded execution (``[shard]``, run after the tuned path): simulated
    meshes (every shard on the one card: ``shards=k, simulate_mesh=True``
    for SpMV and SpMM, ``mesh=make_shard_mesh(k, device=..., simulate=True)``
@@ -207,6 +212,37 @@ entry points of the three standalone kernels at real sizes, and fails
    ``TRAIN_GRAD_TOL`` (the line says which), with the checkpoint's bytes
    and its save and restore seconds.
 
+14. data parallel (``[dp]``, run after ``[train]``): ``Trainer(mesh=...,
+   rules=default_rules(mesh)).run()`` on simulated meshes (every shard on
+   the one card), the parameters and AdamW moments ``Sharded`` pieces
+   (FSDP over ``data``), one ``LM`` replica a shard refilled by an
+   all-gather each step, the gradients reduce-scattered in float32.
+   granite-3-2b whole, bf16, 2 shards, batch 8 x 512, 6 steps: losses
+   finite, the last below the first; step ms, tokens/s, peak memory, a
+   device's share of the parameters and moments, the device busy ms of
+   the all-gather and of the reduce-scatter, and a profiled step.
+   qwen3-moe-235b-a22b at full width cut to 1 layer, bf16, 2 shards, batch
+   4 x 128, 4 steps (one dispatch group of 512 tokens across both
+   replicas): 6 ``row_gather`` launches a step counted, step 1's loss at
+   the tests' dense rule (``rtol=1e-4, atol=1e-5`` x scale) and its grad
+   norm at ``BF16_NORM_RULE`` of one device's.  In float32 at full width
+   (granite-3-2b cut to 8 layers): the state after step 1 at 2 shards
+   against one device on the same rows as 2 microbatches, every moment
+   and weight within the dense rule of its leaf's scale, steps 1-2's
+   loss and grad norm at the dense rule, and against one device on the
+   whole batch step 1's loss and grad norm, and every weight as AdamW's
+   first step on its own run's moments (where the moments part is
+   printed by leaf); an elastic restart (granite-3-2b at 2 layers,
+   float32: 3 steps at 2 shards with an async checkpoint, a fresh
+   single-device Trainer resumed to 6, against 6 straight at 2 shards,
+   each resumed step at the dense rule).  qwen3-moe-235b-a22b at 4 layers
+   decoding 16 greedy steps with ``decode_embed="psum"`` on a simulated
+   (1, 4) mesh: tokens, next logits and cache ``torch.equal`` to the
+   gather decode's, 4 ``row_gather`` launches a decode step for the
+   lookup (each held bitwise to the plain gather) counted with the MoE
+   layers', and the lookup timed beside the whole table's gather,
+   ``index_select`` and its bytes bound.
+
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
 line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
@@ -234,7 +270,15 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 REL_ERR_LIMIT = 1e-5
-CARD_TESTS_S = 900             # time limit of the card-test phase
+CARD_TESTS_S = 900             # time limit of a share of the card tests
+# the card tests run as 3 shares, each in a child process (2 CPU threads)
+# while this one does untimed work: share 0 beside the checks of phases
+# 3-4, share 1 beside the graph phase's generation and plan builds, share
+# 2 beside the [shard] phase's graph builds (a share's wait is logged)
+CARD_TEST_SHARES = 3
+# beside a host-clock reading taken while a share runs: such a reading is
+# not comparable with one taken with the card and the CPU to this process
+BESIDE_TESTS = "host clock, beside a share of the card tests"
 SEMIRINGS = (("add", np.float32), ("mul", np.float32), ("min", np.int32),
              ("max", np.int32))
 # the two SuiteSparse analogues of the paper's evaluation
@@ -309,6 +353,34 @@ TRAIN_CELLS = (
 TRAIN_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512,
                     steps=6, first=3)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
+# the [dp] phase: data-parallel training on simulated meshes (every shard on
+# the one card) with the default rules, and the psum decode embedding over a
+# simulated (1, model) mesh; widths published, "layers" cuts the depth
+DP_CELLS = (
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=6,
+         shards=2, compare=0),
+    # its first step's loss and grad norm held to one device's
+    dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=4,
+         shards=2, compare=1),
+)
+# float32, where the dense rule applies: in bf16 each replica's gradient is
+# rounded to 8 bits before the float32 reduce-scatter, where one device
+# rounds the whole batch's once (2^-9 of a gradient, past the rule's 1e-4);
+# the resume in float32 too
+DP_STATE = dict(arch="granite-3-2b", layers=8, batch=8, seq=512, steps=2,
+                shards=2)
+DP_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512, steps=6,
+                 first=3, shards=2)
+DP_DECODE = dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
+                 steps=16, model=4)
+# tests/test_torch_train.py's rule for a data-parallel step against one
+# device's: atol times the value's scale (at least 1)
+DENSE_RULE = dict(rtol=1e-4, atol=1e-5)
+# a bf16 data-parallel gradient is each replica's bf16 gradient summed in
+# float32, one device's the whole batch's rounded to bf16 once: an element
+# may part by 2^-9 of its replicas' parts, so a bf16 gradient norm is held
+# at 2^-8 of it
+BF16_NORM_RULE = dict(rtol=2.0 ** -8, atol=0.0)
 # kernel-path vs plain-path gradients of one bf16 loss + backward: the
 # gathers are bitwise, but the token-id gather's backward (an index
 # accumulate) may sum in another order on the card, and bf16 keeps 8 bits
@@ -580,6 +652,18 @@ def train_flops(cfg, n_enc: int, n_rest: int, batch: int,
         if pos > seq else "tokens")
 
 
+def sharded_leaves(tree):
+    """The leaves of a tree of dicts and lists (``Sharded`` pieces in the
+    data-parallel state)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from sharded_leaves(v)
+    else:
+        yield tree
+
+
 def launch_bytes_ops(cm, d: int = 1) -> tuple[int, int]:
     """Least bytes a stage-A launch must move and the operations it must
     do, from this launch's metadata, for a gathered operand of ``d``
@@ -682,6 +766,8 @@ class Smoke:
         self.compared = {k: 0 for k in self.wrappers}
         self.line = {}
         self.mats, self.plans = {}, {}
+        self.card_procs = []        # (share, start time, Popen)
+        self.tests_ran = False      # a share ran during the current phase
 
     # ------------------------------------------------------------ helpers
     def zero_counts(self) -> None:
@@ -717,6 +803,9 @@ class Smoke:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
 
     # ------------------------------------------------------------- phases
+    def card_tests_early(self) -> None:
+        self.start_card_tests(0)
+
     def build_kernels(self) -> None:
         libs = {"unroll_spmv": self.K.library,
                 "segment_reduce": self.SR.library,
@@ -749,7 +838,7 @@ class Smoke:
                 f"{p.num_blocks} blocks ({fb} gather-fallback, "
                 f"{fb / p.num_blocks:.4f}), {p.stats.num_classes} classes; "
                 f"generate {t1 - t0:.2f} s, build_plan "
-                f"{time.perf_counter() - t1:.2f} s")
+                f"{time.perf_counter() - t1:.2f} s{self.beside_tests()}")
             for fused in (True, False):
                 t = self.ir.lower(p, backend="cuda", fused=fused,
                                   coalesce=True)
@@ -846,7 +935,7 @@ class Smoke:
             f"launches, kernel launches "
             f"{ {k: c for k, c in counts.items() if c} }, max rel err vs "
             f"float64 oracle {rel:.3e}, bitwise equal to the torch backend; "
-            f"from_coo {build_s:.2f} s")
+            f"from_coo {build_s:.2f} s{self.beside_tests()}")
         return dict(matrix=name, coalesce=coalesce, d=d, app=app, call=call,
                     x=xd, vals=vals, counts=counts, rel_err=rel,
                     torch_run=torch_run, build_s=build_s)
@@ -1759,16 +1848,537 @@ class Smoke:
         del a, b
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------- data parallel
+    def dp_phase(self) -> None:
+        """Data-parallel training and the vocab-sharded decode embedding on
+        simulated meshes (see the module docstring, phase 14)."""
+        torch = self.torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        shutil.rmtree(ROOT / "build" / "dp_ckpt", ignore_errors=True)
+        for spec in DP_CELLS:
+            self.dp_train(self.lm_config(spec), spec)
+        self.dp_state(self.float32(self.lm_config(DP_STATE)))
+        self.dp_resume(self.float32(self.lm_config(DP_RESUME)))
+        self.dp_decode(self.lm_config(DP_DECODE))
+        shutil.rmtree(ROOT / "build" / "dp_ckpt", ignore_errors=True)
+        log(f"[dp] phase in {time.perf_counter() - t0:.1f} s")
+
+    def dp_mesh(self, data: int, model: int = 1):
+        """A simulated ``data x model`` mesh on the card and its default
+        rules."""
+        from repro_torch.launch import sharding as sh
+        from repro_torch.launch.mesh import ShardMesh
+        mesh = ShardMesh(devices=(self.dev,) * (data * model), data=data,
+                         model=model, simulated=True)
+        return mesh, sh.Shd(mesh, sh.default_rules(mesh))
+
+    def float32(self, cfg):
+        t = self.torch.float32
+        return cfg.replace(param_dtype=t, compute_dtype=t)
+
+    @staticmethod
+    def dense_rule(what, got, want, rule=DENSE_RULE) -> float:
+        """Hold ``got`` to ``want`` at ``rule`` (by default the tests'
+        dense rule); returns the share of the bound used."""
+        allowed = rule["atol"] * max(1.0, abs(want)) + rule["rtol"] * \
+            abs(want)
+        err = abs(got - want)
+        check(err <= allowed, f"{what}: {got!r} vs {want!r} (abs err {err}, "
+              f"allowed {allowed} by rtol {rule['rtol']}, atol "
+              f"{rule['atol']} x scale)")
+        return err / allowed
+
+    def dp_single_steps(self, cfg, spec, tc, n: int) -> list:
+        """The first ``n`` steps on one device from the Trainer's start
+        (its seed, schedule and batches): their metrics."""
+        if not n:
+            return []
+        torch = self.torch
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        gen = torch.Generator(self.dev).manual_seed(tc.seed)
+        model = lm.init_model(cfg, generator=gen, device=self.dev)
+        step_fn = loop.make_train_step(cfg, tc.opt)
+        state = adamw.init(model.tree(), tc.opt)
+        out = []
+        for i in range(n):
+            state, m = step_fn(model, state, self.train_batch(cfg, spec, i))
+            out.append({k: float(v) for k, v in m.items()})
+        del model, state
+        torch.cuda.empty_cache()
+        return out
+
+    def dp_train(self, cfg, spec) -> None:
+        """``Trainer.run()`` at ``spec["shards"]`` simulated shards with the
+        default rules: losses finite (the dense model's last below its
+        first), the MoE row gathers counted, the first ``compare`` steps'
+        loss at the dense rule and grad norm at ``BF16_NORM_RULE`` of the
+        same steps on one device; then, for the dense model, the
+        all-gather, the reduce-scatter and a whole step under the
+        profiler.  (The dense rule holds the float32 state in
+        :meth:`dp_state`.)"""
+        torch = self.torch
+        from repro_torch.train import loop
+        k = spec["shards"]
+        tc = dataclasses.replace(self.train_config(spec), ckpt_dir=str(
+            ROOT / "build" / "dp_ckpt" / spec["arch"]))
+        single = self.dp_single_steps(cfg, spec, tc, spec["compare"])
+        mesh, shd = self.dp_mesh(k)
+        base = torch.cuda.memory_allocated()    # held by earlier phases
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        out = loop.Trainer(cfg, tc, mesh=mesh, rules=shd.rules).run()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        metrics, dp = out["metrics"], out["data_parallel"]
+        losses = [m["loss"] for m in metrics]
+        check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+              f"{cfg.name} dp: train losses {losses}")
+        if cfg.family != "moe":
+            check(losses[-1] < losses[0], f"{cfg.name} dp: the last loss "
+                  f"{losses[-1]} is not below the first {losses[0]}")
+        per_step = 6 * cfg.num_layers if cfg.family == "moe" else 0
+        check(counts["row_gather"] == per_step * spec["steps"],
+              f"{cfg.name} dp: row_gather launched {counts['row_gather']} "
+              f"times in {spec['steps']} steps, expected {per_step} a step")
+        held = []
+        for i, want in enumerate(single):
+            for key, rule, name in (("loss", DENSE_RULE, "the dense rule"),
+                                    ("grad_norm", BF16_NORM_RULE,
+                                     "the bf16 rule")):
+                share = self.dense_rule(f"{cfg.name} dp step {i + 1} {key}",
+                                        metrics[i][key], want[key], rule)
+                note = f"{share:.3f} of {name}'s bound"
+                if rule is not DENSE_RULE:
+                    dense = abs(metrics[i][key] - want[key]) / (
+                        DENSE_RULE["atol"] * max(1.0, abs(want[key])) +
+                        DENSE_RULE["rtol"] * abs(want[key]))
+                    note += f", {dense:.3f} of the dense rule's"
+                held.append(f"step {i + 1} {key} {metrics[i][key]!r} vs one "
+                            f"device {want[key]!r} ({note})")
+        held = ", ".join(held)
+        whole = sum(x.numel() * x.element_size() for x in
+                    out["params"].parameters())
+        piece = sum(t.pieces[0].numel() * t.pieces[0].element_size()
+                    for t in sharded_leaves(dp.params))
+        moments = sum(t.pieces[0].numel() * 4 for key in ("m", "v")
+                      for t in sharded_leaves(out["opt"][key]))
+        tokens = spec["batch"] * spec["seq"]
+        step_ms = statistics.median(m["step_time"] for m in metrics[1:]) * 1e3
+        log(f"[dp] {cfg.name} ({cfg.num_layers} layers) Trainer.run on a "
+            f"simulated {k}-shard mesh, default rules: {spec['steps']} steps "
+            f"in {wall:.2f} s, losses {[round(x, 4) for x in losses]}; kernel "
+            f"launches { {n: c for n, c in counts.items() if c} } "
+            f"({per_step} row_gather a step); {held or 'no step compared'}"
+            f"; a device's pieces {piece} B of {whole} B of parameters, "
+            f"moments {moments} B")
+        log(f"[time] {self.tag} {cfg.name} dp train ({k} simulated shards) "
+            f"batch {spec['batch']} seq {spec['seq']}: step {step_ms:.4f} ms "
+            f"(median of steps 2-{spec['steps']}, host clock), "
+            f"{tokens / step_ms * 1e3:.1f} tokens/s; first step "
+            f"{metrics[0]['step_time'] * 1e3:.1f} ms; peak memory {peak} B "
+            f"(above the {base} B held before)")
+        if cfg.family != "moe":
+            self.dp_collectives(cfg, spec, tc, dp, shd)
+        del out, dp
+        torch.cuda.empty_cache()
+
+    def dp_collectives(self, cfg, spec, tc, dp, shd) -> None:
+        """Device busy ms of the all-gather and of the reduce-scatter (the
+        gradients of one real backward, put back before each call), and a
+        whole data-parallel step, under the profiler."""
+        torch = self.torch
+        from repro_torch.launch import sharding as sh
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     dp.models[0].parameters())
+        k = len(dp.devices)
+        dp.gather()
+        for m in dp.models:
+            m.requires_grad_(True)
+        batch = self.train_batch(cfg, spec, spec["steps"])
+        placements = sh.batch_sharding(shd, batch)
+        place = {key: placements[key].split(v) for key, v in batch.items()}
+        mbs, split = dp.rows(place, 0, spec["batch"])
+        loss, _ = loop._replica_loss(dp.models, cfg, mbs, split)
+        loss.backward()
+        params = [p for m in dp.models for p in m.parameters()]
+        grads = [p.grad for p in params]
+
+        def reduce_scatter():
+            for p, g in zip(params, grads):
+                p.grad = g
+            dp.reduce_scatter(split)
+        for what, fn, moved in (
+                ("all-gather", dp.gather, 2 * k * nbytes),
+                ("reduce-scatter", reduce_scatter,
+                 k * nbytes + 4 * nbytes // grads[0].element_size())):
+            prof = profile_breakdown(fn, reps=2)
+            busy = "not measured" if prof is None else f"{prof[1]:.4f} ms"
+            bound_ms, _ = bound(moved)
+            log(f"[time] {self.tag} {cfg.name} dp {what} ({k} simulated "
+                f"shards, {nbytes} B of parameters): device busy {busy} a "
+                f"call, {prof[3] if prof else 'n/a'} kernel launches, wall "
+                f"{prof[0] if prof else float('nan'):.4f} ms under the "
+                f"profiler; its bytes ({moved} B read and written) at the "
+                f"card's rate {bound_ms:.4f} ms")
+        del grads, params, loss, mbs, place
+        for p in (p for m in dp.models for p in m.parameters()):
+            p.grad = None
+        torch.cuda.empty_cache()
+        step_fn = loop.make_train_step(cfg, tc.opt, shd=shd)
+        state = [adamw.init(dp.tree(), tc.opt)]
+
+        def one_step():
+            state[0], _ = step_fn(dp, state[0], batch)
+        log_profile(self.tag, f"{cfg.name} dp train step ({k} simulated "
+                    f"shards, batch {spec['batch']}, seq {spec['seq']})",
+                    one_step, reps=1)
+        del state
+        torch.cuda.empty_cache()
+
+    def dp_state(self, cfg) -> None:
+        """The state after step 1 at ``shards`` simulated shards against
+        one device's from the same start (float32, the launcher's
+        schedule).  Against one device taking the shards' rows as
+        ``shards`` microbatches, the same sums in the same order (a
+        replica's gradient and a microbatch's differ by the exact factor
+        ``shards`` of their loss denominators): both moments and the
+        weights leaf for leaf at the dense rule of each leaf's own scale,
+        and steps 1 and 2's loss and grad norm at the dense rule.  Against
+        one device on the whole batch, step 1's loss and grad norm at the
+        dense rule, and every weight AdamW's first step on its own run's
+        moments (:meth:`dp_state_breakdown`); where the moments part is
+        printed by leaf, beside how far one device's logits of the same
+        weights part when its rows are cut into the shards' blocks (the
+        products over the whole batch round otherwise)."""
+        torch = self.torch
+        from repro_torch.launch import sharding as sh
+        from repro_torch.models import lm
+        from repro_torch.models import params as pr
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        spec = DP_STATE
+        k = spec["shards"]
+        tc = self.train_config(spec)
+        mesh, shd = self.dp_mesh(k)
+        runs = {}            # name -> (model or DataParallel, step, state)
+        for name, s, micro in (("one device", None, 1),
+                               (f"one device, {k} microbatches", None, k),
+                               ("shards", shd, 1)):
+            gen = torch.Generator(self.dev).manual_seed(tc.seed)
+            model = lm.init_model(cfg, generator=gen, device=self.dev)
+            holder = model if s is None else loop.DataParallel(model, s)
+            runs[name] = [holder, loop.make_train_step(
+                cfg, tc.opt, shd=s, microbatches=micro),
+                adamw.init(holder.tree(), tc.opt), []]
+
+        def leaves(run) -> dict:
+            """Both moments' leaves and every weight, each flat in the
+            stacked layout's order, by (kind, path)."""
+            out = {}
+
+            def walk(kind, tree, path=""):
+                if isinstance(tree, dict):
+                    for key in sorted(tree):
+                        walk(kind, tree[key], f"{path}/{key}")
+                    return
+                parts = tree if isinstance(tree, list) else [tree]
+                out[kind, path] = torch.cat([
+                    (x.join() if isinstance(x, sh.Sharded) else x)
+                    .detach().reshape(-1) for x in parts])
+            for key in ("m", "v"):
+                walk(key, run[2][key])
+            walk("w", pr.stack_tree(run[0].tree()))
+            return out
+
+        def diff(a, b) -> dict:
+            """Per leaf: (elements past the dense rule of the leaf's scale,
+            the worst error over that scale, the mask of those past)."""
+            out = {}
+            for key, x in a.items():
+                y = b[key]
+                scale = float(x.abs().max())
+                err = (x - y).abs()
+                past = err > DENSE_RULE["atol"] * scale + \
+                    DENSE_RULE["rtol"] * x.abs()
+                out[key] = (int(past.sum()), float(err.max()) /
+                            max(scale, 1e-30), past)
+            return out
+        one, micro, dp = runs.values()
+        with torch.no_grad():      # the same weights, the rows whole or cut
+            batch = self.train_batch(cfg, spec, 0)
+            whole = lm.forward(one[0], cfg, batch)[0]
+            n = spec["batch"] // k
+            cut = torch.cat([lm.forward(one[0], cfg, {
+                key: v[r * n:(r + 1) * n] for key, v in batch.items()})[0]
+                for r in range(k)])
+            logit_gap = float((whole - cut).abs().max())
+            logit_max = float(whole.abs().max())
+            del whole, cut
+        for i in range(spec["steps"]):
+            batch = self.train_batch(cfg, spec, i)
+            for run in runs.values():
+                run[2], m = run[1](run[0], run[2], batch)
+                run[3].append({key: float(v) for key, v in m.items()})
+            if i == 0:               # the state after step 1
+                la, lb, lc = leaves(micro), leaves(dp), leaves(one)
+                d_micro, d_one = diff(la, lb), diff(lc, lb)
+                breakdown = self.dp_state_breakdown(
+                    cfg.name, d_one, lc, lb, tc.opt, dp[3][0]["lr"])
+                total = sum(x.numel() for x in lb.values())
+                del la, lb, lc
+        bad = sum(n for n, _, _ in d_micro.values())
+        worst = max(w for _, w, _ in d_micro.values())
+        check(bad == 0, f"{cfg.name} dp state: {bad} of {total} moment and "
+              f"weight elements after step 1 differ from one "
+              f"device's on {k} microbatches past the dense rule of their "
+              f"leaf's scale (worst {worst:.3e} of it)")
+        shares = [self.dense_rule(f"{cfg.name} dp state step {i + 1} {key} "
+                                  f"vs {k} microbatches", dp[3][i][key],
+                                  micro[3][i][key])
+                  for i in range(spec["steps"])
+                  for key in ("loss", "grad_norm")]
+        shares += [self.dense_rule(f"{cfg.name} dp state step 1 {key} vs one"
+                                   " device", dp[3][0][key], one[3][0][key])
+                   for key in ("loss", "grad_norm")]
+        log(f"[dp] {cfg.name} ({cfg.num_layers} layers, float32) the state "
+            f"after step 1 at {k} simulated shards vs one device from the "
+            f"same start; steps 1-{spec['steps']} losses "
+            f"{[m['loss'] for m in dp[3]]}, grad norms "
+            f"{[m['grad_norm'] for m in dp[3]]}; vs one device on {k} "
+            "microbatches (the same rows) "
+            f"{[m['loss'] for m in micro[3]]}, "
+            f"{[m['grad_norm'] for m in micro[3]]}: every moment and weight "
+            f"within the dense rule of its leaf's scale (worst {worst:.3e} "
+            f"of it); vs one device on the whole batch "
+            f"{[m['loss'] for m in one[3]]}, "
+            f"{[m['grad_norm'] for m in one[3]]}: step 1's loss and grad "
+            f"norm held; {max(shares):.3f} of the dense rule's bound at most "
+            "on the held metrics")
+        log(f"[dp] {cfg.name} dp state vs one device on the whole batch, "
+            f"of {total} elements: {breakdown}; one device's logits of the "
+            f"same weights on the whole batch and on its {k} row blocks "
+            f"part by {logit_gap!r} at most (largest |logit| "
+            f"{logit_max!r})")
+        del runs, one, micro, dp
+        torch.cuda.empty_cache()
+
+    def dp_state_breakdown(self, name, d_one, one, dp, opt, lr) -> str:
+        """Where the shards' state after step 1 parts from one device's on
+        the whole batch past the dense rule: per kind (m, v, weights) the
+        elements past it and the leaf of the worst error; for the first
+        moment, the largest step gradient ``g = m / (1 - b1)`` past it over
+        its leaf's largest; for the weights, how many of those past it
+        have a ``g`` that changes sign between the runs, and the largest
+        ``min(|g_one|, |g_dp|)`` of the others, over ``eps`` and over the
+        leaf's largest.  Held: every weight is AdamW's first step from the
+        same start on its own run's moments, ``w_one - w_dp = -lr (u_one -
+        u_dp)`` with ``u = (m / c1) / (sqrt(v / c2) + eps)``, at the dense
+        rule of the leaf's scale: the weights part only where the
+        gradients do."""
+        torch = self.torch
+        c1, c2 = 1 - opt.b1, 1 - opt.b2          # step 1's corrections
+        kinds, held = {}, 0.0
+        for (kind, path), (n, worst, past) in d_one.items():
+            k = kinds.setdefault(kind, dict(past=0, worst=0.0, leaf=None,
+                                            flips=0, same=0.0, rel=0.0))
+            k["past"] += n
+            if worst > k["worst"]:
+                k["worst"], k["leaf"] = worst, path
+            if kind == "m" and n:
+                k["rel"] = max(k["rel"], float(
+                    one["m", path][past].abs().max() /
+                    one["m", path].abs().max()))
+            if kind != "w":
+                continue
+
+            def u(run):
+                return (run["m", path] / c1) / (
+                    torch.sqrt(run["v", path] / c2) + opt.eps)
+            w = one["w", path]
+            resid = (w - dp["w", path] + lr * (u(one) - u(dp))).abs()
+            allowed = DENSE_RULE["atol"] * float(w.abs().max()) + \
+                DENSE_RULE["rtol"] * w.abs()
+            share = float((resid / allowed).max())
+            check(share <= 1.0, f"{name} dp state: the weights {path} after "
+                  f"step 1 are not AdamW's step on their own run's moments "
+                  f"at the dense rule ({share:.3f} of its bound)")
+            held = max(held, share)
+            if not n:
+                continue
+            ga = one["m", path][past] / c1
+            gb = dp["m", path][past] / c1
+            flip = torch.sign(ga) != torch.sign(gb)
+            k["flips"] += int(flip.sum())
+            small = torch.minimum(ga.abs(), gb.abs())[~flip]
+            if small.numel():
+                top = float(small.max())
+                k["same"] = max(k["same"], top / opt.eps)
+                k["rel"] = max(k["rel"], top / float(
+                    one["m", path].abs().max() / c1))
+        out = []
+        for kind, k in kinds.items():
+            text = (f"{kind}: {k['past']} past the rule, worst "
+                    f"{k['worst']:.3e} of its leaf's scale at {k['leaf']}")
+            if kind == "m":
+                text += (f", |g| at most {k['rel']:.3e} of its leaf's "
+                         f"largest there")
+            if kind == "w":
+                text += (f", of them {k['flips']} whose gradient changes "
+                         f"sign, the others' min |g| at most "
+                         f"{k['same']:.3e} eps ({k['rel']:.3e} of their "
+                         f"leaf's largest gradient); every weight AdamW's "
+                         f"step on its own run's moments ({held:.3f} of the "
+                         f"dense rule's bound at most)")
+            out.append(text)
+        return "; ".join(out)
+
+    def dp_resume(self, cfg) -> None:
+        """Elastic restart: 6 steps straight at ``shards`` simulated shards
+        against ``first`` steps there with an async checkpoint and a fresh
+        single-device Trainer resumed to 6, on ``shards`` microbatches (the
+        shards' rows, as in :meth:`dp_state`): the resumed steps the right
+        ones, their losses and grad norms at the dense rule."""
+        from repro_torch.checkpoint import checkpoint as ck
+        from repro_torch.train import loop
+        spec = DP_RESUME
+        root = ROOT / "build" / "dp_ckpt" / "resume"
+        mesh, shd = self.dp_mesh(spec["shards"])
+        tc = dataclasses.replace(self.train_config(spec), log_every=spec[
+            "steps"], ckpt_dir=str(root / "straight"))
+        self.zero_counts()
+        a = loop.Trainer(cfg, tc, mesh=mesh, rules=shd.rules).run()
+        b_dir = str(root / "resumed")
+        loop.Trainer(cfg, dataclasses.replace(
+            tc, steps=spec["first"], ckpt_every=spec["first"],
+            async_ckpt=True, ckpt_dir=b_dir), mesh=mesh,
+            rules=shd.rules).run()
+        check(ck.latest_step(b_dir) == spec["first"],
+              f"no checkpoint at step {spec['first']} in {b_dir}")
+        b = loop.Trainer(cfg, dataclasses.replace(
+            tc, ckpt_dir=b_dir, microbatches=spec["shards"]),
+            device=self.dev).run()
+        self.read_counts()
+        got, want = b["metrics"], a["metrics"][spec["first"]:]
+        check([m["step"] for m in got] ==
+              list(range(spec["first"], spec["steps"])),
+              f"the resumed run ran steps {[m['step'] for m in got]}")
+        shares = [self.dense_rule(f"{cfg.name} resumed step {m['step'] + 1} "
+                                  f"{key}", m[key], w[key])
+                  for m, w in zip(got, want) for key in ("loss", "grad_norm")]
+        log(f"[dp] {cfg.name} ({cfg.num_layers} layers, float32) elastic "
+            f"restart: {spec['first']} steps on {spec['shards']} simulated "
+            f"shards, checkpointed, a fresh Trainer resumed on one device "
+            f"({spec['shards']} microbatches: the shards' rows, see dp_state)"
+            f" to {spec['steps']}: steps {[m['step'] + 1 for m in got]} "
+            f"losses {[m['loss'] for m in got]} vs "
+            f"{[m['loss'] for m in want]} straight on {spec['shards']} "
+            f"shards, grad norms {[m['grad_norm'] for m in got]} vs "
+            f"{[m['grad_norm'] for m in want]}: within the dense rule "
+            f"({max(shares):.3f} of its bound at most)")
+        del a, b
+        self.torch.cuda.empty_cache()
+
+    def dp_decode(self, cfg) -> None:
+        """Greedy decoding with ``decode_embed="psum"`` over a simulated
+        ``(1, model)`` mesh: tokens, the next logits and the cache equal
+        (``torch.equal``) to the gather decode's; the row gathers counted
+        (the MoE layers' and ``model`` a decode step for the lookup),
+        the lookup's held to the plain gather; then the lookup timed."""
+        torch, RG = self.torch, self.RG
+        from repro_torch.models import layers as L
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        spec = DP_DECODE
+        b, s, steps, mn = spec["batch"], spec["prompt"], spec["steps"], \
+            spec["model"]
+        mesh, shd = self.dp_mesh(1, mn)
+        pcfg = cfg.replace(decode_embed="psum")
+        model, gen = self.lm_model(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=self.dev, dtype=torch.int32)
+        batch = {"tokens": tokens}
+        max_len = s + steps + 4
+        out, cache = engine.generate(model, cfg, batch, steps, max_len)
+        logits, _ = lm.decode_step(model, cfg, cache, out[:, -1:],
+                                   s + steps - 1)
+        calls = [0]
+
+        def checked(src, ids, d_tile=512):
+            got = RG.row_gather(src, ids, d_tile)
+            calls[0] += 1
+            self.held("row_gather", got, RG.row_gather_plain(src, ids),
+                      f"{cfg.name} psum lookup {tuple(ids.shape)} of "
+                      f"{tuple(src.shape)}")
+            return got
+        L.row_gather = checked
+        try:
+            self.zero_counts()
+            p_out, p_cache = engine.generate(model, pcfg, batch, steps,
+                                             max_len, shd=shd)
+            counts = self.read_counts()
+            p_logits, _ = lm.decode_step(model, pcfg, p_cache, p_out[:, -1:],
+                                         s + steps - 1, shd=shd)
+        finally:
+            L.row_gather = RG.row_gather
+        want = 2 * cfg.num_layers * steps + mn * (steps - 1)
+        check(counts["row_gather"] == want, f"{cfg.name} psum decode: "
+              f"row_gather launched {counts['row_gather']} times, expected "
+              f"{want}")
+        check(calls[0] == mn * steps, f"{cfg.name} psum decode: "
+              f"{calls[0]} lookup gathers, expected {mn * steps}")
+        check(torch.equal(out, p_out) and torch.equal(logits, p_logits)
+              and all(torch.equal(cache[key], p_cache[key]) for key in cache),
+              f"{cfg.name}: the psum decode differs from the gather decode")
+        placed = shd.place(model.embed, ("vocab", "embed"))
+        views = all(p.data_ptr() == model.embed[j * p.shape[0]].data_ptr()
+                    for j, p in enumerate(placed.pieces))
+        log(f"[dp] {cfg.name} ({cfg.num_layers} layers) psum decode on a "
+            f"simulated (1, {mn}) mesh (batch {b}, prompt {s}, {steps} greedy "
+            f"steps): tokens, next logits and cache equal (torch.equal) to "
+            f"the gather decode's; kernel launches "
+            f"{ {n: c for n, c in counts.items() if c} } ({mn} row_gather a "
+            f"decode step for the lookup, each held bitwise to the plain "
+            f"gather); table pieces {'views' if views else 'copies'} of "
+            f"{tuple(placed.pieces[0].shape)}")
+        ids = p_out[:, -1:]
+        ms = device_ms(lambda: L.embed_lookup_psum(model.embed, ids,
+                                                   cfg.compute_dtype, shd))
+        gather_ms = device_ms(lambda: L.embed_lookup(model.embed, ids,
+                                                     cfg.compute_dtype))
+        flat = ids.reshape(-1).long()
+        lib_ms = device_ms(lambda: torch.index_select(model.embed, 0, flat))
+        es = model.embed.element_size()
+        nbytes = ids.numel() * 4 + 2 * ids.numel() * cfg.d_model * es
+        bound_ms, _ = bound(nbytes)
+        log(f"[time] {self.tag} {cfg.name} psum embedding lookup ({b} tokens "
+            f"over {mn} vocab pieces of {tuple(placed.pieces[0].shape)}): "
+            f"{ms:.4f} ms vs bound {bound_ms:.6f} ms ({nbytes} B: the ids, "
+            f"one row a token, the output); the gather lookup {gather_ms:.4f}"
+            f" ms; index_select (yardstick) {lib_ms:.4f} ms")
+        del model, cache, p_cache, placed
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------- graph apps
     def graph_phase(self) -> None:
         """The four graph apps on the soc-Pokec analogue (see the module
-        docstring, phase 7)."""
+        docstring, phase 7): the graph and the four plans are made while
+        the second share of the card tests runs, which is joined before
+        anything is timed."""
         from scipy.sparse import csr_matrix
+        self.start_card_tests(1)
         t0 = time.perf_counter()
         c = self.G.graph_case(GRAPH["kind"], GRAPH["n"],
                               avg_deg=GRAPH["avg_deg"])
         log(f"[graph] soc-Pokec analogue: {c.num_nodes} nodes, "
-            f"{c.num_edges} edges; generate {time.perf_counter() - t0:.2f} s")
+            f"{c.num_edges} edges; generate {time.perf_counter() - t0:.2f} s "
+            f"({BESIDE_TESTS})")
         n = c.num_nodes
         adj = csr_matrix((np.ones(c.num_edges), (c.src, c.dst)),
                          shape=(n, n))
@@ -1781,17 +2391,20 @@ class Smoke:
                 "cc": (self.graphs.ConnectedComponents, (c.src, c.dst, n),
                        {}),
                 "pagerank": (self.PageRank, (c.src, c.dst, n), {})}
-        self.graph_apps, self.graph_results = {}, {}
+        built = {}
         for name, (cls, edges, static) in apps.items():
-            self.graph_app(name, cls, edges, static, c, adj, sources)
+            t1 = time.perf_counter()
+            built[name] = (cls.from_edges(
+                *edges, lane_width=128, backend="cuda", fused=True,
+                device=self.dev), time.perf_counter() - t1, static)
+        self.join_card_tests()
+        self.graph_apps, self.graph_results = {}, {}
+        for name, (app, build_s, static) in built.items():
+            self.graph_app(name, app, build_s, static, c, adj, sources)
         self.graph = (c, adj, sources)
 
-    def graph_app(self, name, cls, edges, static, c, adj, sources) -> None:
+    def graph_app(self, name, app, build_s, static, c, adj, sources) -> None:
         torch, ir = self.torch, self.ir
-        t0 = time.perf_counter()
-        app = cls.from_edges(*edges, lane_width=128, backend="cuda",
-                             fused=True, device=self.dev)
-        build_s = time.perf_counter() - t0
         plan = app.plan
         fb = sum(k.num_blocks for k in plan.classes if k.ls_flag == 0)
         torch_app = dataclasses.replace(app, _run=self.eng.make_executor(
@@ -1803,7 +2416,8 @@ class Smoke:
         log(f"[graph] {name}: {plan.nnz} edges in {plan.num_blocks} blocks, "
             f"fallback share {fb / max(plan.num_blocks, 1):.4f}, "
             f"{len(app._run.tree.launches)} launches per sweep; from_edges "
-            f"(validation, build_plan, staging) {build_s:.2f} s")
+            f"(validation, build_plan, staging) {build_s:.2f} s "
+            f"({BESIDE_TESTS})")
         pagerank = name == "pagerank"
 
         def run(a, driver):
@@ -1854,7 +2468,7 @@ class Smoke:
             f"{e2e['resident']:.4f} ms end to end with the resident driver, "
             f"{e2e['host']:.4f} ms with the host driver; {sweep_ms:.4f} ms of "
             f"device time per sweep ({sweeps * sweep_ms:.4f} ms for the "
-            f"sweeps); build {build_s:.2f} s")
+            f"sweeps); build {build_s:.2f} s ({BESIDE_TESTS})")
         app.driver = "resident"
         log_profile(self.tag, f"graph {name} resident run",
                     lambda: run(app, "resident"))
@@ -2359,8 +2973,14 @@ class Smoke:
         self.shard_products(str(cache))
         self.shard_raises()
         self.shard_tuned(str(cache))
-        for name in ("bfs", "sssp", "cc", "pagerank"):
-            self.shard_graph(name)
+        # the four builds while the last share of the card tests runs
+        self.start_card_tests(2)
+        built = {name: self.shard_build(name)
+                 for name in ("bfs", "sssp", "cc", "pagerank")}
+        self.join_card_tests()
+        for name, parts in built.items():
+            self.shard_graph(name, parts)
+        del built
         # nothing after this phase reads the graph phase's apps
         self.graph_apps = self.graph_results = self.shard_pwtk = None
         torch.cuda.empty_cache()
@@ -2530,38 +3150,21 @@ class Smoke:
         log(f"[shard] {what}: measured shard counts {sorted(counts)}, winner "
             f"{res.best.label}, rel err vs float64 oracle {rel:.3e}")
 
-    def shard_graph(self, name) -> None:
-        """One soc-Pokec app at ``SHARD["graph"]`` shards with both drivers.
-
-        Rows shard only where no block writes across a cut
-        (``ir.legal_cuts``), and a plan's blocks follow the edge list's
-        order.  The graph phase's edges are sorted by source, so their
-        blocks write all over the destination range and every plan cuts
-        into one full shard and empty ones; the phase prints that
-        partition, then builds BFS, SSSP and PageRank through
-        ``from_edges(mesh=...)`` on the same edges sorted by destination
-        (a destination-major edge list, what a row-sharded engine is fed)
-        and checks that each cuts into two non-empty shards at least.  CC
-        symmetrizes its edges inside ``from_edges``, so no input order
-        sorts its destinations and its plan always cuts into one full
-        shard and empty ones: its cell builds it through
-        ``from_edges(mesh=...)`` on the graph phase's edges and shows that
-        the sharded path runs, not the all-gather.  Each sharded run, with
-        either driver, must equal bitwise (state and ConvergenceReport)
-        the single-device torch backend on the same plan; BFS, SSSP and CC
-        (exact min) must also equal the graph phase's runs, PageRank must
-        hold against the float64 power iteration."""
-        torch, eng = self.torch, self.eng
+    def shard_build(self, name):
+        """Build one soc-Pokec app at ``SHARD["graph"]`` shards and its
+        single-device torch twin on the same plan (see
+        :meth:`shard_graph`) -> (mesh, sharded, single, how, build s)."""
+        eng = self.eng
         from repro_torch.launch.mesh import make_shard_mesh
         app, torch_app, _ = self.graph_apps[name]
-        c, adj, sources = self.graph
+        c = self.graph[0]
         k = SHARD["graph"]
         mesh = make_shard_mesh(k, device=self.dev, simulate=True)
         if name == "bfs":       # SSSP and PageRank have the same edges
             sec, rows = self.partition_s(app.plan, k)
             log(f"[shard] soc-Pokec: the graph phase's source-sorted plan "
                 f"cuts into rows per shard {rows} (ir.lower + "
-                f"partition_plan {sec:.3f} s on the host)")
+                f"partition_plan {sec:.3f} s, {BESIDE_TESTS})")
         pagerank = name == "pagerank"
         t0 = time.perf_counter()
         if name == "cc":
@@ -2589,7 +3192,35 @@ class Smoke:
                                                 device=self.dev),
                 mesh=None, _shard_parts=(), _shard_step=None)
             how = "from_edges on destination-sorted edges"
-        build_s = time.perf_counter() - t0
+        return mesh, sharded, single, how, time.perf_counter() - t0
+
+    def shard_graph(self, name, built) -> None:
+        """One soc-Pokec app at ``SHARD["graph"]`` shards with both drivers.
+
+        Rows shard only where no block writes across a cut
+        (``ir.legal_cuts``), and a plan's blocks follow the edge list's
+        order.  The graph phase's edges are sorted by source, so their
+        blocks write all over the destination range and every plan cuts
+        into one full shard and empty ones; the phase prints that
+        partition, then builds BFS, SSSP and PageRank through
+        ``from_edges(mesh=...)`` on the same edges sorted by destination
+        (a destination-major edge list, what a row-sharded engine is fed)
+        and checks that each cuts into two non-empty shards at least.  CC
+        symmetrizes its edges inside ``from_edges``, so no input order
+        sorts its destinations and its plan always cuts into one full
+        shard and empty ones: its cell builds it through
+        ``from_edges(mesh=...)`` on the graph phase's edges and shows that
+        the sharded path runs, not the all-gather.  Each sharded run, with
+        either driver, must equal bitwise (state and ConvergenceReport)
+        the single-device torch backend on the same plan; BFS, SSSP and CC
+        (exact min) must also equal the graph phase's runs, PageRank must
+        hold against the float64 power iteration."""
+        torch, eng = self.torch, self.eng
+        mesh, sharded, single, how, build_s = built
+        app, torch_app, _ = self.graph_apps[name]
+        c, adj, sources = self.graph
+        k = SHARD["graph"]
+        pagerank = name == "pagerank"
         rows = [p.num_rows for p in sharded._shard_parts]
         live = sum(r > 0 for r in rows)
         check(sharded.mesh is mesh and len(rows) == k
@@ -2644,7 +3275,8 @@ class Smoke:
                               step.devices)
         shard_ms = device_ms(lambda: step(pieces), reps=5, repeats=3)
         sweeps = PAGERANK_ITERS if pagerank else report.sweeps
-        log(f"[shard] {name} shards={k} ({how}, built in {build_s:.2f} s; "
+        log(f"[shard] {name} shards={k} ({how}, built in {build_s:.2f} s, "
+            f"{BESIDE_TESTS}; "
             f"rows per shard {rows}): "
             f"{report or f'{PAGERANK_ITERS} iterations'}; resident and host "
             "drivers bitwise equal to the single-device torch backend on "
@@ -2667,47 +3299,98 @@ class Smoke:
             self._dst_order = np.lexsort((c.src, c.dst))
         return self._dst_order
 
-    def card_tests(self) -> None:
-        """The ``cuda``-marked tests of ``tests/test_torch_cuda.py`` on this
-        card, in a child process (the kernels are already built)."""
-        t0 = time.perf_counter()
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        proc = subprocess.run(
+    def start_card_tests(self, share: int) -> None:
+        """Start share ``share`` of the ``cuda``-marked tests of
+        ``tests/test_torch_cuda.py`` (every ``CARD_TEST_SHARES``-th test
+        from the ``share``-th, :func:`pytest_collection_modifyitems`) in a
+        child process on this card; the kernels are already built."""
+        proc = subprocess.Popen(
             [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
-             "no:cacheprovider", "tests/test_torch_cuda.py"], cwd=ROOT,
-            env=env, capture_output=True, text=True, timeout=CARD_TESTS_S)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0:
-            for line in lines[-40:]:
-                log(f"[tests]   {line}")
-        check(proc.returncode == 0, "tests/test_torch_cuda.py failed on the "
-              f"card (pytest exit {proc.returncode})")
-        log(f"[tests] tests/test_torch_cuda.py on the card: "
-            f"{lines[-1] if lines else '?'} ({time.perf_counter() - t0:.1f} s)")
+             "no:cacheprovider", "-p", "chip_smoke",
+             "tests/test_torch_cuda.py"], cwd=ROOT, env=dict(
+                os.environ, PYTHONPATH=os.pathsep.join(
+                    (str(ROOT), str(ROOT / "src"))),
+                CHIP_SMOKE_TESTS=f"{share}/{CARD_TEST_SHARES}",
+                OMP_NUM_THREADS="2"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.card_procs.append((share, time.perf_counter(), proc))
+        self.tests_ran = True
+
+    def beside_tests(self) -> str:
+        """A host-clock reading's note while a share of the card tests
+        runs."""
+        return f" ({BESIDE_TESTS})" if self.card_procs else ""
+
+    def join_card_tests(self) -> None:
+        """Wait for the started shares of the card tests (before any timed
+        work) and fail unless each passed."""
+        t0 = time.perf_counter()
+        try:
+            for share, started, proc in self.card_procs:
+                out, _ = proc.communicate(timeout=CARD_TESTS_S)
+                lines = out.strip().splitlines()
+                if proc.returncode != 0:
+                    for line in lines[-40:]:
+                        log(f"[tests]   {line}")
+                check(proc.returncode == 0, "tests/test_torch_cuda.py failed "
+                      f"on the card (share {share} of {CARD_TEST_SHARES}, "
+                      f"pytest exit {proc.returncode})")
+                log(f"[tests] tests/test_torch_cuda.py on the card, every "
+                    f"{CARD_TEST_SHARES}th test from the {share}th: "
+                    f"{lines[-1] if lines else '?'} "
+                    f"({time.perf_counter() - started:.1f} s since its start; "
+                    f"waited {time.perf_counter() - t0:.1f} s for it)")
+        finally:
+            self.stop_card_tests()
+
+    def stop_card_tests(self) -> None:
+        for _, _, proc in self.card_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.card_procs = []
 
     def run(self) -> None:
         t0 = time.perf_counter()
-        for phase in (self.build_kernels, self.make_plans,
-                      self.stage_a_phase, self.main_paths,
-                      self.matvec_many_phase, self.segment_reduce_phase,
-                      self.gather_vload_phase, self.row_gather_phase,
-                      self.lm_phase, self.train_phase, self.graph_phase,
-                      self.serve_phase, self.tune_phase, self.shard_phase,
-                      self.main_timings, self.stage_a_timings):
-            t1 = time.perf_counter()
-            phase()
-            log(f"[phase] {phase.__name__} {time.perf_counter() - t1:.1f} s")
+        try:
+            for phase in (self.build_kernels, self.card_tests_early,
+                          self.make_plans, self.stage_a_phase,
+                          self.main_paths, self.join_card_tests,
+                          self.matvec_many_phase, self.segment_reduce_phase,
+                          self.gather_vload_phase, self.row_gather_phase,
+                          self.lm_phase, self.train_phase, self.dp_phase,
+                          self.graph_phase,
+                          self.serve_phase, self.tune_phase,
+                          self.shard_phase, self.main_timings,
+                          self.stage_a_timings):
+                t1, self.tests_ran = time.perf_counter(), bool(
+                    self.card_procs)
+                phase()
+                beside = self.tests_ran or self.card_procs
+                log(f"[phase] {phase.__name__} "
+                    f"{time.perf_counter() - t1:.1f} s"
+                    f"{f' ({BESIDE_TESTS})' if beside else ''}")
+        finally:
+            self.stop_card_tests()
         for key, c in self.compared.items():
             check(c > 0, f"{key} was never compared with its plain version")
             check(self.main_counts[key] > 0,
                   f"{key} was never launched on its main path")
-        t1 = time.perf_counter()
-        self.card_tests()
-        log(f"[phase] card_tests {time.perf_counter() - t1:.1f} s")
         for key, entry in self.line.items():
             entry["launches"] = self.main_counts[key]
         log(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"kernels": [self.line[k] for k in self.wrappers]}))
+
+
+def pytest_collection_modifyitems(config, items):
+    """A pytest hook, for ``-p chip_smoke``: with ``CHIP_SMOKE_TESTS=i/n``
+    keep every ``n``-th collected test from the ``i``-th."""
+    share = os.environ.get("CHIP_SMOKE_TESTS")
+    if share:
+        i, n = map(int, share.split("/"))
+        config.hook.pytest_deselected(items=[
+            t for k, t in enumerate(items) if k % n != i])
+        items[:] = items[i::n]
 
 
 def main() -> None:

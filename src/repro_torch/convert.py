@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.plan import BlockPlan, PatternClass, PlanStats
 from repro_torch.core.seed import CodeSeed
+from repro_torch.launch.sharding import Sharded
 from repro_torch.models import params as pr
 
 _SCALARS = ("lane_width", "nnz", "out_len", "data_len", "num_blocks")
@@ -105,13 +106,15 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
+def lm_params_from_numpy(cfg, tree: Mapping, device="cuda", axes=None):
     """The port's model (:class:`repro_torch.models.lm.LM`) holding the
     weights of the JAX package's ``materialize_init(lm.init_model, key,
     cfg)`` values, handed over as a nested dict of numpy arrays.  Layer
     leaves (``layers``, and whisper's ``enc_layers``) are stacked on a
     leading layer axis (``scan_layers=True``) and are unstacked into one
-    module per layer; every array keeps its dtype.
+    module per layer; every array keeps its dtype.  ``axes``, the logical
+    axes ``materialize_init`` returns beside the values (plain tuples, in
+    the same stacked layout), is kept as the model's ``axes``.
     ``device`` defaults to ``"cuda"``, which raises when no CUDA device
     exists."""
     from repro_torch.core.engine import resolve_device
@@ -124,20 +127,29 @@ def lm_params_from_numpy(cfg, tree: Mapping, device="cuda"):
             stacked = values[key]
             values[key] = [pr.tree_map(lambda t, i=i: t[i], stacked)
                            for i in range(n)]
-    return lm.LM(cfg, values)
+    return lm.LM(cfg, values, axes)
 
 
 def host_stacked(stree) -> dict:
     """A tree in :func:`repro_torch.models.params.stack_tree`'s structure
     as new host tensors, each layer leaf stacked on a leading axis: every
     layer is copied from its device into its slice of one host tensor, so
-    nothing is stacked on the device."""
+    nothing is stacked on the device.  A
+    :class:`~repro_torch.launch.sharding.Sharded` leaf is joined from its
+    pieces on the host."""
     def one(leaf):
+        if isinstance(leaf, Sharded):
+            return leaf.join(device="cpu")
         if not isinstance(leaf, list):
             return leaf.detach().to("cpu", copy=True)
-        out = torch.empty(pr.stacked_shape(leaf), dtype=leaf[0].dtype)
+        first = leaf[0]
+        shape = (len(leaf), *first.shape)
+        out = torch.empty(shape, dtype=first.dtype)
         for i, t in enumerate(leaf):
-            out[i].copy_(t.detach())
+            if isinstance(t, Sharded):
+                t.join(out=out[i])
+            else:
+                out[i].copy_(t.detach())
         return out
     return pr.stacked_map(one, stree)
 
@@ -157,16 +169,26 @@ def lm_params_to_numpy(model) -> dict:
     return pr.stacked_map(_numpy, host_stacked(pr.stack_tree(model.tree())))
 
 
+def assign(dst, src) -> None:
+    """Copy the global tensor ``src`` into ``dst``, a tensor or the pieces
+    of a :class:`~repro_torch.launch.sharding.Sharded`, in place."""
+    if isinstance(dst, Sharded):
+        dst.load(src)
+    else:
+        dst.copy_(src)
+
+
 @torch.no_grad()
 def load_stacked(model, stree) -> None:
     """Copy a tree in the reference's stacked layout (tensors on any
     device, as :func:`host_stacked` or a checkpoint gives them) into the
-    model's parameters, in place."""
+    parameters of ``model`` (anything with ``tree()``: an ``LM``, or the
+    ``Sharded`` pieces of data-parallel training), in place."""
     mine = pr.stack_tree(model.tree())
     for dst, src in zip(pr.leaves_like(mine, mine),
                         pr.leaves_like(mine, stree)):
         if isinstance(dst, list):
             for i, t in enumerate(dst):
-                t.copy_(src[i])
+                assign(t, src[i])
         else:
-            dst.copy_(src)
+            assign(dst, src)

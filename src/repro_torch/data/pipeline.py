@@ -5,8 +5,12 @@ Produces a reproducible token stream (a numpy generator keyed by (seed,
 step)) with background prefetch.  :func:`synth_batch` is a copy of the
 reference's, so a batch is bitwise the reference's for every family key;
 the prefetching :class:`DataIterator` yields tensors on the caller's
-device.  Modality frontends are stubs: whisper gets precomputed frame
-embeddings, paligemma gets patch embeddings.
+device, or, given a :class:`~repro_torch.launch.sharding.Shd`, each leaf
+split per ``batch_sharding`` (the leading dimension over the data axes, a
+batch that does not divide replicated) into its pieces on the mesh's
+devices: the reference's ``device_put`` of the global batch.  Modality
+frontends are stubs: whisper gets precomputed frame embeddings, paligemma
+gets patch embeddings.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch.sharding import batch_sharding
 
 
 def batch_struct(cfg, batch: int, seq: int) -> dict:
@@ -61,14 +66,18 @@ def synth_batch(cfg, batch: int, seq: int, step: int, seed: int = 0) -> dict:
 
 
 class DataIterator:
-    """Prefetching iterator yielding batches of tensors on ``device``.
-    A worker thread makes the numpy batches ahead; :meth:`close` stops and
-    joins it.  An error in the worker is raised by ``next``."""
+    """Prefetching iterator yielding batches of tensors on ``device``, or
+    with ``shd`` of :class:`~repro_torch.launch.sharding.Sharded` pieces on
+    its mesh (``device`` is then unused).  A worker thread makes the numpy
+    batches ahead; :meth:`close` stops and joins it.  An error in the
+    worker is raised by ``next``."""
 
     def __init__(self, cfg, batch: int, seq: int, seed: int = 0,
-                 start_step: int = 0, prefetch: int = 2, device="cuda"):
+                 start_step: int = 0, prefetch: int = 2, device="cuda",
+                 shd=None):
         self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
-        self.device = resolve_device(device)
+        self.shd = shd
+        self.device = None if shd is not None else resolve_device(device)
         self.step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -101,7 +110,11 @@ class DataIterator:
         if isinstance(b, Exception):
             raise b
         self.step = step + 1
-        return {k: torch.as_tensor(v, device=self.device)
+        if self.shd is None:
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in b.items()}
+        placements = batch_sharding(self.shd, b)
+        return {k: placements[k].split(torch.as_tensor(v))
                 for k, v in b.items()}
 
     def close(self):

@@ -9,9 +9,12 @@ them), with the same flags, ``PRESETS`` and ``[train]`` lines, plus
 ``--device`` (default ``cuda``, which raises where torch sees no CUDA
 device).  Presets scale the architecture's family to a size trainable on
 one device; ``--full`` uses the published config unchanged (granite-3-2b
-fits one H100).  The mesh is the local one of ``--device``'s type and
-must hold one device; ``--production-mesh`` raises (ROADMAP item 20).
-``main(argv)`` returns the ``Trainer``'s output.
+fits one H100).  As in the reference, training runs on the local mesh
+(every visible device of ``--device``'s type: every CUDA card, or the one
+CPU) with ``default_rules``: data parallel over the cards, parameters and
+moments FSDP-sharded over them; a mesh of one device (one card, or the
+CPU) trains on the single-device step.  ``--production-mesh`` raises (ROADMAP
+item 20).  ``main(argv)`` returns the ``Trainer``'s output.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim import adamw
 from repro_torch.train.loop import TrainConfig, Trainer
@@ -75,6 +79,9 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(**over)
 
     mesh = make_local_mesh(device=dev)
+    rules = sh.default_rules(mesh)
+    print(f"[train] mesh {mesh.shape} over "
+          f"{[str(d) for d in mesh.devices]}, default rules")
     tc = TrainConfig(
         steps=args.steps, batch=args.batch, seq=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -82,7 +89,7 @@ def main(argv=None) -> dict:
         opt=adamw.AdamWConfig(lr=args.lr,
                               warmup_steps=min(50, args.steps // 10 + 1),
                               total_steps=args.steps))
-    out = Trainer(cfg, tc, mesh=mesh).run()
+    out = Trainer(cfg, tc, mesh=mesh, rules=rules).run()
     losses = [m.get("loss") for m in out["metrics"]]
     print(f"[train] done: {len(losses)} steps, "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "

@@ -51,8 +51,8 @@ def _ffn(p, x, cfg):
     return MLP.mlp(p["mlp"], x, cfg), {}
 
 
-def dense_layer(p, x, *, cfg, kind_flag: int, positions,
-                prefix_len: int = 0, return_kv: bool = False):
+def _attention_residual(p, x, cfg, kind_flag, positions, prefix_len,
+                        return_kv=False):
     kind, theta = _attn_kind(cfg, kind_flag)
     if cfg.family == "vlm":
         kind = "prefix"
@@ -62,11 +62,35 @@ def dense_layer(p, x, *, cfg, kind_flag: int, positions,
     kv = None
     if return_kv:
         h, kv = h
-    x = x + h
+    return x + h, kv
+
+
+def dense_layer(p, x, *, cfg, kind_flag: int, positions,
+                prefix_len: int = 0, return_kv: bool = False):
+    x, kv = _attention_residual(p, x, cfg, kind_flag, positions, prefix_len,
+                                return_kv)
     h, aux = _ffn(p, L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
     if return_kv:
         return x + h, aux, kv
     return x + h, aux
+
+
+def dense_layer_replicas(ps, xs, *, cfg, kind_flag: int, positions,
+                         prefix_len: int = 0):
+    """:func:`dense_layer` over data replicas: ``ps[r]`` replica ``r``'s
+    layer, ``xs[r]`` and ``positions[r]`` its rows of one global batch,
+    in order.  Attention is row-local, so each replica runs its own; an
+    MoE FFN runs :func:`~repro_torch.models.moe.moe_replicas`, whose
+    groups and router statistics are the global batch's.  Returns (the
+    replicas' outputs, aux)."""
+    xs = [_attention_residual(p, x, cfg, kind_flag, pos, prefix_len)[0]
+          for p, x, pos in zip(ps, xs, positions)]
+    hin = [L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+    if cfg.family == "moe":
+        hs, aux = MOE.moe_replicas([p["moe"] for p in ps], hin, cfg)
+    else:
+        hs, aux = [MLP.mlp(p["mlp"], h, cfg) for p, h in zip(ps, hin)], {}
+    return [x + h for x, h in zip(xs, hs)], aux
 
 
 def dense_layer_decode(p, x, cache, *, cfg, kind_flag: int, cur_pos: int,

@@ -1,16 +1,18 @@
 """Shared layers: norms, projections, embeddings, RoPE (the JAX package's
 ``models/layers.py``).
 
-The port runs on one device, so the reference's ``shard`` constraints
-(identities there without a sharding spec) are left out, and so is
-``embed_lookup_psum``, which only a vocab-sharded table reaches (ROADMAP
-item 19).
+The port places tensors explicitly (``repro_torch.launch.sharding``), so
+the reference's ``shard`` activation constraints, layout hints to GSPMD
+and identities on values, are left out.  :func:`embed_lookup_psum` is the
+reference's decode lookup over a vocab-sharded table, its pieces gathered
+by the hand-written row gather.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe_dispatch.kernel import row_gather
 from repro_torch.models import params as pr
 
 
@@ -46,6 +48,51 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
     """Token-id gather of whole rows of the table."""
     return table[ids.long()].to(compute_dtype)
+
+
+def embed_lookup_psum(table: torch.Tensor, ids: torch.Tensor, compute_dtype,
+                      shd) -> torch.Tensor:
+    """Decode-path embedding lookup over a vocab-sharded table.
+
+    The reference's Intelligent-Unroll move: rather than all-gather the
+    table, every model-shard gathers only its local vocab slice (masked)
+    and the shards psum the (B, S, D) result, a few hundred KB at decode.
+    The table is split by the rules once (``shd.place``: on a simulated
+    mesh the pieces are views).  Piece ``j`` of the model axis gathers its
+    rows with the hand-written :func:`~repro_torch.kernels.moe_dispatch.
+    kernel.row_gather` at ``clip(ids - lo, 0, v_loc - 1)``, zeroes the rows
+    outside ``[lo, lo + v_loc)`` and the pieces are summed onto ``ids``'
+    device (the psum); where the data axis cuts the embedding dimension
+    its blocks are concatenated there.  A vocabulary the model axis does
+    not divide, or ``rules["vocab"] != "model"``, takes
+    :func:`embed_lookup`, as in the reference."""
+    mesh = shd.mesh
+    model_n = mesh.shape["model"]
+    v, d = table.shape
+    if v % model_n or shd.rules.get("vocab") != "model":
+        return embed_lookup(table, ids, compute_dtype)
+    v_loc = v // model_n
+    placed = shd.place(table, ("vocab", "embed"))
+    blocks = {}             # embedding-dim block -> the psum of its pieces
+    for n, tab in enumerate(placed.pieces):
+        rows, cols = placed.placement.block(n, placed.shape)
+        lo = rows.start
+        if (cols.start, rows.start) in blocks:
+            continue        # a replica of a block already summed
+        rel = ids.to(tab.device).long() - lo
+        ok = (rel >= 0) & (rel < v_loc)
+        part = row_gather(tab, rel.clamp(0, v_loc - 1).to(
+            torch.int32).reshape(-1)).view(*ids.shape, tab.shape[1])
+        part = torch.where(ok[..., None], part, 0).to(compute_dtype)
+        blocks[(cols.start, lo)] = part.to(ids.device)
+    out = []
+    for c in sorted({c for c, _ in blocks}):
+        parts = [blocks[k] for k in sorted(blocks) if k[0] == c]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        out.append(total)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 
 # --------------------------------------------------------------------- rope

@@ -209,8 +209,11 @@ def init_model(cfg, *, generator: torch.Generator | None = None,
 
 
 # ------------------------------------------------------------------ forward
-def _embed_tokens(p, cfg, tokens):
-    x = L.embed_lookup(p["embed"], tokens, cfg.compute_dtype)
+def _embed_tokens(p, cfg, tokens, shd=None, decode=False):
+    if decode and shd is not None and cfg.decode_embed == "psum":
+        x = L.embed_lookup_psum(p["embed"], tokens, cfg.compute_dtype, shd)
+    else:
+        x = L.embed_lookup(p["embed"], tokens, cfg.compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
     return x
@@ -281,8 +284,12 @@ def forward(p, cfg, batch):
     """Full-sequence forward -> (logits (B,S,V), aux dict).
 
     batch: tokens (B,S) int32 [+ prefix_embeds (B,P,D) for vlm,
-    enc_frames (B,T_enc,D) for encdec]."""
+    enc_frames (B,T_enc,D) for encdec].  The MoE family is
+    :func:`forward_replicas` of one replica."""
     check_family(cfg)
+    if cfg.family == "moe":
+        logits, aux = forward_replicas([p], cfg, [batch])
+        return logits[0], aux
     x, positions, prefix_len = embed_inputs(p, cfg, batch)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
@@ -308,6 +315,41 @@ def forward(p, cfg, batch):
     return _logits(p, cfg, x[:, prefix_len:]), aux
 
 
+def forward_replicas(ps, cfg, batches):
+    """:func:`forward` of one global batch whose rows are split over data
+    replicas: ``batches[r]`` replica ``r``'s rows, in order, on the device
+    of its parameters ``ps[r]`` -> (the replicas' logits, aux on the first
+    replica's device).  Every layer is row-local except an MoE layer,
+    whose groups and load-balance statistics span the global batch; so
+    the MoE family runs the replicas layer by layer
+    (:func:`~repro_torch.models.blocks.dense_layer_replicas`, each layer
+    of all replicas under one ``cfg.remat`` checkpoint), the others each
+    replica's whole :func:`forward` in turn.  The MoE family's one layer
+    loop, for one replica as for many."""
+    if cfg.family != "moe":
+        outs = [forward(p, cfg, b) for p, b in zip(ps, batches)]
+        return [o[0] for o in outs], outs[0][1]
+    xs, positions = [], []
+    for p, b in zip(ps, batches):
+        x, pos, prefix_len = embed_inputs(p, cfg, b)
+        xs.append(x)
+        positions.append(pos)
+    dev0 = xs[0].device
+    aux = {k: torch.zeros((), dtype=torch.float32, device=dev0)
+           for k in ("moe_aux_loss", "moe_dropped_frac")}
+    for i, kind in enumerate(layer_kinds(cfg)):
+        xs, aux_i = _remat(B.dense_layer_replicas, cfg)(
+            [p["layers"][i] for p in ps], xs, cfg=cfg, kind_flag=int(kind),
+            positions=positions, prefix_len=prefix_len)
+        for k, v in aux_i.items():
+            aux[k] = aux[k] + v
+    logits = []
+    for p, x in zip(ps, xs):
+        x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+        logits.append(_logits(p, cfg, x[:, prefix_len:]))
+    return logits, aux
+
+
 # --------------------------------------------------------------------- loss
 def loss_fn(p, cfg, batch, z_loss: float = 1e-4,
             moe_loss_weight: float = 1e-2):
@@ -317,7 +359,11 @@ def loss_fn(p, cfg, batch, z_loss: float = 1e-4,
     ``torch.gather`` on the labels, equal to the reference's one-hot
     product without a second (B, S, V) float32 tensor.  The metrics are
     detached."""
-    logits, aux = forward(p, cfg, batch)
+    return loss_fn_replicas([p], cfg, [batch], z_loss, moe_loss_weight)
+
+
+def _token_sums(logits, batch):
+    """(sum of the masked nll, of the masked lse², of the mask)."""
     labels = batch["labels"]
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
@@ -326,9 +372,31 @@ def loss_fn(p, cfg, batch, z_loss: float = 1e-4,
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / denom
-    zl = z_loss * ((lse ** 2) * mask).sum() / denom
+    return (nll * mask).sum(), ((lse ** 2) * mask).sum(), mask.sum()
+
+
+def _global_sum(parts, device):
+    total = parts[0].to(device)
+    for x in parts[1:]:
+        total = total + x.to(device)
+    return total
+
+
+def loss_fn_replicas(ps, cfg, batches, z_loss: float = 1e-4,
+                     moe_loss_weight: float = 1e-2):
+    """:func:`loss_fn` of one global batch split over data replicas (see
+    :func:`forward_replicas`): each replica sums its own tokens' terms,
+    the sums meet on the first replica's device and are divided by the
+    global mask count, so the loss is the global batch's.  -> (total on
+    the first replica's device, metrics)."""
+    logits, aux = forward_replicas(ps, cfg, batches)
+    sums = [_token_sums(lg, b) for lg, b in zip(logits, batches)]
+    dev = logits[0].device
+    nll, zsum, count = (_global_sum([x[i] for x in sums], dev)
+                        for i in range(3))
+    denom = torch.clamp(count, min=1.0)
+    loss = nll / denom
+    zl = z_loss * zsum / denom
     total = loss + zl
     metrics = {"nll": loss, "z_loss": zl}
     if cfg.family == "moe":
@@ -402,14 +470,21 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, *,
     return cache
 
 
-def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0):
+def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0,
+                shd=None):
     """One token for every sequence. tokens (B, 1) int32; cur_pos the
     current write position (for vlm counted from the first prefix slot,
     ``prefix_len`` the prefix's length).  Writes the cache in place and
-    returns (logits (B,1,V), cache)."""
+    returns (logits (B,1,V), cache).  With ``shd`` and
+    ``cfg.decode_embed == "psum"`` the token embedding is
+    :func:`~repro_torch.models.layers.embed_lookup_psum` over the table
+    split by ``shd``'s rules; every other leaf stays whole on the
+    parameters' device (tensor-parallel compute over the model axis is
+    ROADMAP item 21).  ``shd`` follows ``prefix_len`` here, where the
+    reference has it before (positional callers pass ``prefix_len``)."""
     check_family(cfg)
     cur_pos = int(cur_pos)
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_tokens(p, cfg, tokens, shd=shd, decode=True)
     if cfg.family == "ssm":
         for i, layer in enumerate(p["layers"]):
             state = (cache["wkv"][i], cache["xlt"][i], cache["xlc"][i])

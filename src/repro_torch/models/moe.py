@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_dispatch.kernel import row_gather
+from repro_torch.launch.sharding import take_rows
 from repro_torch.models import params as pr
 
 
@@ -160,44 +161,85 @@ def _combine(flat, slot, order, gates):
 
 def moe(p, x: torch.Tensor, cfg, group_size: int | None = None):
     """x (B, S, D) -> (out (B, S, D), aux_metrics dict)."""
-    b, s, d = x.shape
-    t = b * s
+    ys, aux = moe_replicas([p], [x], cfg, group_size)
+    return ys[0], aux
+
+
+def moe_replicas(ps, xs, cfg, group_size: int | None = None):
+    """The MoE layer over the rows of one global batch split over data
+    replicas: ``xs[r]`` (B_r, S, D) replica ``r``'s rows, in order, on its
+    device, ``ps[r]`` its copy of the layer's parameters.  -> (outputs,
+    one per replica on its device, aux_metrics on the first replica's
+    device).
+
+    As in the reference, where GSPMD keeps the global semantics, the
+    groups, their capacity and the load-balance statistics are those of
+    the global batch: the router runs on each replica's own tokens
+    (row-local); group ``g`` (global token rows ``[g Tg, (g + 1) Tg)``) is
+    dispatched, run through the experts and combined on the replica that
+    holds its first row, with that replica's weights, its rows from other
+    replicas copied there and its outputs copied back; the expert choices
+    and router probabilities of every replica come to the first replica's
+    device for the aux loss.  Autograd carries the gradients back across
+    the copies.  With one replica this is the single-device layer."""
+    s, d = xs[0].shape[1:]
+    sizes = [x.shape[0] * s for x in xs]
+    offsets = [sum(sizes[:r]) for r in range(len(xs))]
+    t = sum(sizes)
     e, k = cfg.num_experts, cfg.top_k
     g = _group_count(t, group_size or cfg.moe_group_size)
     tg = t // g
     c = max(1, int(np.ceil(tg * k / e * cfg.capacity_factor)))
 
-    xf = x.reshape(g, tg, d)
-    logits = torch.einsum("gtd,de->gte", xf.float(), p["router"].float())
-    probs = torch.softmax(logits, dim=-1)
-    gates, eidx = torch.topk(probs, k, dim=-1)     # (G, Tg, k)
-    eidx = eidx.to(torch.int32)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    flat, probs, gates, eidx = [], [], [], []
+    for p, x in zip(ps, xs):
+        xf = x.reshape(-1, d)
+        logits = torch.einsum("td,de->te", xf.float(), p["router"].float())
+        pr_r = torch.softmax(logits, dim=-1)
+        gt, ei = torch.topk(pr_r, k, dim=-1)      # (T_r, k)
+        flat.append(xf)
+        probs.append(pr_r)
+        eidx.append(ei.to(torch.int32))
+        gates.append(gt / torch.clamp(gt.sum(-1, keepdim=True), min=1e-9))
 
-    wg = p["w_gate"].to(x.dtype)
-    wu = p["w_up"].to(x.dtype)
-    wd = p["w_down"].to(x.dtype)
+    weights = {}          # replica -> its expert weights in x's dtype
     ys, kept = [], []
     for gi in range(g):
-        slot, tok, order, valid = _dispatch_indices(eidx[gi], k, e, c)
-        disp = _dispatch(xf[gi], slot, tok, order, e, c).view(e, c, d)
+        lo, hi = gi * tg, (gi + 1) * tg
+        r = max(i for i, off in enumerate(offsets) if off <= lo)
+        dev = xs[r].device
+        if r not in weights:
+            weights[r] = tuple(ps[r][w].to(xs[r].dtype)
+                               for w in ("w_gate", "w_up", "w_down"))
+        wg, wu, wd = weights[r]
+        slot, tok, order, valid = _dispatch_indices(
+            take_rows(eidx, offsets, lo, hi, dev), k, e, c)
+        disp = _dispatch(take_rows(flat, offsets, lo, hi, dev), slot, tok,
+                         order, e, c).view(e, c, d)
         # expert FFN (dense over the expert dim)
         h = F.silu(torch.einsum("ecd,edf->ecf", disp, wg)) * \
             torch.einsum("ecd,edf->ecf", disp, wu)
         out_e = torch.einsum("ecf,efd->ecd", h, wd)
-        ys.append(_combine(out_e.reshape(e * c, d), slot, order, gates[gi]))
+        ys.append(_combine(out_e.reshape(e * c, d), slot, order,
+                           take_rows(gates, offsets, lo, hi, dev)))
         kept.append(valid)
-    y = torch.stack(ys).reshape(b, s, d)
+    group_offsets = [gi * tg for gi in range(g)]
+    outs = [take_rows(ys, group_offsets, off, off + n, x.device).view(x.shape)
+            for x, off, n in zip(xs, offsets, sizes)]
 
-    # load-balance aux loss (Switch-style) + router stats
-    frac_tokens = torch.bincount(eidx.reshape(-1).long(),
+    # load-balance aux loss (Switch-style) + router stats, global
+    dev0 = xs[0].device
+    all_eidx = take_rows(eidx, offsets, 0, t, dev0)
+    all_probs = take_rows(probs, offsets, 0, t, dev0).view(g, tg, e)
+    frac_tokens = torch.bincount(all_eidx.reshape(-1).long(),
                                  minlength=e).float() / (t * k)
-    mean_prob = probs.mean(dim=(0, 1))
+    mean_prob = all_probs.mean(dim=(0, 1))
     aux = {
         "moe_aux_loss": e * torch.sum(frac_tokens * mean_prob),
-        "moe_dropped_frac": 1.0 - torch.stack(kept).float().mean(),
+        "moe_dropped_frac": 1.0 - torch.stack(
+            [v.to(dev0) for v in kept]).float().mean(),
     }
-    return y, aux
+    return outs, aux
 
 
 def dispatch_pattern_stats(eidx: np.ndarray, lane_width: int = 128) -> dict:

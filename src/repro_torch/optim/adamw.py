@@ -20,6 +20,14 @@ small; every step is elementwise or block-wise, so the chunks do not
 change the result.  ``torch.optim.AdamW`` is not used: it keeps the
 moments in the parameters' dtype and has neither the clip nor the
 schedule.
+
+Data-parallel training (``repro_torch.train.loop`` over a mesh) hands in
+trees whose leaves are :class:`~repro_torch.launch.sharding.Sharded`
+pieces: parameters and float32 gradients cut by the rules.  Each moment is
+then a ``Sharded`` of the stacked leaf, cut as its layers are, and every
+piece is updated on its own device with the step's scalars copied there;
+the gradient norm counts every logical element once (a replicated leaf's
+first copy).  8-bit moments stay single-device.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import Placement, Sharded
 from repro_torch.models import params as pr
 
 CHUNK = 1 << 24      # elements of one chunk of a stacked leaf's update
@@ -81,10 +90,28 @@ def _parts(leaf) -> list:
     return leaf if isinstance(leaf, list) else [leaf]
 
 
+def _sharded_zeros(leaf) -> Sharded:
+    """Float32 zero moments of a stacked leaf of ``Sharded`` pieces: the
+    layers' pieces stacked on each device."""
+    first = _parts(leaf)[0]
+    lead = (len(leaf),) if isinstance(leaf, list) else ()
+    pieces = [torch.zeros(lead + tuple(p.shape), dtype=torch.float32,
+                          device=p.device) for p in first.pieces]
+    spec = (None,) * len(lead) + first.placement.spec
+    return Sharded(Placement(first.placement.mesh, spec), pieces,
+                   lead + first.shape)
+
+
 def init(params, cfg: AdamWConfig) -> dict:
     """Zero moments, in the stacked structure, on the parameters'
     devices; ``step`` a 0-d int32 tensor."""
     def zeros(leaf):
+        if isinstance(_parts(leaf)[0], Sharded):
+            if cfg.quantize_moments:
+                raise NotImplementedError(
+                    "8-bit moments are block-wise over a whole stacked leaf; "
+                    "the data-parallel Trainer keeps float32 moments")
+            return _sharded_zeros(leaf)
         shape, dev = pr.stacked_shape(leaf), _parts(leaf)[0].device
         if cfg.quantize_moments:   # _q8 of zeros, without the float copy
             nb = -(-math.prod(shape) // cfg.q_block)
@@ -94,20 +121,29 @@ def init(params, cfg: AdamWConfig) -> dict:
                                     device=dev)}
         return torch.zeros(shape, dtype=torch.float32, device=dev)
     stacked = pr.stack_tree(params)
-    first = pr.leaves_like(stacked, stacked)[0]
-    return {"step": torch.zeros((), dtype=torch.int32,
-                                device=_parts(first)[0].device),
+    first = _parts(pr.leaves_like(stacked, stacked)[0])[0]
+    if isinstance(first, Sharded):
+        first = first.pieces[0]
+    return {"step": torch.zeros((), dtype=torch.int32, device=first.device),
             "m": pr.stacked_map(zeros, stacked),
             "v": pr.stacked_map(zeros, stacked)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
+    """sqrt of the sum of every gradient's squares, in float32.  A
+    ``Sharded`` gradient counts the pieces of one copy of its blocks, each
+    summed on its device; the sum is on the first piece's device."""
     stacked = pr.stack_tree(tree)
-    total = 0
+    total, dev = 0, None
     for leaf in pr.leaves_like(stacked, stacked):
         for g in _parts(leaf):
-            total = total + torch.sum(torch.square(g.float()))
+            if isinstance(g, Sharded):
+                dev = dev or g.pieces[0].device
+                for n in g.placement.owners():
+                    total = total + torch.sum(torch.square(
+                        g.pieces[n].float())).to(dev)
+            else:
+                total = total + torch.sum(torch.square(g.float()))
     return torch.sqrt(total)
 
 
@@ -184,6 +220,14 @@ def update(params, grads, state, cfg: AdamWConfig):
     for p, g, m, v in zip(pr.leaves_like(ps, ps), pr.leaves_like(ps, gs),
                           pr.leaves_like(ps, state["m"]),
                           pr.leaves_like(ps, state["v"])):
-        _update_leaf(_parts(p), _parts(g), m, v, scale, lr, c1, c2, cfg)
+        if not isinstance(m, Sharded):
+            _update_leaf(_parts(p), _parts(g), m, v, scale, lr, c1, c2, cfg)
+            continue
+        for n, (mn, vn) in enumerate(zip(m.pieces, v.pieces)):
+            dev = mn.device
+            _update_leaf([x.pieces[n] for x in _parts(p)],
+                         [x.pieces[n] for x in _parts(g)], mn, vn,
+                         scale.to(dev), lr.to(dev), c1.to(dev), c2.to(dev),
+                         cfg)
     return ({"step": step, "m": state["m"], "v": state["v"]},
             {"grad_norm": gnorm, "lr": lr})

@@ -11,7 +11,11 @@ zamba2's shared block in its own history); ``decode_step``
 (:mod:`repro_torch.models.lm`) is the single-token step, which the engine
 loops for batched greedy or temperature generation.  Everything runs on the
 device of the model and the tokens; the MoE layers' dispatch and combine
-run on the hand-written row gather there.
+run on the hand-written row gather there.  ``shd`` (a
+:class:`~repro_torch.launch.sharding.Shd`) reaches ``decode_step``, where
+``cfg.decode_embed == "psum"`` looks the tokens up in the table split by
+its rules (:func:`~repro_torch.models.layers.embed_lookup_psum`); the
+prefill keeps the gather, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 
 
-def prefill(p, cfg, batch, max_len: int):
-    """Run the prompt, returning (cache, last_logits (B, 1, V))."""
+def prefill(p, cfg, batch, max_len: int, shd=None):
+    """Run the prompt, returning (cache, last_logits (B, 1, V)).  ``shd``
+    is accepted as the reference's is; the prefill's lookup is the
+    gather."""
     x, positions, prefix_len = lm.embed_inputs(p, cfg, batch)
     b, s = positions.shape
     cache = lm.init_cache(cfg, b, max_len, device=x.device)
@@ -88,17 +94,19 @@ def _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len):
 
 def generate(p, cfg, batch, steps: int, max_len: int,
              temperature: float = 0.0,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, shd=None):
     """Batched generation. Returns (tokens (B, steps) int32, final cache).
 
     ``temperature == 0`` is greedy (``argmax``, the first of equal maxima);
     otherwise each token is drawn with ``torch.multinomial`` from the
     softmax of the logits over ``temperature``, using ``generator`` (on the
     tokens' device) when one is given.  For vlm, ``max_len`` counts the
-    ``num_prefix`` patch slots too."""
+    ``num_prefix`` patch slots too.  ``shd`` goes to every decode step
+    (it follows ``generator`` here; the reference has it after
+    ``max_len``)."""
     s = batch["tokens"].shape[1]
     prefix_len = lm.prefix_slots(cfg)
-    cache, last_logits = prefill(p, cfg, batch, max_len)
+    cache, last_logits = prefill(p, cfg, batch, max_len, shd)
 
     def sample(logits):
         last = logits[:, -1, :]
@@ -112,7 +120,7 @@ def generate(p, cfg, batch, steps: int, max_len: int,
     out = [tok]
     for i in range(steps - 1):
         logits, cache = lm.decode_step(p, cfg, cache, tok[:, None],
-                                       s + prefix_len + i, prefix_len)
+                                       s + prefix_len + i, prefix_len, shd)
         tok = sample(logits)
         out.append(tok)
     return torch.stack(out, dim=1), cache

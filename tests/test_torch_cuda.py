@@ -1274,3 +1274,75 @@ def test_checkpoint_round_trip_of_card_tensors(block, tmp_path):
     for k, v in ck._flatten(back).items():
         assert v.device == dev and v.dtype == want[k].dtype
         assert torch.equal(_bits(v), _bits(want[k])), k
+
+
+# ------------------------------------------- vocab-sharded decode embedding
+@pytest.mark.parametrize("data,model", [(1, 1), (1, 4), (2, 2), (1, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_lookup_psum_on_card_vs_plain(data, model, dtype,
+                                            monkeypatch):
+    """``embed_lookup_psum`` over a simulated ``data x model`` mesh on the
+    card: one ``row_gather`` launch per distinct block of the table (a
+    vocabulary of 1536 over 3 pieces too), ``torch.equal`` to the whole
+    table's gather and bitwise to the same lookup on the plain row
+    gather."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.models import layers as L
+    dev = _cuda()
+    mesh = ShardMesh(devices=(dev,) * (data * model), data=data,
+                     model=model, simulated=True)
+    shd = sh.Shd(mesh, sh.default_rules(mesh))
+    gen = torch.Generator(dev).manual_seed(7)
+    table = torch.randn((1536, 256), generator=gen, device=dev).to(dtype)
+    ids = torch.randint(0, 1536, (4, 3), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = RG.row_gather.launches
+    got = L.embed_lookup_psum(table, ids, torch.float32, shd)
+    torch.cuda.synchronize()
+    assert RG.row_gather.launches - before == data * model
+    assert torch.equal(got, L.embed_lookup(table, ids, torch.float32))
+    monkeypatch.setattr(L, "row_gather", RG.row_gather_plain)
+    plain = L.embed_lookup_psum(table, ids, torch.float32, shd)
+    assert got.dtype == plain.dtype and torch.equal(
+        got.view(torch.int32), plain.view(torch.int32))
+
+
+def test_data_parallel_moe_step_on_card_matches_cpu():
+    """One float32 data-parallel step of a reduced qwen3-moe (one dispatch
+    group across the replicas) at 2 simulated shards on the card and on
+    the CPU from the same weights and batch: loss and grad norm at
+    ``rtol=1e-4``; the card's row gathers counted (6 a layer)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-moe-235b-a22b").reduced().replace(remat="full")
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    batch = synth_batch(cfg, 4, 16, step=0)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=5)
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
+        m.axes = model.axes
+        mesh = make_shard_mesh(2, device=where, simulate=True)
+        shd = sh.Shd(mesh, sh.default_rules(mesh))
+        dp = loop.DataParallel(m, shd)
+        before = RG.row_gather.launches
+        _, got[where.type] = loop.make_train_step(cfg, opt, shd=shd)(
+            dp, adamw.init(dp.tree(), opt),
+            {k: torch.as_tensor(v, device=where) for k, v in batch.items()})
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            assert RG.row_gather.launches - before == 6 * cfg.num_layers
+    for k in ("loss", "grad_norm", "lr", "moe_aux"):
+        np.testing.assert_allclose(float(got["cuda"][k]),
+                                   float(got["cpu"][k]), rtol=1e-4,
+                                   err_msg=k)

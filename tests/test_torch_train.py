@@ -23,8 +23,9 @@ encoder layers over 16 frames, paligemma 8 patch tokens) for every arch:
   losses stay within the tolerance);
 * ``remat`` ``"none"``, ``"full"`` and ``"dots"``: bitwise-equal
   gradients;
-* the Trainer's straggler count and its refusals (its checkpoint/restart
-  tests are in ``test_torch_checkpoint.py``);
+* the Trainer's straggler count, a 2-shard mesh and the refusal of a
+  model axis (its checkpoint/restart tests are in
+  ``test_torch_checkpoint.py``, data parallel in ``test_torch_dp.py``);
 * the launcher in process with ``--device cpu`` (whisper and paligemma
   too), and the ``NotImplementedError``s naming their ROADMAP items.
 """
@@ -49,7 +50,8 @@ from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as ck
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import synth_batch
-from repro_torch.launch.mesh import ShardMesh
+from repro_torch.launch.mesh import ShardMesh, make_shard_mesh
+from repro_torch.launch.sharding import default_rules
 from repro_torch.models import lm, moe
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
@@ -154,15 +156,15 @@ def test_loss_mask_and_its_absence():
 # ------------------------------------------------------------- gradients
 def _port_moe_inputs(model, cfg, tokens, monkeypatch):
     seen = []
-    orig = moe.moe
+    orig = moe.moe_replicas
 
-    def spy(p, x, cfg, group_size=None):
-        seen.append(x.detach().clone())
-        return orig(p, x, cfg, group_size)
-    monkeypatch.setattr(moe, "moe", spy)
+    def spy(ps, xs, cfg, group_size=None):
+        seen.extend(x.detach().clone() for x in xs)      # one replica
+        return orig(ps, xs, cfg, group_size)
+    monkeypatch.setattr(moe, "moe_replicas", spy)
     with torch.no_grad():
         lm.forward(model, cfg, {"tokens": torch.as_tensor(tokens)})
-    monkeypatch.setattr(moe, "moe", orig)
+    monkeypatch.setattr(moe, "moe_replicas", orig)
     return seen
 
 
@@ -345,15 +347,26 @@ def test_stragglers_are_counted(tmp_path, monkeypatch):
         [False, False, False, True, False]
 
 
-def test_trainer_refuses_what_needs_sharding_rules(tmp_path):
+def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
+    """A 2-shard simulated mesh with rules trains (data parallel, the
+    parameters FSDP-sharded; ``test_torch_dp.py`` holds it to the
+    reference); a mesh whose model axis is above 1 raises, citing ROADMAP
+    item 21 (tensor-parallel compute)."""
     cfg = get_config("granite_3_2b").reduced()
-    two = ShardMesh(devices=(torch.device("cpu"), torch.device("meta")),
-                    data=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        loop.Trainer(cfg, _tc(tmp_path), mesh=two)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        loop.Trainer(cfg, _tc(tmp_path), rules={"batch": "data"},
-                     device="cpu")
+    two = make_shard_mesh(2, device="cpu", simulate=True)
+    out = loop.Trainer(cfg, _tc(tmp_path, steps=3), mesh=two,
+                       rules=default_rules(two)).run()
+    assert len(out["metrics"]) == 3 and all(
+        np.isfinite(m["loss"]) for m in out["metrics"])
+    embed = out["data_parallel"].params["embed"]
+    assert [tuple(p.shape) for p in embed.pieces] == \
+        [(cfg.vocab_size, cfg.d_model // 2)] * 2
+    tp = ShardMesh(devices=(torch.device("cpu"),) * 2, data=1, model=2,
+                   simulated=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
+        loop.Trainer(cfg, _tc(tmp_path), mesh=tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
+        loop.Trainer(cfg, _tc(tmp_path), mesh=tp, rules=default_rules(tp))
     one = ShardMesh(devices=(torch.device("cpu"),), data=1)
     assert loop.Trainer(cfg, _tc(tmp_path), mesh=one).device.type == "cpu"
 
