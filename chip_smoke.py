@@ -217,10 +217,18 @@ entry points of the three standalone kernels at real sizes, and fails
    the one card), the parameters and AdamW moments ``Sharded`` pieces
    (FSDP over ``data``), one ``LM`` replica a shard refilled by an
    all-gather each step, the gradients reduce-scattered in float32.
-   granite-3-2b whole, bf16, 2 shards, batch 8 x 512, 6 steps: losses
+   granite-3-2b whole, bf16, 2 shards, batch 8 x 512, 4 steps: losses
    finite, the last below the first; step ms, tokens/s, peak memory, a
    device's share of the parameters and moments, the device busy ms of
-   the all-gather and of the reduce-scatter, and a profiled step.
+   the all-gather and of the reduce-scatter, and a profiled step.  With
+   8-bit AdamW moments (ROADMAP item 23: ``q`` and ``s`` of the flat
+   stacked leaf, their blocks over ``data``; the gradients reduce-scattered
+   in that flat order, the new values exchanged into the pieces): the same
+   granite cell, 6 steps, and qwen3-moe at 1 layer (its 6 ``row_gather`` a
+   step counted, its peak beside the float32 cell's); granite in float32
+   at 4 layers, its moments after step 1, dequantized, at the dense rule
+   of one device's 8-bit update on the same summed gradients (unclipped),
+   ``q`` equal but across a rounding boundary.
    qwen3-moe-235b-a22b at full width cut to 1 layer, bf16, 2 shards, batch
    4 x 128, 4 steps (one dispatch group of 512 tokens across both
    replicas): 6 ``row_gather`` launches a step counted, step 1's loss at
@@ -243,6 +251,18 @@ entry points of the three standalone kernels at real sizes, and fails
    layers', and the lookup timed beside the whole table's gather,
    ``index_select`` and its bytes bound.
 
+15. the dry run's reckoning (``[dryrun]``, run after ``[dp]``; host work,
+   no device): ``repro_torch.launch.dryrun.reckon`` held against what the
+   card measured in this call.  A device's ``argument_bytes`` of the
+   ``[dp]`` granite cell equal the bytes its pieces hold (parameters,
+   AdamW state, batch), with float32 and with 8-bit moments, exactly; the
+   reckoned collective bytes equal those ``DataParallel`` counted in one
+   step of each, exactly; the traced ``[train]`` granite step's flops
+   equal ``FlopCounterMode`` over that step on the card, exactly; its
+   reckoned peak of temporaries is printed beside
+   ``torch.cuda.max_memory_allocated`` above the step's arguments, as a
+   ratio.
+
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
 line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
@@ -254,6 +274,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -357,12 +378,22 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
 # the one card) with the default rules, and the psum decode embedding over a
 # simulated (1, model) mesh; widths published, "layers" cuts the depth
 DP_CELLS = (
-    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=6,
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=4,
          shards=2, compare=0),
     # its first step's loss and grad norm held to one device's
     dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=4,
          shards=2, compare=1),
+    # 8-bit AdamW moments under the mesh (the flat reduce-scatter and the
+    # exchange of ROADMAP item 23)
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=6,
+         shards=2, compare=0, q8=True),
+    dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=4,
+         shards=2, compare=0, q8=True),
 )
+# float32: one 8-bit data-parallel step against one device's 8-bit update
+# on the same summed gradients (unclipped, as tests/test_torch_dp.py)
+DP_Q8_STATE = dict(arch="granite-3-2b", layers=4, batch=8, seq=512,
+                   shards=2)
 # float32, where the dense rule applies: in bf16 each replica's gradient is
 # rounded to 8 bits before the float32 reduce-scatter, where one device
 # rounds the whole batch's once (2^-9 of a gradient, past the rule's 1e-4);
@@ -768,6 +799,11 @@ class Smoke:
         self.mats, self.plans = {}, {}
         self.card_procs = []        # (share, start time, Popen)
         self.tests_ran = False      # a share ran during the current phase
+        # what [dryrun] holds its reckoning against, by 8-bit moments or not:
+        # the [dp] granite cell's bytes a device holds and one step's counted
+        # collectives; the [train] granite step's flops and peak
+        self.dp_held, self.dp_counted, self.dp_peaks = {}, {}, {}
+        self.train_measured = None
 
     # ------------------------------------------------------------ helpers
     def zero_counts(self) -> None:
@@ -1783,6 +1819,17 @@ class Smoke:
             state[0], _ = step_fn(model, state[0], batch)
         log_profile(self.tag, f"{cfg.name} train step (batch "
                     f"{spec['batch']}, seq {spec['seq']})", one_step, reps=2)
+        if spec is TRAIN_CELLS[0]:          # for [dryrun]
+            from torch.utils.flop_counter import FlopCounterMode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            with FlopCounterMode(display=False) as fc:
+                one_step()
+            torch.cuda.synchronize()
+            self.train_measured = dict(
+                cfg=cfg, spec=spec, flops=fc.get_total_flops(),
+                peak=torch.cuda.max_memory_allocated() - before)
         del out, model, state, batch
         torch.cuda.empty_cache()
 
@@ -1858,6 +1905,7 @@ class Smoke:
         shutil.rmtree(ROOT / "build" / "dp_ckpt", ignore_errors=True)
         for spec in DP_CELLS:
             self.dp_train(self.lm_config(spec), spec)
+        self.dp_q8_state(self.float32(self.lm_config(DP_Q8_STATE)))
         self.dp_state(self.float32(self.lm_config(DP_STATE)))
         self.dp_resume(self.float32(self.lm_config(DP_RESUME)))
         self.dp_decode(self.lm_config(DP_DECODE))
@@ -1921,9 +1969,11 @@ class Smoke:
         :meth:`dp_state`.)"""
         torch = self.torch
         from repro_torch.train import loop
-        k = spec["shards"]
-        tc = dataclasses.replace(self.train_config(spec), ckpt_dir=str(
-            ROOT / "build" / "dp_ckpt" / spec["arch"]))
+        k, q8 = spec["shards"], spec.get("q8", False)
+        tc = self.train_config(spec)
+        tc = dataclasses.replace(tc, ckpt_dir=str(
+            ROOT / "build" / "dp_ckpt" / spec["arch"]),
+            opt=dataclasses.replace(tc.opt, quantize_moments=q8))
         single = self.dp_single_steps(cfg, spec, tc, spec["compare"])
         mesh, shd = self.dp_mesh(k)
         base = torch.cuda.memory_allocated()    # held by earlier phases
@@ -1965,12 +2015,24 @@ class Smoke:
                     out["params"].parameters())
         piece = sum(t.pieces[0].numel() * t.pieces[0].element_size()
                     for t in sharded_leaves(dp.params))
-        moments = sum(t.pieces[0].numel() * 4 for key in ("m", "v")
+        moments = sum(t.pieces[0].numel() * t.pieces[0].element_size()
+                      for key in ("m", "v")
                       for t in sharded_leaves(out["opt"][key]))
+        self.dp_peaks[(cfg.name, q8)] = peak
+        if spec["arch"] == DP_CELLS[0]["arch"]:     # for [dryrun]
+            from repro_torch.launch import dryrun as dr
+            from repro_torch.launch import sharding as sh
+            batch = self.train_batch(cfg, spec)
+            pl = sh.batch_sharding(shd, batch)
+            self.dp_held[q8] = dr.held_bytes(
+                dp.tree(), out["opt"],
+                {key: pl[key].split(v) for key, v in batch.items()})
+        f32_peak = self.dp_peaks.get((cfg.name, False)) if q8 else None
         tokens = spec["batch"] * spec["seq"]
         step_ms = statistics.median(m["step_time"] for m in metrics[1:]) * 1e3
         log(f"[dp] {cfg.name} ({cfg.num_layers} layers) Trainer.run on a "
-            f"simulated {k}-shard mesh, default rules: {spec['steps']} steps "
+            f"simulated {k}-shard mesh, default rules, "
+            f"{'8-bit' if q8 else 'float32'} moments: {spec['steps']} steps "
             f"in {wall:.2f} s, losses {[round(x, 4) for x in losses]}; kernel "
             f"launches { {n: c for n, c in counts.items() if c} } "
             f"({per_step} row_gather a step); {held or 'no step compared'}"
@@ -1981,7 +2043,9 @@ class Smoke:
             f"(median of steps 2-{spec['steps']}, host clock), "
             f"{tokens / step_ms * 1e3:.1f} tokens/s; first step "
             f"{metrics[0]['step_time'] * 1e3:.1f} ms; peak memory {peak} B "
-            f"(above the {base} B held before)")
+            f"(above the {base} B held before)"
+            + (f"; 8-bit moments (the float32 cell: {f32_peak} B)"
+               if q8 else ""))
         if cfg.family != "moe":
             self.dp_collectives(cfg, spec, tc, dp, shd)
         del out, dp
@@ -1990,10 +2054,34 @@ class Smoke:
     def dp_collectives(self, cfg, spec, tc, dp, shd) -> None:
         """Device busy ms of the all-gather and of the reduce-scatter (the
         gradients of one real backward, put back before each call), and a
-        whole data-parallel step, under the profiler."""
+        whole data-parallel step, under the profiler (float32 moments);
+        then one more step whose collectives ``DataParallel`` counts, for
+        ``[dryrun]``."""
+        torch = self.torch
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        k, q8 = len(dp.devices), tc.opt.quantize_moments
+        batch = self.train_batch(cfg, spec, spec["steps"])
+        if not q8:           # the float32 cell times the collectives
+            self.dp_collective_times(cfg, spec, dp, shd, batch)
+        step_fn = loop.make_train_step(cfg, tc.opt, shd=shd)
+        state = [adamw.init(dp.tree(), tc.opt, shd=shd)]
+
+        def one_step():
+            state[0], _ = step_fn(dp, state[0], batch)
+        if not q8:
+            log_profile(self.tag, f"{cfg.name} dp train step ({k} simulated "
+                        f"shards, batch {spec['batch']}, seq {spec['seq']})",
+                        one_step, reps=1)
+        dp.reset_collectives()
+        one_step()
+        self.dp_counted[q8] = {c: dict(v) for c, v in dp.collectives.items()}
+        del state
+        torch.cuda.empty_cache()
+
+    def dp_collective_times(self, cfg, spec, dp, shd, batch) -> None:
         torch = self.torch
         from repro_torch.launch import sharding as sh
-        from repro_torch.optim import adamw
         from repro_torch.train import loop
         nbytes = sum(x.numel() * x.element_size() for x in
                      dp.models[0].parameters())
@@ -2001,7 +2089,6 @@ class Smoke:
         dp.gather()
         for m in dp.models:
             m.requires_grad_(True)
-        batch = self.train_batch(cfg, spec, spec["steps"])
         placements = sh.batch_sharding(shd, batch)
         place = {key: placements[key].split(v) for key, v in batch.items()}
         mbs, split = dp.rows(place, 0, spec["batch"])
@@ -2031,16 +2118,148 @@ class Smoke:
         for p in (p for m in dp.models for p in m.parameters()):
             p.grad = None
         torch.cuda.empty_cache()
-        step_fn = loop.make_train_step(cfg, tc.opt, shd=shd)
-        state = [adamw.init(dp.tree(), tc.opt)]
 
-        def one_step():
-            state[0], _ = step_fn(dp, state[0], batch)
-        log_profile(self.tag, f"{cfg.name} dp train step ({k} simulated "
-                    f"shards, batch {spec['batch']}, seq {spec['seq']})",
-                    one_step, reps=1)
-        del state
+    def dp_q8_state(self, cfg) -> None:
+        """One data-parallel step with 8-bit moments (float32, unclipped)
+        against one device's 8-bit AdamW update on the same summed
+        gradients, from the same weights: the moments dequantized at the
+        dense rule of each leaf's scale, ``q`` equal but across a rounding
+        boundary (at most 1 apart; the count printed), the weights at the
+        dense rule."""
+        torch = self.torch
+        from repro_torch.models import lm
+        from repro_torch.models import params as pr
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        spec = DP_Q8_STATE
+        oc = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2,
+                               clip_norm=1e9, quantize_moments=True)
+
+        def init():
+            gen = torch.Generator(self.dev).manual_seed(SEED)
+            return lm.init_model(cfg, generator=gen, device=self.dev)
+        one, (mesh, shd) = init(), self.dp_mesh(spec["shards"])
+        dp = loop.DataParallel(init(), shd)
+        state = adamw.init(dp.tree(), oc, shd=shd)
+        seen, update = {}, adamw.update
+
+        def spy(params, grads, st, c):
+            seen["grads"] = pr.stacked_map(
+                lambda g: g.join().reshape(-1), grads)
+            return update(params, grads, st, c)
+        adamw.update = spy
+        try:
+            state, _ = loop.make_train_step(cfg, oc, shd=shd)(
+                dp, state, self.train_batch(cfg, spec))
+        finally:
+            adamw.update = update
+        ones = pr.stack_tree(one.tree())
+
+        def whole(g, leaf):
+            shape = pr.stacked_shape(leaf)
+            t = g[:math.prod(shape)].reshape(shape)
+            return [t[i] for i in range(shape[0])] \
+                if isinstance(leaf, list) else t
+        grads = pr.stacked_map(whole, seen.pop("grads"), ones)
+        per_layer = {k: ([pr.stacked_map(lambda x, i=i: x[i], v)
+                          for i in range(cfg.num_layers)]
+                         if k == "layers" else v) for k, v in grads.items()}
+        st1, _ = update(one.tree(), per_layer, adamw.init(one.tree(), oc),
+                        oc)
+        dp.gather(replicas=1)
+        worst, flips, n = 0.0, 0, 0
+        for key in ("m", "v"):
+            for leaf_one, leaf_dp in zip(
+                    pr.leaves_like(ones, st1[key]),
+                    pr.leaves_like(ones, state[key])):
+                q1, s1 = leaf_one["q"], leaf_one["s"]
+                q2, s2 = leaf_dp["q"].join(), leaf_dp["s"].join()
+                dq = (q1.int() - q2.int()).abs()
+                check(int(dq.max()) <= 1, f"8-bit dp {key}: q apart by "
+                      f"{int(dq.max())}")
+                flips += int((dq > 0).sum())
+                n += q1.numel()
+                want, got = q1.float() * s1, q2.float() * s2
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got - want).abs().max())
+                allowed = DENSE_RULE["atol"] * scale
+                check(bool(((got - want).abs() <= allowed +
+                            DENSE_RULE["rtol"] * want.abs()).all()),
+                      f"8-bit dp {key}: dequantized moments {err} apart "
+                      f"(scale {scale})")
+                worst = max(worst, err / allowed)
+        wmax = 0.0
+        for (name, p1), p2 in zip(one.named_parameters(),
+                                  dp.models[0].parameters()):
+            p1, p2 = p1.detach(), p2.detach()
+            scale = max(1.0, float(p1.abs().max()))
+            err = float((p1 - p2).abs().max())
+            check(err <= DENSE_RULE["atol"] * scale + DENSE_RULE["rtol"] *
+                  float(p1.abs().max()), f"8-bit dp weight {name}: {err}")
+            wmax = max(wmax, err / (DENSE_RULE["atol"] * scale))
+        log(f"[dp] {cfg.name} ({cfg.num_layers} layers, float32) 8-bit "
+            f"moments at {spec['shards']} simulated shards, step 1 vs one "
+            f"device's 8-bit update on the same summed gradients "
+            f"(unclipped): q apart in {flips} of {n} elements (by 1 at "
+            f"most), dequantized moments at {worst:.3g} and weights at "
+            f"{wmax:.3g} of the dense rule's atol")
+        del one, dp, state, st1, grads, per_layer
         torch.cuda.empty_cache()
+
+    def dryrun_phase(self) -> None:
+        """The dry run's reckoning against this call's readings (see the
+        module docstring, phase 15)."""
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch import sharding as sh
+        from repro_torch.launch.mesh import ShardMesh
+        from repro_torch.launch.step_analysis import COLLECTIVES
+        t0 = time.perf_counter()
+        for q8 in (False, True):
+            spec = next(c for c in DP_CELLS if c.get("q8", False) == q8
+                        and c["arch"] == DP_CELLS[0]["arch"])
+            cfg = self.lm_config(spec)
+            mesh, shd = self.dp_mesh(spec["shards"])
+            rec = dr.reckon(cfg, "train", {"seq_len": spec["seq"],
+                                           "global_batch": spec["batch"]},
+                            mesh, shd.rules,
+                            {"quantize_moments": True} if q8 else None,
+                            trace=False)
+            held, counted = self.dp_held[q8], self.dp_counted[q8]
+            check(rec["arguments"] == held, f"[dryrun] {cfg.name} "
+                  f"{'8-bit' if q8 else 'float32'}: reckoned argument bytes "
+                  f"{rec['arguments']} vs held {held}")
+            want = {c: rec["collectives"][c] for c in COLLECTIVES}
+            check(want == counted, f"[dryrun] {cfg.name}: reckoned "
+                  f"collectives {want} vs counted {counted}")
+            moved = {c: (v["count"], v["bytes"])
+                     for c, v in counted.items() if v["count"]}
+            log(f"[dryrun] {cfg.name} dp cell ({spec['shards']} simulated "
+                f"shards, batch {spec['batch']} x {spec['seq']}, "
+                f"{'8-bit' if q8 else 'float32'} moments): argument bytes "
+                f"{rec['memory']['argument_bytes']} = held {held} exactly; "
+                f"collectives a step reckoned = counted {moved} "
+                f"exactly ({rec['collectives']['total_bytes']} B)")
+        m = self.train_measured
+        mesh = ShardMesh(devices=(self.dev,), data=1)
+        t1 = time.perf_counter()
+        rec = dr.reckon(m["cfg"], "train", {"seq_len": m["spec"]["seq"],
+                                            "global_batch":
+                                            m["spec"]["batch"]},
+                        mesh, sh.default_rules(mesh))
+        traced = rec["traced"]
+        check(traced["flops"] == m["flops"], f"[dryrun] {m['cfg'].name} "
+              f"train step: traced flops {traced['flops']} vs the card's "
+              f"FlopCounterMode {m['flops']}")
+        log(f"[dryrun] {m['cfg'].name} train step (batch "
+            f"{m['spec']['batch']} x {m['spec']['seq']}, one device): traced "
+            f"on fake tensors in {time.perf_counter() - t1:.1f} s (host "
+            f"clock), "
+            f"flops {traced['flops']} = the card's FlopCounterMode exactly; "
+            f"reckoned peak of temporaries {traced['peak_bytes']} B vs "
+            f"torch.cuda.max_memory_allocated above the arguments "
+            f"{m['peak']} B: ratio {traced['peak_bytes'] / m['peak']:.4f}; "
+            f"bytes accessed (the proxy) {traced['memory_bytes']} B")
+        log(f"[dryrun] phase in {time.perf_counter() - t0:.1f} s")
 
     def dp_state(self, cfg) -> None:
         """The state after step 1 at ``shards`` simulated shards against
@@ -3359,7 +3578,7 @@ class Smoke:
                           self.matvec_many_phase, self.segment_reduce_phase,
                           self.gather_vload_phase, self.row_gather_phase,
                           self.lm_phase, self.train_phase, self.dp_phase,
-                          self.graph_phase,
+                          self.dryrun_phase, self.graph_phase,
                           self.serve_phase, self.tune_phase,
                           self.shard_phase, self.main_timings,
                           self.stage_a_timings):

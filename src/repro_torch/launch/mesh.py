@@ -14,8 +14,12 @@ all ``k`` shards on one device (the counterpart of
 ``make_shard_mesh(k, device=..., simulate=True)`` builds one, and nothing
 else repeats a device.
 
-``make_production_mesh`` (the 256/512-chip LM mesh) waits for a
-multi-card machine (``ROADMAP.md`` queue 1, item 20).
+The 256/512-chip production LM mesh of the reference's
+``make_production_mesh`` exists here only as its shape,
+:func:`production_mesh` (a :class:`MeshShape`, the counterpart of an
+``AbstractMesh``): the dry run (``repro_torch.launch.dryrun``) reckons a
+device's share of a step on it; running on it waits for a multi-card
+machine (``ROADMAP.md`` items 21 and 6).
 """
 from __future__ import annotations
 
@@ -43,6 +47,34 @@ class ShardMesh:
     @property
     def shape(self) -> dict:
         return {"data": self.data, "model": self.model}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no device (what ``Shd`` and a
+    placement's bytes need)."""
+
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def production_mesh(multi_pod: bool = False) -> MeshShape:
+    """The reference's production mesh, as a shape: 16 x 16 ``("data",
+    "model")``, or 2 x 16 x 16 with ``"pod"`` in front."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def visible_devices(device_type: str = "cuda") -> list[torch.device]:

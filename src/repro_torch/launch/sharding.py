@@ -241,6 +241,23 @@ class Shd:
         return sh
 
 
+def data_cut(placement: Placement) -> int:
+    """How many pieces a placement cuts a tensor into over the mesh's
+    data-parallel axes (``pod``, ``data``)."""
+    dp = set(dp_axes(placement.mesh))
+    return math.prod(placement.mesh.shape[a] for entry in placement.spec
+                     for a in _axes(entry) if a in dp)
+
+
+def blocks_placement(shd: Shd, nblocks: int, block: int) -> Placement:
+    """The placement of a leaf's 8-bit AdamW moments, ``(nblocks, block)``
+    blocks of the flattened stacked leaf (and their ``(nblocks, 1)``
+    scales): dim 0 over the ``"embed"`` rule, replicated where its mesh
+    axes do not divide ``nblocks`` (the reference dry run's ``opt_8bit``
+    sharding)."""
+    return shd.named(("embed", None), (nblocks, block))
+
+
 def take_rows(parts: Sequence[torch.Tensor], offsets: Sequence[int],
               lo: int, hi: int, device) -> torch.Tensor:
     """Rows ``[lo, hi)`` of the concatenation of ``parts`` (part ``r``

@@ -13,8 +13,8 @@ fits one H100).  As in the reference, training runs on the local mesh
 (every visible device of ``--device``'s type: every CUDA card, or the one
 CPU) with ``default_rules``: data parallel over the cards, parameters and
 moments FSDP-sharded over them; a mesh of one device (one card, or the
-CPU) trains on the single-device step.  ``--production-mesh`` raises (ROADMAP
-item 20).  ``main(argv)`` returns the ``Trainer``'s output.
+CPU) trains on the single-device step.  ``--production-mesh`` raises
+(ROADMAP items 21 and 6), naming the dry run that reckons that mesh.  ``main(argv)`` returns the ``Trainer``'s output.
 """
 from __future__ import annotations
 
@@ -62,9 +62,11 @@ def main(argv=None) -> dict:
 
     if args.production_mesh:
         raise NotImplementedError(
-            "the 256/512-chip production mesh needs a multi-card machine; "
-            "its stand-in (a meta-device trace of the train and serve "
-            "steps) is ROADMAP item 20")
+            "training on the 256/512-chip production mesh needs 256 cards "
+            "(multi-card runs: ROADMAP item 6) and tensor-parallel compute "
+            "over its model axis (ROADMAP item 21); a device's share of a "
+            "step on that mesh is reckoned by python -m "
+            "repro_torch.launch.dryrun --arch ... --shape ... --mesh pod")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:

@@ -178,11 +178,13 @@ def init_model(cfg, *, generator: torch.Generator | None = None,
     """A model with random weights drawn from ``generator`` (by default
     one on ``device`` seeded with 0), at the fan-in scale of the JAX
     package's ``params.normal``.  ``device`` defaults to ``"cuda"``, which
-    raises when no CUDA device exists."""
+    raises when no CUDA device exists; on ``"meta"`` nothing is drawn or
+    allocated (:func:`repro_torch.models.params.abstract_init`)."""
     check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = pr.MetaDraws() if dev.type == "meta" else \
+            torch.Generator(dev).manual_seed(0)
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     g, pdt = generator, cfg.param_dtype
@@ -468,6 +470,29 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, *,
         for key in ("cross_k", "cross_v"):
             cache[key] = zeros((n_layers, batch_size, cfg.enc_len, kh, hd))
     return cache
+
+
+CACHE_AXES = {
+    "k": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "v": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "k_local": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "v_local": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "cross_k": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "cross_v": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "shared_k": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "shared_v": ("layers", "batch", None, "kv_heads", "head_dim"),
+    "ssm": ("layers", "batch", "heads", None, None),
+    "conv": ("layers", "batch", None, "mlp"),
+    "wkv": ("layers", "batch", "heads", None, None),
+    "xlt": ("layers", "batch", "embed_act"),
+    "xlc": ("layers", "batch", "embed_act"),
+}
+
+
+def cache_axes(cache: dict) -> dict:
+    """Logical axes for every cache leaf (the sharding rules place the
+    decode cache by them)."""
+    return {k: CACHE_AXES[k] for k in cache}
 
 
 def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0,

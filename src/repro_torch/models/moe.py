@@ -231,8 +231,11 @@ def moe_replicas(ps, xs, cfg, group_size: int | None = None):
     dev0 = xs[0].device
     all_eidx = take_rows(eidx, offsets, 0, t, dev0)
     all_probs = take_rows(probs, offsets, 0, t, dev0).view(g, tg, e)
-    frac_tokens = torch.bincount(all_eidx.reshape(-1).long(),
-                                 minlength=e).float() / (t * k)
+    choices = all_eidx.reshape(-1).long()     # counted exactly in int64,
+    counts = torch.zeros(e, dtype=torch.int64,  # and on the meta device
+                         device=dev0).scatter_add_(0, choices,
+                                                   torch.ones_like(choices))
+    frac_tokens = counts.float() / (t * k)
     mean_prob = all_probs.mean(dim=(0, 1))
     aux = {
         "moe_aux_loss": e * torch.sum(frac_tokens * mean_prob),

@@ -84,12 +84,13 @@ def stacked_shape(leaf) -> tuple:
     return tuple(leaf.shape)
 
 
-def stacked_map(fn, tree):
+def stacked_map(fn, tree, *rest):
     """``fn`` on every leaf of a stacked-structure tree (lists are
-    leaves)."""
+    leaves), and on the nodes at the same places of the trees ``rest``."""
     if isinstance(tree, Mapping):
-        return {k: stacked_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: stacked_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def leaves_like(ref, tree) -> list:
@@ -106,15 +107,35 @@ def split_ptree(ptree):
             tree_map(lambda p: p.axes, ptree))
 
 
+class MetaDraws:
+    """The generator of a model on the ``meta`` device, where
+    ``torch.Generator`` cannot live: a draw is a meta tensor of its shape
+    and dtype, and nothing is drawn."""
+
+    device = torch.device("meta")
+
+
 def normal(generator: torch.Generator, shape, axes, dtype, scale=None) -> P:
     """Standard normal draws in ``dtype`` times ``scale`` (by default
     ``1/sqrt(fan_in)``, fan-in the leading dimension), on the generator's
     device."""
+    if generator.device.type == "meta":
+        return P(torch.empty(shape, dtype=dtype, device="meta"), axes)
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     scale = (1.0 / np.sqrt(fan_in)) if scale is None else scale
     value = torch.randn(shape, generator=generator, dtype=dtype,
                         device=generator.device)
     return P(value.mul_(torch.tensor(scale, dtype=dtype)), axes)
+
+
+def abstract_init(cfg):
+    """Shape-only init, the JAX package's ``abstract_init(lm.init_model,
+    cfg)``: the model built on the ``meta`` device (no element allocated
+    or drawn) -> (values tree of meta tensors, in the port's per-layer
+    structure, axes tree in the stacked layout)."""
+    from repro_torch.models import lm
+    model = lm.init_model(cfg, device="meta")
+    return model.tree(), model.axes
 
 
 def zeros(shape, axes, dtype, device) -> P:

@@ -23,11 +23,25 @@ schedule.
 
 Data-parallel training (``repro_torch.train.loop`` over a mesh) hands in
 trees whose leaves are :class:`~repro_torch.launch.sharding.Sharded`
-pieces: parameters and float32 gradients cut by the rules.  Each moment is
-then a ``Sharded`` of the stacked leaf, cut as its layers are, and every
-piece is updated on its own device with the step's scalars copied there;
-the gradient norm counts every logical element once (a replicated leaf's
-first copy).  8-bit moments stay single-device.
+pieces: parameters and float32 gradients cut by the rules.  A float32
+moment is then a ``Sharded`` of the stacked leaf, cut as its layers are,
+and every piece is updated on its own device with the step's scalars
+copied there; the gradient norm counts every logical element once (a
+replicated leaf's first copy).
+
+8-bit moments under a mesh keep the reference's layout: ``q`` and ``s``
+of the flat stacked leaf, their blocks' dim 0 cut over the ``"embed"``
+rule (:func:`~repro_torch.launch.sharding.blocks_placement`: FSDP over
+``data``, replicated where the devices do not divide the blocks).  A
+device's run of blocks covers a contiguous range of the flattened stacked
+leaf, across layers and every ``embed`` column, so its elements are not
+those of its parameter piece.  For such a leaf ``update`` takes the
+gradient in the same block placement (``DataParallel``'s reduce-scatter
+in flat order) and, as the parameter, a ``Sharded`` over that placement
+whose piece ``n`` is device ``n``'s whole copy of the stacked leaf (its
+per-layer tensors: the data-parallel replica): each device updates its
+blocks' elements there in place, and ``DataParallel.exchange`` copies them
+into the parameter pieces.
 """
 from __future__ import annotations
 
@@ -37,7 +51,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.sharding import Placement, Sharded
+from repro_torch.launch.sharding import Placement, Sharded, blocks_placement
 from repro_torch.models import params as pr
 
 CHUNK = 1 << 24      # elements of one chunk of a stacked leaf's update
@@ -102,23 +116,43 @@ def _sharded_zeros(leaf) -> Sharded:
                    lead + first.shape)
 
 
-def init(params, cfg: AdamWConfig) -> dict:
+def _q8_zeros(nb: int, block: int, dev) -> dict:
+    """``_q8`` of ``nb`` blocks of zeros, without the float copy."""
+    return {"q": torch.zeros((nb, block), dtype=torch.int8, device=dev),
+            "s": torch.full((nb, 1), 1e-12, dtype=torch.float32, device=dev)}
+
+
+def _sharded_q8_zeros(leaf, shd, block: int) -> dict:
+    """8-bit zero moments of a stacked leaf of ``Sharded`` pieces: ``q``
+    and ``s`` in :func:`blocks_placement`, each device's run of blocks on
+    it."""
+    if shd is None:
+        raise ValueError("8-bit moments of Sharded parameters need shd= "
+                         "(the rules that place their blocks)")
+    nb = -(-math.prod(pr.stacked_shape(leaf)) // block)
+    pl = blocks_placement(shd, nb, block)
+    pieces = []
+    for n, dev in enumerate(pl.mesh.devices):
+        blocks = pl.block(n, (nb, block))[0]
+        pieces.append(_q8_zeros(blocks.stop - blocks.start, block, dev))
+    return {key: Sharded(pl, [p[key] for p in pieces], (nb, width))
+            for key, width in (("q", block), ("s", 1))}
+
+
+def init(params, cfg: AdamWConfig, shd=None) -> dict:
     """Zero moments, in the stacked structure, on the parameters'
-    devices; ``step`` a 0-d int32 tensor."""
+    devices; ``step`` a 0-d int32 tensor.  8-bit moments of ``Sharded``
+    parameters need ``shd`` (the mesh's rules), which places their
+    blocks."""
     def zeros(leaf):
         if isinstance(_parts(leaf)[0], Sharded):
             if cfg.quantize_moments:
-                raise NotImplementedError(
-                    "8-bit moments are block-wise over a whole stacked leaf; "
-                    "the data-parallel Trainer keeps float32 moments")
+                return _sharded_q8_zeros(leaf, shd, cfg.q_block)
             return _sharded_zeros(leaf)
         shape, dev = pr.stacked_shape(leaf), _parts(leaf)[0].device
-        if cfg.quantize_moments:   # _q8 of zeros, without the float copy
-            nb = -(-math.prod(shape) // cfg.q_block)
-            return {"q": torch.zeros((nb, cfg.q_block), dtype=torch.int8,
-                                     device=dev),
-                    "s": torch.full((nb, 1), 1e-12, dtype=torch.float32,
-                                    device=dev)}
+        if cfg.quantize_moments:
+            return _q8_zeros(-(-math.prod(shape) // cfg.q_block),
+                             cfg.q_block, dev)
         return torch.zeros(shape, dtype=torch.float32, device=dev)
     stacked = pr.stack_tree(params)
     first = _parts(pr.leaves_like(stacked, stacked)[0])[0]
@@ -156,7 +190,9 @@ def _pieces(parts, a: int, b: int):
             for i in range(a // n, -(-b // n))]
 
 
-def _read(parts, a: int, b: int) -> torch.Tensor:
+def read_range(parts, a: int, b: int) -> torch.Tensor:
+    """Elements ``[a, b)`` of the flat concatenation of ``parts``: a view
+    where one part holds them, else a copy."""
     pieces = _pieces(parts, a, b)
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
@@ -185,22 +221,48 @@ def _store(mom, a: int, b: int, values: torch.Tensor, block: int) -> None:
         mom.view(-1)[a:b] = values
 
 
-def _update_leaf(ps, gs, m, v, scale, lr, c1, c2, cfg) -> None:
-    n = ps[0].numel() * len(ps)
+def _update_leaf(ps, gs, m, v, scale, lr, c1, c2, cfg, lo: int = 0,
+                 hi: int | None = None) -> None:
+    """Elements ``[lo, hi)`` (by default all) of the flat stacked leaf
+    ``ps``; the gradient parts ``gs`` and the moments hold them from their
+    own element 0 (``lo`` is a multiple of ``q_block``)."""
+    hi = ps[0].numel() * len(ps) if hi is None else hi
     chunk = max(CHUNK // cfg.q_block, 1) * cfg.q_block
-    for a in range(0, n, chunk):
-        b = min(a + chunk, n)
-        g = _read(gs, a, b).float() * scale
-        p = _read(ps, a, b).float()
-        m_f = cfg.b1 * _moment(m, a, b, cfg.q_block) + (1 - cfg.b1) * g
-        v_f = cfg.b2 * _moment(v, a, b, cfg.q_block) + \
+    for a in range(lo, hi, chunk):
+        b = min(a + chunk, hi)
+        g = read_range(gs, a - lo, b - lo).float() * scale
+        p = read_range(ps, a, b).float()
+        m_f = cfg.b1 * _moment(m, a - lo, b - lo, cfg.q_block) + \
+            (1 - cfg.b1) * g
+        v_f = cfg.b2 * _moment(v, a - lo, b - lo, cfg.q_block) + \
             (1 - cfg.b2) * g * g
         mh = m_f / c1
         vh = v_f / c2
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p
         _write(ps, a, b, p - lr * delta)
-        _store(m, a, b, m_f, cfg.q_block)
-        _store(v, a, b, v_f, cfg.q_block)
+        _store(m, a - lo, b - lo, m_f, cfg.q_block)
+        _store(v, a - lo, b - lo, v_f, cfg.q_block)
+
+
+def _update_blocks(p, g, m, v, scalars, cfg) -> None:
+    """An 8-bit ``Sharded`` leaf (see the module docstring): device ``n``
+    updates the elements of its run of blocks in its copy ``p.pieces[n]``
+    of the stacked leaf, from its gradient piece."""
+    pl, shape = m["q"].placement, m["q"].shape
+    if not (isinstance(p, Sharded) and isinstance(g, Sharded)
+            and p.placement == pl == g.placement):
+        raise ValueError("an 8-bit Sharded moment needs the parameter and "
+                         "gradient in its block placement (DataParallel's "
+                         "flat_params and reduce_scatter(q_block=))")
+    n_el = math.prod(p.shape)
+    for n, dev in enumerate(pl.mesh.devices):
+        blocks = pl.block(n, shape)[0]
+        _update_leaf(_parts(p.pieces[n]), [g.pieces[n]],
+                     {k: m[k].pieces[n] for k in m},
+                     {k: v[k].pieces[n] for k in v},
+                     *(x.to(dev) for x in scalars), cfg,
+                     lo=blocks.start * cfg.q_block,
+                     hi=min(blocks.stop * cfg.q_block, n_el))
 
 
 @torch.no_grad()
@@ -220,6 +282,9 @@ def update(params, grads, state, cfg: AdamWConfig):
     for p, g, m, v in zip(pr.leaves_like(ps, ps), pr.leaves_like(ps, gs),
                           pr.leaves_like(ps, state["m"]),
                           pr.leaves_like(ps, state["v"])):
+        if isinstance(m, dict) and isinstance(m["q"], Sharded):
+            _update_blocks(p, g, m, v, (scale, lr, c1, c2), cfg)
+            continue
         if not isinstance(m, Sharded):
             _update_leaf(_parts(p), _parts(g), m, v, scale, lr, c1, c2, cfg)
             continue

@@ -26,7 +26,15 @@ replica on its rows of the global batch and one backward
 (:func:`repro_torch.models.lm.loss_fn_replicas`: the loss's denominators,
 and an MoE layer's groups and router statistics, are the global batch's);
 reduce-scatters the gradients onto the pieces in float32; and updates the
-pieces.  A batch (or microbatch) that the data axis does not divide is
+pieces.  With 8-bit moments (``AdamWConfig(quantize_moments=True)``)
+the moments' blocks are cut along the flattened stacked leaf
+(``sharding.blocks_placement``), so the gradients are reduce-scattered in
+that flat order instead, each device updates its blocks' elements in its
+replica's copy of the parameters, and an exchange copies the new values
+into the parameter pieces (``optim/adamw.py``).  ``DataParallel``
+counts the bytes of these collectives in the reference's unit (the
+output's bytes on one device, ``collectives``).  A batch (or microbatch)
+that the data axis does not divide is
 replicated, as ``batch_sharding`` falls back: every replica computes the
 whole of it and keeps its own gradient (nothing is summed k times).
 Microbatch ``i`` is rows ``[i B/m, (i + 1) B/m)`` of the global batch, as
@@ -39,6 +47,7 @@ is ROADMAP item 21.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import signal
 import tempfile
@@ -51,6 +60,7 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import DataIterator
 from repro_torch.launch import sharding as sh
+from repro_torch.launch.step_analysis import COLLECTIVES
 from repro_torch.models import lm
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
@@ -148,12 +158,76 @@ def _per_layer(placements, values):
     return placements
 
 
+def flat_boxes(lo: int, hi: int, a: int, s: int, c: int) -> list:
+    """The flat range ``[lo, hi)`` of an ``(a, s, c)`` array as at most
+    five boxes ``(a0, a1, s0, s1, c0, c1)``."""
+    boxes, f = [], lo
+    if f < hi and f % c:                        # the rest of a c-row
+        r, e = f // c, min(hi, (f // c + 1) * c)
+        boxes.append((r // s, r // s + 1, r % s, r % s + 1, f % c,
+                      f % c + e - f))
+        f = e
+    if f < hi and (f // c) % s:                 # the rest of an s-block
+        r = f // c
+        end = min(hi // c, (r // s + 1) * s)
+        if end > r:
+            boxes.append((r // s, r // s + 1, r % s, r % s + end - r, 0, c))
+            f = end * c
+    if f < hi:                                  # whole s-blocks
+        r, end = f // (s * c), hi // (s * c)
+        if end > r:
+            boxes.append((r, end, 0, s, 0, c))
+            f = end * s * c
+    if f < hi:                                  # whole c-rows
+        r, end = f // c, hi // c
+        if end > r:
+            boxes.append((r // s, r // s + 1, r % s, r % s + end - r, 0, c))
+            f = end * c
+    if f < hi:                                  # part of a c-row
+        r = f // c
+        boxes.append((r // s, r // s + 1, r % s, r % s + 1, 0, hi - f))
+    return boxes
+
+
+def copy_flat_range(dst: torch.Tensor, src: torch.Tensor, block: tuple,
+                    lo: int, hi: int) -> None:
+    """Copy the elements of ``src`` (a whole tensor) at flat indices
+    ``[lo, hi)`` that lie in ``block`` (slices, at most one dimension
+    cut) into ``dst``, the block-shaped piece."""
+    shape = src.shape
+    cut = [i for i, (sl, n) in enumerate(zip(block, shape))
+           if (sl.start, sl.stop) != (0, n)]
+    if len(cut) > 1:
+        raise NotImplementedError(f"a block cut in dimensions {cut}")
+    d = cut[0] if cut else 0
+    a, c = math.prod(shape[:d]), math.prod(shape[d + 1:])
+    s0, s1 = block[d].start, block[d].stop
+    src3, dst3 = src.view(a, shape[d], c), dst.view(a, s1 - s0, c)
+    for a0, a1, t0, t1, c0, c1 in flat_boxes(lo, hi, a, shape[d], c):
+        u0, u1 = max(t0, s0), min(t1, s1)
+        if u0 < u1:
+            dst3[a0:a1, u0 - s0:u1 - s0, c0:c1].copy_(
+                src3[a0:a1, u0:u1, c0:c1])
+
+
+def _layer_grads(parts) -> list:
+    """The gradients of a stacked leaf's per-layer tensors (zeros where
+    the loss does not reach one)."""
+    return [torch.zeros_like(p) if p.grad is None else p.grad
+            for p in parts]
+
+
 class DataParallel:
     """The parameters of data-parallel training over ``shd``'s mesh (its
     model axis 1): ``params``, the ``Sharded`` pieces in the port's
     per-layer tree (what :meth:`tree` returns and AdamW updates), and
     ``models``, one ``LM`` replica per data index on its device (``model``
-    itself the first), which :meth:`gather` refills."""
+    itself the first), which :meth:`gather` refills.  ``collectives``
+    counts, by kind, the collectives the steps ran and their bytes on one
+    device (the output's: a gathered tensor, a float32 gradient piece, a
+    parameter piece filled by the exchange), as the reference's dry run
+    counts them in a device's program; :meth:`reset_collectives` zeroes
+    it."""
 
     def __init__(self, model, shd):
         mesh = shd.mesh
@@ -175,17 +249,79 @@ class DataParallel:
         self.models = [model] + [lm.LM(model.cfg, pr.tree_map(
             lambda t, d=d: torch.empty_like(t, device=d), values),
             model.axes) for d in self.devices[1:]]
+        self.reset_collectives()
 
     def tree(self) -> dict:
         return self.params
+
+    def reset_collectives(self) -> None:
+        self.collectives = {k: {"count": 0, "bytes": 0}
+                            for k in COLLECTIVES}
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.collectives[kind]["count"] += 1
+        self.collectives[kind]["bytes"] += int(nbytes)
 
     @torch.no_grad()
     def gather(self, replicas: int | None = None) -> None:
         """All-gather the pieces into the replicas (all, or the first
         ``replicas``), in place."""
+        def one(x):
+            cut = sh.data_cut(x.placement)
+            if cut > 1:
+                self._count("all-gather", x.pieces[0].numel() * cut *
+                            x.pieces[0].element_size())
+        pr.tree_map(one, self.params)
         for m in self.models[:replicas]:
             pr.tree_map(lambda dst, x: x.join(out=dst), m.tree(),
                         self.params)
+
+    def _stacked(self):
+        """The pieces' and the replicas' trees in the stacked structure."""
+        return (pr.stack_tree(self.params),
+                *(pr.stack_tree(m.tree()) for m in self.models))
+
+    def _blocks(self, leaf, q_block: int) -> sh.Placement:
+        nb = -(-math.prod(pr.stacked_shape(leaf)) // q_block)
+        return sh.blocks_placement(self.shd, nb, q_block)
+
+    def flat_params(self, q_block: int) -> dict:
+        """The parameters as AdamW takes them beside 8-bit moments: the
+        stacked tree, each leaf a ``Sharded`` over its moments' block
+        placement whose piece ``n`` is replica ``n``'s per-layer tensors
+        of the leaf (device ``n``'s whole copy, refilled by
+        :meth:`gather`; no copy is made)."""
+        return pr.stacked_map(
+            lambda x, *reps: sh.Sharded(
+                self._blocks(x, q_block),
+                [r if isinstance(r, list) else [r] for r in reps],
+                pr.stacked_shape(x)), *self._stacked())
+
+    @torch.no_grad()
+    def exchange(self, flat: dict, q_block: int) -> None:
+        """After AdamW's update of :meth:`flat_params`: copy each
+        device's blocks' new elements from its replica into the
+        parameter pieces that hold them (an all-to-all; where the blocks
+        are replicated, each piece from its own device's copy)."""
+        def one(x, fp):
+            parts = x if isinstance(x, list) else [x]
+            pl, layer_n = fp.placement, math.prod(parts[0].shape)
+            nb = -(-math.prod(fp.shape) // q_block)
+            cut = sh.data_cut(pl) > 1
+            for i, xi in enumerate(parts):
+                for m, dst in enumerate(xi.pieces):
+                    block = xi.placement.block(m, xi.shape)
+                    for n in (range(len(self.devices)) if cut else (m,)):
+                        bs = pl.block(n, (nb, q_block))[0]
+                        lo = max(bs.start * q_block - i * layer_n, 0)
+                        hi = min(bs.stop * q_block - i * layer_n, layer_n)
+                        if lo < hi:
+                            copy_flat_range(dst, fp.pieces[n][i], block,
+                                            lo, hi)
+                if cut:
+                    self._count("all-to-all", xi.pieces[0].numel() *
+                                xi.pieces[0].element_size())
+        pr.stacked_map(one, pr.stack_tree(self.params), flat)
 
     def rows(self, batch: dict, lo: int, hi: int):
         """Rows ``[lo, hi)`` of the global batch for each replica -> (one
@@ -210,12 +346,21 @@ class DataParallel:
         return out, split
 
     @torch.no_grad()
-    def reduce_scatter(self, split: bool, into=None):
+    def reduce_scatter(self, split: bool, into=None,
+                       q_block: int | None = None):
         """The replicas' gradients onto the pieces, in float32: piece ``n``
         sums every replica's gradient over its block (``split``), or takes
         replica ``n``'s own (a replicated batch).  Each leaf's gradients
         are dropped once its pieces are made.  Returns the gradient tree
-        of ``Sharded`` pieces, or adds it into ``into``."""
+        of ``Sharded`` pieces, or adds it into ``into``.  With ``q_block``
+        (8-bit moments) the tree is the stacked one and each piece holds
+        its device's run of ``(nblocks, q_block)`` blocks of the flat
+        stacked gradient (zero past its end)."""
+        def count(pl, numel):
+            if split:
+                self._count("reduce-scatter" if sh.data_cut(pl) > 1
+                            else "all-reduce", numel * 4)
+
         def one(x, *ps):
             pieces = []
             for n, dev in enumerate(self.devices):
@@ -231,13 +376,60 @@ class DataParallel:
                 pieces.append(acc)
             for p in ps:
                 p.grad = None
+            count(x.placement, pieces[0].numel())
             return sh.Sharded(x.placement, pieces, x.shape)
 
-        g = pr.tree_map(one, self.params, *(m.tree() for m in self.models))
+        def flat(x, *reps):
+            pl = self._blocks(x, q_block)
+            parts = [r if isinstance(r, list) else [r] for r in reps]
+            n_el, pieces = math.prod(pr.stacked_shape(x)), []
+            nb = -(-n_el // q_block)
+            for n, dev in enumerate(self.devices):
+                bs = pl.block(n, (nb, q_block))[0]
+                lo, hi = bs.start * q_block, min(bs.stop * q_block, n_el)
+                acc = torch.zeros((bs.stop - bs.start, q_block),
+                                  dtype=torch.float32, device=dev)
+                run = acc.view(-1)[:hi - lo]
+                for r in (range(len(parts)) if split else (n,)):
+                    g = adamw.read_range(_layer_grads(parts[r]), lo, hi)
+                    run.add_(g.to(dev, torch.float32))
+                pieces.append(acc)
+            for ps in parts:
+                for p in ps:
+                    p.grad = None
+            count(pl, pieces[0].numel())
+            return sh.Sharded(pl, pieces, (nb, q_block))
+
+        if q_block is None:
+            g = pr.tree_map(one, self.params,
+                            *(m.tree() for m in self.models))
+        else:
+            g = pr.stacked_map(flat, *self._stacked())
         if into is not None:
             pr.tree_map(lambda acc, x: [a.add_(b) for a, b in
                                         zip(acc.pieces, x.pieces)], into, g)
         return g if into is None else into
+
+    def zero_grads(self, q_block: int | None = None):
+        """Float32 zeros in :meth:`reduce_scatter`'s layout, to sum
+        microbatches into."""
+        def zeros(x):
+            return sh.Sharded(x.placement, [
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in x.pieces], x.shape)
+
+        def flat(x):
+            nb = -(-math.prod(pr.stacked_shape(x)) // q_block)
+            pl = self._blocks(x, q_block)
+            pieces = []
+            for n, dev in enumerate(self.devices):
+                bs = pl.block(n, (nb, q_block))[0]
+                pieces.append(torch.zeros((bs.stop - bs.start, q_block),
+                                          dtype=torch.float32, device=dev))
+            return sh.Sharded(pl, pieces, (nb, q_block))
+        if q_block is None:
+            return pr.tree_map(zeros, self.params)
+        return pr.stacked_map(flat, pr.stack_tree(self.params))
 
 
 def _replica_loss(models, cfg, batches, split: bool):
@@ -256,6 +448,8 @@ def _replica_loss(models, cfg, batches, split: bool):
 
 
 def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
+    q = opt_cfg.q_block if opt_cfg.quantize_moments else None
+
     def step(dp, opt_state, batch):
         if not isinstance(next(iter(batch.values())), sh.Sharded):
             placements = sh.batch_sharding(shd, batch)
@@ -267,9 +461,7 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
                 p.grad = None
         n = next(iter(batch.values())).shape[0]
         if microbatches > 1:
-            g = pr.tree_map(lambda x: sh.Sharded(x.placement, [
-                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in x.pieces], x.shape), dp.params)
+            g = dp.zero_grads(q)
             loss = torch.zeros((), dtype=torch.float32,
                                device=dp.devices[0])
             for i in range(microbatches):
@@ -277,7 +469,7 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
                                      (i + 1) * n // microbatches)
                 l, mb_metrics = _replica_loss(dp.models, cfg, mbs, split)
                 l.backward()
-                dp.reduce_scatter(split, into=g)
+                dp.reduce_scatter(split, into=g, q_block=q)
                 loss += mb_metrics["loss"]
             g = pr.tree_map(lambda x: sh.Sharded(
                 x.placement, [p / microbatches for p in x.pieces], x.shape),
@@ -287,9 +479,11 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
             mbs, split = dp.rows(batch, 0, n)
             l, metrics = _replica_loss(dp.models, cfg, mbs, split)
             l.backward()
-            g = dp.reduce_scatter(split)
-        opt_state, opt_metrics = adamw.update(dp.params, g, opt_state,
-                                              opt_cfg)
+            g = dp.reduce_scatter(split, q_block=q)
+        params = dp.params if q is None else dp.flat_params(q)
+        opt_state, opt_metrics = adamw.update(params, g, opt_state, opt_cfg)
+        if q is not None:
+            dp.exchange(params, q)
         return opt_state, dict(metrics, **opt_metrics)
 
     return step
@@ -354,7 +548,7 @@ class Trainer:
         gen = torch.Generator(dev).manual_seed(tc.seed)
         model = lm.init_model(cfg, generator=gen, device=dev)
         state = model if self.shd is None else DataParallel(model, self.shd)
-        opt_state = adamw.init(state.tree(), tc.opt)
+        opt_state = adamw.init(state.tree(), tc.opt, shd=self.shd)
         start_step = 0
 
         # ---- checkpoint/restart (elastic: whole leaves, split as placed)

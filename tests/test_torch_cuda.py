@@ -1346,3 +1346,76 @@ def test_data_parallel_moe_step_on_card_matches_cpu():
         np.testing.assert_allclose(float(got["cuda"][k]),
                                    float(got["cpu"][k]), rtol=1e-4,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_8_bit_data_parallel_step_on_card_matches_cpu(arch):
+    """One float32 data-parallel step with 8-bit AdamW moments (the flat
+    reduce-scatter and the exchange of ROADMAP item 23) at 2 simulated
+    shards on the card and on the CPU, from the same weights and batch,
+    unclipped: the card's row gathers counted (6 a layer under full
+    remat); loss and grad norm at ``rtol=1e-4``; the weights at
+    ``rtol=1e-4, atol=1e-5`` x scale but fewer than 1 in 1,000 elements,
+    each within AdamW's first step (``lr g / |g|``: where ``|g|`` is
+    tiny, the two devices' last bits of ``g`` part its sign); ``q`` at most
+    1 apart (a moment on a rounding boundary; fewer than 1 in 1,000
+    elements) and ``s`` at ``rtol=1e-4``."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import params as pr
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(remat="full")
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    batch = synth_batch(cfg, 4, 16, step=0)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=5,
+                            clip_norm=1e9, quantize_moments=True, q_block=32)
+    got, state, weights = {}, {}, {}
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
+        m.axes = model.axes
+        mesh = make_shard_mesh(2, device=where, simulate=True)
+        shd = sh.Shd(mesh, sh.default_rules(mesh))
+        dp = loop.DataParallel(m, shd)
+        before = RG.row_gather.launches
+        st, got[where.type] = loop.make_train_step(cfg, opt, shd=shd)(
+            dp, adamw.init(dp.tree(), opt, shd=shd),
+            {k: torch.as_tensor(v, device=where) for k, v in batch.items()})
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            moe = 6 * cfg.num_layers if cfg.family == "moe" else 0
+            assert RG.row_gather.launches - before == moe
+        state[where.type] = {k: [x.join(device="cpu") for x in
+                                 pr.leaves_like(st[k], st[k])]
+                             for k in ("m", "v")}
+        dp.gather(replicas=1)
+        weights[where.type] = [p.detach().cpu() for p in m.parameters()]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got["cuda"][k]),
+                                   float(got["cpu"][k]), rtol=1e-4,
+                                   err_msg=k)
+    step = 2 * float(got["cpu"]["lr"])     # AdamW's first step: lr g/|g|
+    parted = n = 0
+    for a, b in zip(weights["cuda"], weights["cpu"]):
+        scale = max(1.0, float(b.abs().max()))
+        off = ~torch.isclose(a, b, rtol=1e-4, atol=1e-5 * scale)
+        assert float((a - b).abs().max()) <= step + 1e-5 * scale
+        parted, n = parted + int(off.sum()), n + a.numel()
+    assert parted < n / 1000, (parted, n)
+    flips = n = 0
+    for key in ("m", "v"):
+        for a, b in zip(state["cuda"][key], state["cpu"][key]):
+            if a.dtype == torch.int8:
+                d = (a.int() - b.int()).abs()
+                assert int(d.max()) <= 1
+                flips, n = flips + int((d > 0).sum()), n + d.numel()
+            else:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4)
+    assert flips < n / 1000, (flips, n)

@@ -32,6 +32,7 @@ default rules: parameters and moments FSDP-sharded over ``data``), at
 """
 import dataclasses
 import functools
+import shutil
 
 import jax
 import numpy as np
@@ -343,12 +344,22 @@ def test_the_gradient_norm_counts_a_replicated_leaf_once():
 
 
 def test_data_parallel_refuses_8_bit_moments():
+    """8-bit moments of ``Sharded`` parameters need the rules that place
+    their blocks (``shd=``), and their update the parameters and
+    gradients in that block placement."""
     cfg = get_config("granite_3_2b").reduced()
     model = loop.lm.init_model(cfg, device="cpu")
     mesh = make_shard_mesh(2, device="cpu", simulate=True)
     dp = loop.DataParallel(model, sh.Shd(mesh, sh.default_rules(mesh)))
-    with pytest.raises(NotImplementedError, match="8-bit"):
-        adamw.init(dp.tree(), adamw.AdamWConfig(quantize_moments=True))
+    oc = adamw.AdamWConfig(quantize_moments=True)
+    with pytest.raises(ValueError, match="8-bit"):
+        adamw.init(dp.tree(), oc)
+    state = adamw.init(dp.tree(), oc, shd=dp.shd)
+    grads = pr.tree_map(lambda x: sh.Sharded(x.placement, [
+        torch.zeros_like(p, dtype=torch.float32) for p in x.pieces],
+        x.shape), dp.tree())
+    with pytest.raises(ValueError, match="8-bit"):
+        adamw.update(dp.tree(), grads, state, oc)
 
 
 def test_model_axis_above_one_and_missing_devices_raise(tmp_path):
@@ -372,3 +383,167 @@ def test_model_axis_above_one_and_missing_devices_raise(tmp_path):
     mesh = make_shard_mesh(2, device="cpu", simulate=True)
     with pytest.raises(ValueError, match="logical axes"):
         loop.DataParallel(model, sh.Shd(mesh, sh.default_rules(mesh)))
+
+
+# ------------------------------------------------------- 8-bit moments
+Q8 = dict(OCFG, clip_norm=1e9, quantize_moments=True)
+
+
+def _per_layer_tree(stacked):
+    """A stacked-structure tree of whole tensors in the port's per-layer
+    structure (views of each layer)."""
+    out = {}
+    for key, v in stacked.items():
+        if key in ("layers", "enc_layers"):
+            n = pr.stacked_shape(pr.leaves_like(v, v)[0])[0]
+            out[key] = [pr.stacked_map(lambda x, i=i: x[i], v)
+                        for i in range(n)]
+        else:
+            out[key] = v
+    return out
+
+
+def _whole_grads(flat, like):
+    """The flat block gradients of ``reduce_scatter(q_block=)`` as whole
+    stacked tensors shaped as ``like``'s leaves."""
+    def one(g, leaf):
+        shape = pr.stacked_shape(leaf)
+        return g.join().reshape(-1)[:int(np.prod(shape))].reshape(shape)
+    return pr.stacked_map(one, flat, like)
+
+
+@pytest.mark.parametrize("k,q_block,microbatches", [
+    (2, 48, 1), (2, 48, 2), (4, 32, 1), (4, 48, 1)])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b"])
+def test_8_bit_moments_under_a_mesh_match_the_reference_update(
+        arch, k, q_block, microbatches, monkeypatch):
+    """2 data-parallel steps with 8-bit moments (blocks of 48 span the
+    layers of a stacked leaf; at 4 shards 32 divides every leaf's blocks
+    over the shards and 48 does not, so they are replicated): each step's
+    update, given the gradients the reduce-scatter made, against the
+    reference's single-device 8-bit ``adamw.update`` from the same
+    parameters and moments at ``test_torch_optim.py``'s 8-bit rule
+    (unclipped; ``q`` equal, ``s`` and the parameters at the dense rule),
+    and bitwise the port's single-device 8-bit update on the same
+    gradients."""
+    rcfg, cfg = rget_config(arch).reduced(), get_config(arch).reduced()
+    vals, axes = rpr.materialize_init(rlm.init_model, jax.random.PRNGKey(1),
+                                      rcfg)
+    vals = jax.tree.map(np.asarray, vals)
+    axes = jax.tree.map(tuple, axes, is_leaf=lambda x: isinstance(x, tuple))
+    dp, shd = _dp(cfg, Reference(vals, axes, [], [], []), k)
+    oc = adamw.AdamWConfig(**Q8, q_block=q_block)
+    roc = radamw.AdamWConfig(**Q8, q_block=q_block)
+    state = adamw.init(dp.tree(), oc, shd=shd)
+    assert all(x.placement == sh.blocks_placement(shd, x.shape[0], q_block)
+               for x in pr.leaves_like(state["m"], state["m"]))
+    step = loop.make_train_step(cfg, oc, shd=shd, microbatches=microbatches)
+    seen = {}
+    update = adamw.update
+
+    def spy(params, grads, st, c):
+        seen["grads"] = _whole_grads(grads, pr.stack_tree(dp.tree()))
+        return update(params, grads, st, c)
+    monkeypatch.setattr(adamw, "update", spy)
+
+    def host(tree):
+        return pr.stacked_map(lambda x: x.join(device="cpu").numpy(), tree)
+    for i in range(2):
+        before = (host_np(dp), host(state["m"]),
+                  host(state["v"]), int(state["step"]))
+        batch = {key: torch.as_tensor(x) for key, x in
+                 rsynth_batch(rcfg, 4, S, step=i).items()}
+        state, _ = step(dp, state, batch)
+        grads = pr.stacked_map(lambda g: g.numpy(), seen["grads"])
+        rstate = {"step": jax.numpy.int32(before[3]), "m": before[1],
+                  "v": before[2]}
+        want_p, want_st, _ = radamw.update(before[0], grads, rstate, roc)
+        got_p = host_np(dp)
+        for path, want in _flat(jax.tree.map(np.asarray, want_p)).items():
+            _close(_flat(got_p)[path], want, f"step {i} {path}")
+        for key in ("m", "v"):
+            got = _flat(host(state[key]))
+            for path, want in _flat(jax.tree.map(np.asarray,
+                                                 want_st[key])).items():
+                if path.endswith("/q"):
+                    np.testing.assert_array_equal(got[path], want,
+                                                  f"step {i} {key}{path}")
+                else:
+                    _close(got[path], want, f"step {i} {key}{path}")
+
+        # the port's single-device 8-bit update on the same gradients
+        one = convert.lm_params_from_numpy(cfg, before[0], device="cpu")
+        st1 = {"step": torch.tensor(before[3], dtype=torch.int32),
+               "m": pr.tree_map(torch.tensor, before[1]),
+               "v": pr.tree_map(torch.tensor, before[2])}
+        st1, _ = update(one.tree(), _per_layer_tree(seen["grads"]), st1, oc)
+        for path, want in _flat(host_np(one)).items():
+            assert np.array_equal(_flat(got_p)[path], want), path
+        for key in ("m", "v"):
+            got = _flat(host(state[key]))
+            for path, want in _flat(pr.tree_map(torch.Tensor.numpy,
+                                                st1[key])).items():
+                assert np.array_equal(got[path], want), (key, path)
+
+
+def host_np(model):
+    return pr.stacked_map(lambda x: x.numpy(), convert.host_stacked(
+        pr.stack_tree(model.tree())))
+
+
+def test_8_bit_elastic_restart_keeps_q_and_s_bitwise(tmp_path):
+    """8-bit moments written at 2 shards restore on one device, and those
+    written on one device restore at 4 shards, ``q`` and ``s`` bitwise the
+    file's; from that file 4 shards and one device train on alike (each
+    step's loss and grad norm at the dense rule)."""
+    cfg = get_config("granite_3_2b").reduced()
+    opt = adamw.AdamWConfig(**OCFG, quantize_moments=True, q_block=32)
+
+    def run(k, steps, name="r", **kw):
+        mesh = {"device": "cpu"} if k is None else _mesh(k)
+        return loop.Trainer(cfg, _tc(tmp_path, name, steps=steps, opt=opt,
+                                     **kw), **mesh).run()
+
+    def moments(flat):
+        return {p: v for p, v in flat.items()
+                if p.startswith("/opt/m") or p.startswith("/opt/v")}
+    run(2, 3, ckpt_every=3)
+    for k, step in ((None, 3), (4, 5)):
+        if step == 5:
+            run(None, 5, ckpt_every=5)
+        out = run(k, step)
+        assert out["metrics"] == []
+        got = moments(ck._flatten(loop.train_state(out["params"],
+                                                   out["opt"])))
+        want = moments({p: ck._tensor(rec) for p, rec in ck.read_payload(
+            str(tmp_path / "r"), step).items()})
+        assert sorted(got) == sorted(want) and \
+            any(p.endswith("/q") for p in want)
+        for path, x in want.items():
+            assert torch.equal(got[path], x), (k, path)
+    sharded = run(4, 7, ckpt_every=100)
+    ckpts = tmp_path / "r"
+    for d in ckpts.iterdir():       # both resume from step 5's file
+        if d.name.startswith("step_") and d.name != "step_00000005":
+            shutil.rmtree(d)
+    one = run(None, 7, ckpt_every=100)
+    assert [m["step"] for m in sharded["metrics"]] == [5, 6]
+    for got, want in zip(sharded["metrics"], one["metrics"]):
+        for key in ("loss", "grad_norm", "lr"):
+            _close(got[key], want[key], f"step {want['step']} {key}")
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 3, 4), (3, 5, 2),
+                                   (1, 7, 1), (4, 1, 3)])
+def test_flat_boxes_cover_exactly_the_range(shape):
+    a, s, c = shape
+    n = a * s * c
+    ids = np.arange(n).reshape(shape)
+    for lo in range(n + 1):
+        for hi in range(lo, n + 1):
+            boxes = loop.flat_boxes(lo, hi, a, s, c)
+            assert len(boxes) <= 5
+            got = np.sort(np.concatenate(
+                [ids[a0:a1, s0:s1, c0:c1].ravel()
+                 for a0, a1, s0, s1, c0, c1 in boxes] + [np.zeros(0, int)]))
+            assert np.array_equal(got, np.arange(lo, hi)), (lo, hi)

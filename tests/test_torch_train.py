@@ -404,6 +404,10 @@ def test_train_launcher_trains_the_modality_families(arch, tmp_path,
 
 
 def test_train_launcher_production_mesh_raises():
+    """Training on the production mesh waits for ROADMAP items 6 and 21;
+    the message names the dry run that reckons it."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
+    with pytest.raises(NotImplementedError,
+                       match=r"item 6\).*item 21\).*repro_torch"
+                             r"\.launch\.dryrun"):
         train.main(["--production-mesh", "--device", "cpu"])
