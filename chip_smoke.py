@@ -2,8 +2,9 @@
 """On-card smoke run of the ``repro_torch`` port: SpMV, SpMM, LM serving
 and training (dense, MoE, the recurrent rwkv6 and zamba2, the
 encoder-decoder whisper and the prefix-LM paligemma), data-parallel
-training and the vocab-sharded decode embedding on simulated meshes, the
-graph apps and concurrent query serving on the H100.
+training, tensor- and expert-parallel training and serving and the
+vocab-sharded decode embedding on simulated meshes, the graph apps and
+concurrent query serving on the H100.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -51,12 +52,12 @@ entry points of the three standalone kernels at real sizes, and fails
    at full width cut to 4 of its 94 layers (128 experts, top 8), and on
    rwkv6-3b (32 layers, 2.70 B parameters, 4 WKV chunks of 32 in the
    prefill) and zamba2-1.2b (38 Mamba2 layers and the weight-tied attention
-   block after every 6th; 1.10 B parameters), each batch 4, prompt 128, 16
+   block after every 6th; 1.10 B parameters), each batch 4, prompt 128, 8
    steps; and on whisper-small (12 encoder layers over 1,500 frames and 12
    decoder layers with cross attention; 0.29 B parameters) and
    paligemma-3b (18 layers, 256 patch tokens in front of the prompt under
    the prefix-LM mask; 2.51 B parameters), each whole, batch 4, prompt
-   128, 32 steps; bf16 weights, whisper's frames and paligemma's patch
+   128, 16 steps; bf16 weights, whisper's frames and paligemma's patch
    embeddings (standard normal float32, the stubbed frontends' inputs)
    drawn from ``SEED``; the parameter counts of the recurrent,
    encoder-decoder and vlm models must equal the reference's.  The MoE
@@ -149,9 +150,11 @@ entry points of the three standalone kernels at real sizes, and fails
    its design before the ``"add_all"`` combine (``PERF.md``);
 11. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
-   ladder's shapes), in three shares (every third test), each in a child
+   ladder's shapes), in three shares (the tests of index 0-11, 12-33 and
+   34-49 modulo 50, sized to the work beside each), each in a child
    process while this one does untimed work: beside phases 3-4's checks,
-   beside the graph phase's generation and plan builds, and beside the
+   beside ``[dryrun]`` and the graph phase's generation and plan builds,
+   and beside the
    ``[shard]`` phase's graph builds; each is joined before the next timed
    work;
 12. sharded execution (``[shard]``, run after the tuned path): simulated
@@ -234,7 +237,7 @@ entry points of the three standalone kernels at real sizes, and fails
    replicas): 6 ``row_gather`` launches a step counted, step 1's loss at
    the tests' dense rule (``rtol=1e-4, atol=1e-5`` x scale) and its grad
    norm at ``BF16_NORM_RULE`` of one device's.  In float32 at full width
-   (granite-3-2b cut to 8 layers): the state after step 1 at 2 shards
+   (granite-3-2b cut to 4 layers): the state after step 1 at 2 shards
    against one device on the same rows as 2 microbatches, every moment
    and weight within the dense rule of its leaf's scale, steps 1-2's
    loss and grad norm at the dense rule, and against one device on the
@@ -262,6 +265,37 @@ entry points of the three standalone kernels at real sizes, and fails
    reckoned peak of temporaries is printed beside
    ``torch.cuda.max_memory_allocated`` above the step's arguments, as a
    ratio.
+
+16. tensor and expert parallel (``[tp]``, run after ``[dp]``): simulated
+   ``(data, model)`` meshes with the default rules (``heads``,
+   ``kv_heads``, ``mlp``, ``experts``, ``router_experts`` and ``vocab`` over
+   ``model``; ``launch/tensor_parallel.py``), each cell against one device
+   in the same call, bf16 at seed 0 with the launcher's schedule and
+   ``remat="full"`` unless said.  ``Trainer.run()`` on (1, 2):
+   granite-3-2b whole, batch 8 x 512, 4 steps (its vocabulary of 49,155
+   whole in each piece) and qwen3-moe-235b-a22b at 1 layer, 4 x 128, 4
+   steps (64 of 128 experts, 2 of 4 kv heads and half the vocabulary a
+   piece; 12 ``row_gather`` a step in the experts and 2 in the lookup
+   counted): losses finite (granite's last
+   below its first), step 1's loss and grad norm at ``BF16_NORM_RULE`` of
+   one device's.  float32 granite at 4 layers on (2, 2), 1 step: both
+   moments of every leaf at the dense rule against one device on the same
+   rows as 2 microbatches, every weight as AdamW's first step on its own
+   moments.  ``engine.generate`` over ``ModelPieces`` on (1, 2):
+   gemma-7b whole (vocabulary 256,000, 16 heads and the GeGLU ``d_ff`` of
+   24,576 cut in two), batch 4, prompt 128, 16 greedy steps: at least
+   ``TP_TOKENS_MIN`` (0.75) of the greedy tokens equal one device's, the
+   prefill's and first decode step's bf16 logits no farther from the same
+   weights in float32 than ``TP_ROUNDING`` (1.25) times one device's bf16
+   logits, and farther with a planted fault (piece 1's share of the last
+   layer's attention dropped); in float32 at 2 layers, the tokens equal
+   and those logits at ``LM_TOL``.  Every row gather of the serving
+   cells' lookup (one a piece in each prefill and decode step) is counted
+   and held bitwise to the plain version.  Each
+   cell prints step or decode ms beside one device's, tokens/s, the
+   collectives counted a step (count and bytes), the device time of its
+   sums over the pieces (replayed back to back, CUDA events), a profiled
+   step (launches, idle share), peak memory and a device's bytes.
 
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
@@ -294,9 +328,13 @@ REL_ERR_LIMIT = 1e-5
 CARD_TESTS_S = 900             # time limit of a share of the card tests
 # the card tests run as 3 shares, each in a child process (2 CPU threads)
 # while this one does untimed work: share 0 beside the checks of phases
-# 3-4, share 1 beside the graph phase's generation and plan builds, share
-# 2 beside the [shard] phase's graph builds (a share's wait is logged)
-CARD_TEST_SHARES = 3
+# 3-4, share 1 beside [dryrun]'s host work and the graph phase's
+# generation and plan builds, share 2 beside the [shard] phase's graph
+# builds (a share's wait is logged).  Share i takes the tests whose index
+# modulo 50 lies in its slots, sized to the untimed work beside it (~56,
+# ~110 and ~90 s on the H100's host)
+CARD_TEST_SLOTS = ((0, 12), (12, 34), (34, 50))
+CARD_TEST_SHARES = len(CARD_TEST_SLOTS)
 # beside a host-clock reading taken while a share runs: such a reading is
 # not comparable with one taken with the card and the CPU to this process
 BESIDE_TESTS = "host clock, beside a share of the card tests"
@@ -333,15 +371,15 @@ LAUNCHER_ARGS = ["--app", "spmv", "--nodes", "1000005", "--avg-deg", "3",
 LAUNCHER_S = 600               # time limit of the launcher's child run
 # the [lm] phase: LM serving through repro_torch.serve.engine at the
 # published widths, weights from SEED; "layers" cuts the depth
-LM_CELLS = (
-    dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=16),
+LM_CELLS = (     # decode steps halved for the [tp] phase's time
+    dict(arch="granite-3-2b", layers=None, batch=4, prompt=128, steps=8),
     dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
-         steps=16),
-    dict(arch="rwkv6-3b", layers=None, batch=4, prompt=128, steps=16),
-    dict(arch="zamba2-1.2b", layers=None, batch=4, prompt=128, steps=16),
+         steps=8),
+    dict(arch="rwkv6-3b", layers=None, batch=4, prompt=128, steps=8),
+    dict(arch="zamba2-1.2b", layers=None, batch=4, prompt=128, steps=8),
     # 1,500 encoder frames; 256 patch tokens in front of the prompt
-    dict(arch="whisper-small", layers=None, batch=4, prompt=128, steps=32),
-    dict(arch="paligemma-3b", layers=None, batch=4, prompt=128, steps=32),
+    dict(arch="whisper-small", layers=None, batch=4, prompt=128, steps=16),
+    dict(arch="paligemma-3b", layers=None, batch=4, prompt=128, steps=16),
 )
 # the JAX package's parameter count of each whole model of the recurrent,
 # encoder-decoder and vlm cells (jax.eval_shape of its init_model at the
@@ -398,12 +436,43 @@ DP_Q8_STATE = dict(arch="granite-3-2b", layers=4, batch=8, seq=512,
 # rounded to 8 bits before the float32 reduce-scatter, where one device
 # rounds the whole batch's once (2^-9 of a gradient, past the rule's 1e-4);
 # the resume in float32 too
-DP_STATE = dict(arch="granite-3-2b", layers=8, batch=8, seq=512, steps=2,
+DP_STATE = dict(arch="granite-3-2b", layers=4, batch=8, seq=512, steps=2,
                 shards=2)
 DP_RESUME = dict(arch="granite-3-2b", layers=2, batch=8, seq=512, steps=6,
                  first=3, shards=2)
 DP_DECODE = dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=128,
                  steps=16, model=4)
+# the [tp] phase: tensor and expert parallel over a simulated (data, model)
+# mesh (every piece on the one card), default rules, each cell against one
+# device in the same call; widths published, "layers" cuts the depth
+TP_TRAIN = (
+    dict(arch="granite-3-2b", layers=None, batch=8, seq=512, steps=4,
+         data=1, model=2),
+    dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128, steps=4,
+         data=1, model=2),
+)
+# float32, every weight and moment after step 1 against one device on the
+# same rows as 2 microbatches
+TP_STATE = dict(arch="granite-3-2b", layers=4, batch=8, seq=512, steps=1,
+                data=2, model=2)
+TP_SERVE = (
+    dict(arch="gemma-7b", layers=None, batch=4, prompt=128, steps=16,
+         model=2, float32=False),
+    dict(arch="gemma-7b", layers=2, batch=4, prompt=128, steps=16,
+         model=2, float32=True),
+)
+# bf16 logits over model pieces round each piece's partial sum apart from
+# one device's whole product: held as no farther from the same weights'
+# float32 logits than TP_ROUNDING times one device's bf16 logits are.  On
+# the H100 gemma-7b's pieces read 0.985 / 1.083 of one device's distance
+# (prefill / first decode step); with piece 1's share of one layer's
+# attention output dropped they read 5.79 / 2.39 / 1.30 (layers 0 / 14 /
+# 27, prefill).  The last layer's fault is planted in every run
+# (tp_planted) and must break the bound.
+TP_ROUNDING = 1.25
+# bf16 greedy tokens over the pieces equal to one device's: one row of the
+# four may part at a near tie, and then keeps parting
+TP_TOKENS_MIN = 0.75
 # tests/test_torch_train.py's rule for a data-parallel step against one
 # device's: atol times the value's scale (at least 1)
 DENSE_RULE = dict(rtol=1e-4, atol=1e-5)
@@ -804,6 +873,8 @@ class Smoke:
         # collectives; the [train] granite step's flops and peak
         self.dp_held, self.dp_counted, self.dp_peaks = {}, {}, {}
         self.train_measured = None
+        # the [train] cells' metrics and step ms, which [tp] compares with
+        self.train_readings = {}
 
     # ------------------------------------------------------------ helpers
     def zero_counts(self) -> None:
@@ -1796,6 +1867,8 @@ class Smoke:
                     if name.startswith("enc_"))
         tokens = spec["batch"] * spec["seq"]
         step_ms = statistics.median(m["step_time"] for m in metrics[1:]) * 1e3
+        self.train_readings[cfg.name, cfg.num_layers, spec["batch"],
+                            spec["seq"]] = (metrics, step_ms)
         flops, counted = train_flops(cfg, n_enc, n - n_enc, spec["batch"],
                                      spec["seq"])
         log(f"[train] {cfg.name} ({cfg.num_layers} layers, {n} parameters, "
@@ -2208,11 +2281,13 @@ class Smoke:
 
     def dryrun_phase(self) -> None:
         """The dry run's reckoning against this call's readings (see the
-        module docstring, phase 15)."""
+        module docstring, phase 15); host work, so the second share of the
+        card tests starts here (the graph phase joins it)."""
         from repro_torch.launch import dryrun as dr
         from repro_torch.launch import sharding as sh
         from repro_torch.launch.mesh import ShardMesh
         from repro_torch.launch.step_analysis import COLLECTIVES
+        self.start_card_tests(1)
         t0 = time.perf_counter()
         for q8 in (False, True):
             spec = next(c for c in DP_CELLS if c.get("q8", False) == q8
@@ -2252,8 +2327,8 @@ class Smoke:
               f"FlopCounterMode {m['flops']}")
         log(f"[dryrun] {m['cfg'].name} train step (batch "
             f"{m['spec']['batch']} x {m['spec']['seq']}, one device): traced "
-            f"on fake tensors in {time.perf_counter() - t1:.1f} s (host "
-            f"clock), "
+            f"on fake tensors in {time.perf_counter() - t1:.1f} s"
+            f"{self.beside_tests() or ' (host clock)'}, "
             f"flops {traced['flops']} = the card's FlopCounterMode exactly; "
             f"reckoned peak of temporaries {traced['peak_bytes']} B vs "
             f"torch.cuda.max_memory_allocated above the arguments "
@@ -2584,14 +2659,577 @@ class Smoke:
         del model, cache, p_cache, placed
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- tensor parallel
+    def tp_phase(self) -> None:
+        """Tensor and expert parallel over simulated ``(data, model)``
+        meshes (see the module docstring, phase 16)."""
+        torch = self.torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        shutil.rmtree(ROOT / "build" / "tp_ckpt", ignore_errors=True)
+        for spec in TP_TRAIN:
+            self.tp_train(self.lm_config(spec), spec)
+        self.tp_state(self.float32(self.lm_config(TP_STATE)))
+        for spec in TP_SERVE:
+            cfg = self.lm_config(spec)
+            self.tp_serve(self.float32(cfg) if spec["float32"] else cfg,
+                          spec)
+        shutil.rmtree(ROOT / "build" / "tp_ckpt", ignore_errors=True)
+        log(f"[tp] phase in {time.perf_counter() - t0:.1f} s")
+
+    def tp_sums(self, fn):
+        """Run ``fn`` once, recording every sum over the model pieces it
+        makes: -> (the sums as (kind, shape, dtype, pieces), fn's
+        result)."""
+        from repro_torch.launch import tensor_parallel as tp
+        seen, record = [], tp.Group.record
+
+        def spy(group, kind, t):
+            seen.append((kind, tuple(t.shape), t.dtype, len(group)))
+            record(group, kind, t)
+        tp.Group.record = spy
+        try:
+            out = fn()
+        finally:
+            tp.Group.record = record
+        return seen, out
+
+    def tp_sum_busy(self, sums) -> str:
+        """The device ms of a step's all-reduces over the model pieces,
+        replayed: each sum of ``pieces`` tensors of its shape and dtype
+        (``pieces - 1`` additions), all back to back behind a spin kernel
+        and timed with CUDA events (:func:`device_ms`).  The profiler is
+        not used here: on these replays it recorded a varying share of
+        the additions, and in some runs none."""
+        torch = self.torch
+        bufs = {}
+        for kind, shape, dtype, m in sums:
+            if kind == "all-reduce" and (shape, dtype) not in bufs:
+                bufs[shape, dtype] = [torch.ones(shape, dtype=dtype,
+                                                 device=self.dev)
+                                      for _ in range(m)]
+        calls = [(bufs[shape, dtype], m) for kind, shape, dtype, m in sums
+                 if kind == "all-reduce"]
+        check(bool(calls), "no sum over the model pieces was recorded")
+
+        def replay():          # as tensor_parallel.reduce_out sums
+            for parts, m in calls:
+                out = parts[0]
+                for p in parts[1:m]:
+                    out = out + p
+        ms = device_ms(replay, reps=5, repeats=3)
+        check(ms > 0, f"the sums over the model pieces took {ms} ms")
+        nbytes = sum(math.prod(parts[0].shape) * parts[0].element_size()
+                     for parts, _ in calls)
+        adds = sum(m - 1 for _, m in calls)
+        del bufs, calls
+        torch.cuda.empty_cache()
+        return (f"device time {ms:.4f} ms a step for {nbytes} B summed "
+                f"({adds} additions, the sums replayed back to back, CUDA "
+                f"events)")
+
+    def tp_checked(self, cfg, fn, run: str = "a step") -> dict:
+        """Run ``fn`` with every row gather of the MoE layers and of the
+        vocab pieces' lookup held bitwise to its plain version -> the
+        first gather of each call site (the expert piece's dispatch and
+        combine, the lookup) as ``{what: (src, ids)}``, and ``fn``'s
+        result under ``"result"``; ``run`` names ``fn`` in the log."""
+        RG = self.RG
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe as MOE
+        kept, calls = {}, [0]
+
+        def site(names):
+            seen = [0]
+
+            def checked(src, ids, d_tile=512):
+                got = RG.row_gather(src, ids, d_tile)
+                self.held("row_gather", got, RG.row_gather_plain(src, ids),
+                          f"{cfg.name} tp {names[0]} {tuple(ids.shape)} of "
+                          f"{tuple(src.shape)}")
+                if seen[0] < len(names):
+                    kept[names[seen[0]]] = (src.detach(), ids)
+                seen[0] += 1
+                calls[0] += 1
+                return got
+            return checked
+        MOE.row_gather = site(("expert piece dispatch",
+                               "expert piece combine"))
+        L.row_gather = site(("vocab piece lookup",))
+        try:
+            kept["result"] = fn()
+        finally:
+            MOE.row_gather, L.row_gather = RG.row_gather, RG.row_gather
+        log(f"[tp] {cfg.name}: all {calls[0]} row gathers of {run} held "
+            "bitwise to the plain version")
+        return kept
+
+    @staticmethod
+    def tp_counted(collectives, steps: int = 1) -> str:
+        return ", ".join(f"{k} {v['count'] // steps} ({v['bytes'] // steps}"
+                         " B)" for k, v in collectives.items()
+                         if v["count"])
+
+    def tp_train(self, cfg, spec) -> None:
+        """``Trainer.run()`` on a simulated ``(data, model)`` mesh with the
+        default rules against the same steps on one device: losses
+        finite (the dense model's last below its first), step 1's loss
+        and grad norm at ``BF16_NORM_RULE``, the pieces' shapes those of
+        the rules (a vocabulary the model axis does not divide whole), the
+        row gathers counted (an MoE layer's 6 a piece and dispatch group,
+        the lookup's one a piece); step ms,
+        tokens/s, the counted collectives a step, the sums' device busy, a
+        profiled step, peak memory and a device's bytes."""
+        torch = self.torch
+        from repro_torch.models import moe as MOE
+        from repro_torch.train import loop
+        d, m = spec["data"], spec["model"]
+        tc = dataclasses.replace(self.train_config(spec), ckpt_dir=str(
+            ROOT / "build" / "tp_ckpt" / spec["arch"]))
+        # one device: the [train] cell of this call of the same model,
+        # batch and seed (its step 1 has the same lr at any length)
+        key = (cfg.name, cfg.num_layers, spec["batch"], spec["seq"])
+        check(key in self.train_readings, f"{cfg.name} tp: no [train] cell "
+              f"of {key} to hold the pieces against")
+        single, single_ms = self.train_readings[key]
+        mesh, shd = self.dp_mesh(d, m)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        out = loop.Trainer(cfg, tc, mesh=mesh, rules=shd.rules).run()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        metrics, dp = out["metrics"], out["data_parallel"]
+        losses = [x["loss"] for x in metrics]
+        check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+              f"{cfg.name} tp: train losses {losses}")
+        if cfg.family != "moe":
+            check(losses[-1] < losses[0], f"{cfg.name} tp: the last loss "
+                  f"{losses[-1]} is not below the first {losses[0]}")
+        groups = MOE._group_count(spec["batch"] * spec["seq"],
+                                  cfg.moe_group_size)
+        per_step = 6 * m * groups * cfg.num_layers \
+            if cfg.family == "moe" else 0
+        if cfg.vocab_size % m == 0:     # each piece's lookup of its rows
+            per_step += d * m
+        check(counts["row_gather"] == per_step * spec["steps"],
+              f"{cfg.name} tp: row_gather launched {counts['row_gather']} "
+              f"times in {spec['steps']} steps, expected {per_step} a step")
+        held = []
+        for key in ("loss", "grad_norm"):
+            share = self.dense_rule(f"{cfg.name} tp step 1 {key}",
+                                    metrics[0][key], single[0][key],
+                                    BF16_NORM_RULE)
+            dense = abs(metrics[0][key] - single[0][key]) / (
+                DENSE_RULE["atol"] * max(1.0, abs(single[0][key])) +
+                DENSE_RULE["rtol"] * abs(single[0][key]))
+            held.append(f"step 1 {key} {metrics[0][key]!r} vs one device "
+                        f"{single[0][key]!r} ({share:.3f} of the bf16 "
+                        f"rule's bound, {dense:.3f} of the dense rule's)")
+        piece = dp.models[0]
+        shapes = {"embed": tuple(piece.embed.shape),
+                  "wq": tuple(piece.layers[0].attn.wq.shape),
+                  "wk": tuple(piece.layers[0].attn.wk.shape)}
+        v_piece = cfg.vocab_size // m if cfg.vocab_size % m == 0 \
+            else cfg.vocab_size
+        check(shapes["embed"] == (v_piece, cfg.d_model) and
+              shapes["wq"][1] == cfg.num_heads // m,
+              f"{cfg.name} tp: a piece's embed {shapes['embed']} and wq "
+              f"{shapes['wq']}")
+        if cfg.family == "moe":
+            shapes["w_up"] = tuple(piece.layers[0].moe.w_up.shape)
+            check(shapes["w_up"][0] == cfg.num_experts // m,
+                  f"{cfg.name} tp: a piece's experts {shapes['w_up']}")
+        nbytes = sum(t.pieces[0].numel() * t.pieces[0].element_size()
+                     for t in sharded_leaves(dp.params))
+        moments = sum(t.pieces[0].numel() * t.pieces[0].element_size()
+                      for key in ("m", "v")
+                      for t in sharded_leaves(out["opt"][key]))
+        whole = sum(x.numel() * x.element_size() for x in
+                    out["params"].parameters())
+        tokens = spec["batch"] * spec["seq"]
+        step_ms = statistics.median(x["step_time"] for x in metrics[1:]) \
+            * 1e3
+        log(f"[tp] {cfg.name} ({cfg.num_layers} layers) Trainer.run on a "
+            f"simulated ({d}, {m}) mesh, default rules: {spec['steps']} "
+            f"steps in {wall:.2f} s, losses {[round(x, 4) for x in losses]}"
+            f" (one device, the [train] cell "
+            f"{[round(x['loss'], 4) for x in single]}); "
+            f"{', '.join(held)}; kernel launches "
+            f"{ {n: c for n, c in counts.items() if c} } ({per_step} "
+            f"row_gather a step); a piece's shapes {shapes}; collectives "
+            f"counted a step: {self.tp_counted(dp.collectives, spec['steps'])}"
+            f"; a device holds {nbytes} B of {whole} B of parameters and "
+            f"{moments} B of moments")
+        log(f"[time] {self.tag} {cfg.name} tp train ({d}, {m}) batch "
+            f"{spec['batch']} seq {spec['seq']}: step {step_ms:.4f} ms "
+            f"(median of steps 2-{spec['steps']}, host clock), "
+            f"{tokens / step_ms * 1e3:.1f} tokens/s; one device "
+            f"{single_ms:.4f} ms, {tokens / single_ms * 1e3:.1f} tokens/s "
+            f"({step_ms / single_ms:.3f}x); peak memory {peak} B (above "
+            f"the {base} B held before)")
+        step_fn = loop.make_train_step(cfg, tc.opt, shd=shd)
+        state = [out["opt"]]
+        batch = self.train_batch(cfg, spec, spec["steps"])
+        with torch.no_grad():      # the whole weights gathered at the end
+            for p in out["params"].parameters():
+                p.data = p.data.new_empty(0)
+        del out
+        torch.cuda.empty_cache()
+
+        def one_step():
+            state[0], _ = step_fn(dp, state[0], batch)
+        gathers = self.tp_checked(cfg, lambda: self.tp_sums(one_step))
+        sums, _ = gathers.pop("result")
+        log(f"[tp] {cfg.name} sums over the model pieces a step: "
+            f"{self.tp_sum_busy(sums)}")
+        for what, (src, ids) in gathers.items():
+            self.lm_gather_time(cfg, f"tp {what}", src, ids)
+        log_profile(self.tag, f"{cfg.name} tp train step (({d}, {m}) "
+                    f"simulated, batch {spec['batch']}, seq {spec['seq']})",
+                    one_step, reps=1)
+        del state, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tp_state(self, cfg) -> None:
+        """float32: the state after step 1 on a simulated ``(data,
+        model)`` mesh against one device on the same rows as ``data``
+        microbatches, from the same start: both moments of every leaf at
+        the dense rule of its scale, every weight as AdamW's first step on
+        its own run's moments (and how many part from one device's past
+        the dense rule, printed), step 1's loss and grad norm at the dense
+        rule."""
+        spec = TP_STATE
+        d, m = spec["data"], spec["model"]
+        o = self.train_config(spec).opt
+        r = self.tp_state_numbers(cfg)
+        past, total, worst, adam_worst = r["past"], r["total"], \
+            r["worst"], r["adam_worst"]
+        omet, tmet = r["one"], r["pieces"]
+        parted, flips, g_max = r["parted"], r["flips"], r["g_max"]
+        check(past == 0, f"{cfg.name} tp state: {past} of {total} moment "
+              f"elements and weights past the dense rule (moments vs one "
+              f"device on {d} microbatches, worst {worst:.3e} of a leaf's "
+              f"scale; weights vs AdamW's step on their own moments, worst "
+              f"{adam_worst:.3e})")
+        shares = [self.dense_rule(f"{cfg.name} tp state step 1 {key}",
+                                  tmet[key], omet[key])
+                  for key in ("loss", "grad_norm")]
+        log(f"[tp] {cfg.name} ({cfg.num_layers} layers, float32) the state "
+            f"after step 1 on a simulated ({d}, {m}) mesh vs one device on "
+            f"the same rows as {d} microbatches: every moment within the "
+            f"dense rule of its leaf's scale (worst {worst:.3e} of it), "
+            f"every weight AdamW's first step on its own moments (worst "
+            f"{adam_worst:.3e}); {parted} of the weights part from one "
+            f"device's past the dense rule, {flips} of them where the "
+            f"step's gradient changes sign, the rest with |g| <= "
+            f"{g_max:.3e} ({g_max / o.eps:.1f} eps: AdamW's step "
+            f"lr g / (|g| + eps) is steep there); "
+            f"loss {tmet['loss']!r} vs {omet['loss']!r}, grad norm "
+            f"{tmet['grad_norm']!r} vs {omet['grad_norm']!r} "
+            f"({max(shares):.3f} of the dense rule's bound at most); "
+            f"collectives counted: {r['counted']}")
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def tp_state_numbers(self, cfg) -> dict:
+        """:meth:`tp_state`'s two runs and their comparison (every tensor
+        freed on return) -> its numbers."""
+        torch = self.torch
+        from repro_torch.launch import sharding as sh
+        from repro_torch.models import lm
+        from repro_torch.models import params as pr
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        spec = TP_STATE
+        d, m = spec["data"], spec["model"]
+        tc = self.train_config(spec)
+        mesh, shd = self.dp_mesh(d, m)
+        batch = self.train_batch(cfg, spec, 0)
+
+
+        def flat(tree) -> dict:
+            """Every leaf of a stacked tree (``Sharded`` pieces joined) as
+            one flat float64 tensor, by path (no recursive closure: its
+            cycle would keep the tensors alive until a collection)."""
+            out, todo = {}, [("", tree)]
+            while todo:
+                path, t = todo.pop()
+                if isinstance(t, dict):
+                    todo.extend((f"{path}/{k}", v) for k, v in t.items())
+                    continue
+                parts = t if isinstance(t, list) else [t]
+                out[path] = torch.cat([
+                    (x.join() if isinstance(x, sh.Sharded) else x)
+                    .detach().reshape(-1).to(torch.float64) for x in parts])
+            return out
+
+        def init():
+            gen = torch.Generator(self.dev).manual_seed(tc.seed)
+            return lm.init_model(cfg, generator=gen, device=self.dev)
+        w0 = flat(pr.stack_tree(init().tree()))
+        runs = {}
+        for name, s, micro in ((f"one device, {d} microbatches", None, d),
+                               ("pieces", shd, 1)):
+            holder = init() if s is None else loop.DataParallel(init(), s)
+            state = adamw.init(holder.tree(), tc.opt)
+            state, metrics = loop.make_train_step(
+                cfg, tc.opt, shd=s, microbatches=micro)(holder, state,
+                                                        batch)
+            runs[name] = ({key: flat(state[key]) for key in ("m", "v")},
+                          flat(pr.stack_tree(holder.tree())),
+                          {k: float(v) for k, v in metrics.items()},
+                          holder)
+        (om, ow, omet, _), (tm, tw, tmet, dp) = runs.values()
+        o = tc.opt
+        lr = float(adamw.schedule(o, 1))
+        worst, past, parted, total = 0.0, 0, 0, 0
+        for kind in ("m", "v"):
+            for path, x in om[kind].items():
+                y = tm[kind][path]
+                scale = max(float(x.abs().max()), 1.0)
+                err = (y - x).abs()
+                past += int((err > DENSE_RULE["atol"] * scale +
+                             DENSE_RULE["rtol"] * x.abs()).sum())
+                worst = max(worst, float(err.max()) / scale)
+                total += x.numel()
+        adam_worst, flips, g_max = 0.0, 0, 0.0
+        for path, w in w0.items():
+            want = w - lr * ((tm["m"][path] / (1 - o.b1)) / (
+                torch.sqrt(tm["v"][path] / (1 - o.b2)) + o.eps) +
+                o.weight_decay * w)
+            scale = max(float(want.abs().max()), 1.0)
+            err = (tw[path] - want).abs()
+            past += int((err > DENSE_RULE["atol"] * scale +
+                         DENSE_RULE["rtol"] * want.abs()).sum())
+            adam_worst = max(adam_worst, float(err.max()) / scale)
+            x = ow[path]
+            apart = (tw[path] - x).abs() > DENSE_RULE["atol"] * \
+                max(float(x.abs().max()), 1.0) + DENSE_RULE["rtol"] * x.abs()
+            parted += int(apart.sum())
+            flips += int((apart & (tm["m"][path] * om["m"][path] <= 0))
+                         .sum())
+            g = torch.minimum(tm["m"][path].abs(), om["m"][path].abs())[
+                apart] / (1 - o.b1)
+            if g.numel():
+                g_max = max(g_max, float(g.max()))
+            total += w.numel()
+        return dict(past=past, total=total, worst=worst,
+                    adam_worst=adam_worst, parted=parted, flips=flips,
+                    g_max=g_max, one=omet, pieces=tmet,
+                    counted=self.tp_counted(dp.collectives))
+
+    def tp_serve(self, cfg, spec) -> None:
+        """``engine.generate`` over ``ModelPieces`` on a simulated (1,
+        model) mesh against one device in the same call, every row gather
+        of the pieces' lookup counted (one a piece in the prefill and in
+        each decode step) and held bitwise to its plain version: float32,
+        the tokens equal and the prefill's and first decode step's logits
+        at ``LM_TOL``; bf16, at least ``TP_TOKENS_MIN`` of the greedy
+        tokens equal, those logits' distance printed, and the logits held
+        against the same weights in float32 with a planted fault that
+        must fail the same bound (:meth:`tp_bf16_logits`); the pieces'
+        shapes those of the rules; decode ms a step and tokens/s beside
+        one device's, the collectives a decode step, the sums' device
+        time, a profiled decode step, peak memory and a piece's bytes."""
+        torch = self.torch
+        from repro_torch.launch import tensor_parallel as tp
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        b, s, steps, m = spec["batch"], spec["prompt"], spec["steps"], \
+            spec["model"]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, gen = self.lm_model(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=self.dev, dtype=torch.int32)
+        batch = {"tokens": tokens}
+        max_len = s + steps + 4
+        mesh, shd = self.dp_mesh(1, m)
+        mp = tp.ModelPieces(model, shd)
+
+        def serve():
+            with torch.inference_mode():
+                want, _ = engine.generate(model, cfg, batch, steps, max_len)
+                got, _ = engine.generate(mp, cfg, batch, steps, max_len)
+                cache1, last1 = engine.prefill(model, cfg, batch, max_len)
+                cache2, last2 = engine.prefill(mp, cfg, batch, max_len)
+                tok = want[:, :1]
+                dec1, _ = lm.decode_step(model, cfg, cache1, tok, s)
+                mp.reset_collectives()
+                dec2, _ = lm.decode_step(mp, cfg, cache2, tok, s)
+            return want, got, tok, last1, last2, dec1, dec2
+        self.zero_counts()
+        gathers = self.tp_checked(cfg, serve, "the serving run")
+        counts = self.read_counts()
+        want, got, tok, last1, last2, dec1, dec2 = gathers.pop("result")
+        same = float((want == got).float().mean())
+        counted = self.tp_counted(mp.collectives)
+        # the two generate calls' prefill and decode steps, one prefill
+        # and one decode step more: a lookup a piece in each
+        lookups = m * (steps + 2) if cfg.vocab_size % m == 0 else 0
+        check(counts["row_gather"] == lookups, f"{cfg.name} tp serve: "
+              f"row_gather launched {counts['row_gather']} times, expected "
+              f"{lookups} ({m} a prefill or decode step over the pieces)")
+        for what, (src, ids) in gathers.items():
+            self.lm_gather_time(cfg, f"tp {what} (prefill)", src, ids)
+        del gathers
+        logits = {"prefill": (last2.float().cpu().numpy(),
+                              last1.float().cpu().numpy()),
+                  "first decode step": (dec2.float().cpu().numpy(),
+                                        dec1.float().cpu().numpy())}
+        del last1, last2, dec1, dec2
+        errs = []
+        for what, (x, y) in logits.items():
+            err, ratio, ok = tol_ratio(x, y, LM_TOL)
+            check(ok or not spec["float32"], f"{cfg.name} tp serve: the "
+                  f"{what}'s logits differ from one device's (max abs err "
+                  f"{err}, {ratio:.3f} of the bound)")
+            errs.append(f"{what} {err:.3e} ({ratio:.3f} of the bound)")
+        least = 1.0 if spec["float32"] else TP_TOKENS_MIN
+        check(same >= least, f"{cfg.name} tp serve: {same:.4f} of the "
+              f"greedy tokens equal one device's, below {least}")
+        piece = mp.groups[0].trees[0]
+        layer = piece["layers"][0]
+        shapes = {"embed": tuple(piece["embed"].shape),
+                  "wq": tuple(layer["attn"]["wq"].shape),
+                  "w_gate": tuple(layer["mlp"]["w_gate"].shape)}
+        check(shapes["embed"][0] == cfg.vocab_size // m and
+              shapes["wq"][1] == cfg.num_heads // m and
+              shapes["w_gate"][1] == cfg.d_ff // m,
+              f"{cfg.name} tp serve: a piece's shapes {shapes}")
+        held = sum(t.numel() * t.element_size()
+                   for t in sharded_leaves(piece))
+        log(f"[tp] {cfg.name} ({cfg.num_layers} layers, "
+            f"{str(cfg.param_dtype)[6:]}) generate over ModelPieces on a "
+            f"simulated (1, {m}) mesh (batch {b}, prompt {s}, {steps} "
+            f"greedy steps): {same:.4f} of the tokens equal one device's "
+            f"(held at {least}); "
+            f"logits vs one device's at rtol {LM_TOL['rtol']}, atol "
+            f"{LM_TOL['atol']}{'' if spec['float32'] else ' (bf16: read)'}"
+            f": {', '.join(errs)}; a piece's shapes "
+            f"{shapes}, {held} B; collectives a decode step: {counted}")
+        peak = torch.cuda.max_memory_allocated() - base
+        timed = {}
+        with torch.inference_mode():
+            for name, p in (("one device", model), ("pieces", mp)):
+                prefill_ms = host_ms(lambda: engine.prefill(
+                    p, cfg, batch, max_len), 1, 3)
+                cache, _ = engine.prefill(p, cfg, batch, max_len)
+                decode_ms = host_ms(lambda: lm.decode_step(
+                    p, cfg, cache, tok, s), 2, 10)
+                timed[name] = (prefill_ms, decode_ms, b / decode_ms * 1e3)
+                del cache
+        (p1, d1, t1), (p2, d2, t2) = timed.values()
+        log(f"[time] {self.tag} {cfg.name} tp serve (1, {m}) batch {b} "
+            f"prompt {s}: prefill {p2:.4f} ms, decode {d2:.4f} ms a step "
+            f"(a decode step at position {s}, median of 10), {t2:.1f} "
+            f"tokens/s; one device prefill {p1:.4f} ms, decode {d1:.4f} ms "
+            f"a step, {t1:.1f} tokens/s ({d2 / d1:.3f}x a decode step); "
+            f"peak memory {peak} B (above the {base} B held before, the "
+            f"model and its pieces)")
+        with torch.inference_mode():
+            cache, _ = engine.prefill(mp, cfg, batch, max_len)
+            sums, _ = self.tp_sums(lambda: lm.decode_step(mp, cfg, cache,
+                                                          tok, s))
+            log(f"[tp] {cfg.name} sums over the model pieces a decode step:"
+                f" {self.tp_sum_busy(sums)}")
+            log_profile(self.tag, f"{cfg.name} tp decode step ((1, {m}) "
+                        f"simulated, batch {b})",
+                        lambda: lm.decode_step(mp, cfg, cache, tok, s))
+        planted = None if spec["float32"] else self.tp_planted(
+            mp, cfg, batch, max_len, tok)
+        del mp, cache
+        torch.cuda.empty_cache()
+        if planted is not None:
+            self.tp_bf16_logits(model, cfg, batch, max_len, tok, logits,
+                                planted)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tp_planted(self, mp, cfg, batch, max_len, tok) -> dict:
+        """The prefill's and first decode step's logits over the pieces
+        with a fault planted: piece 1's share of the last layer's
+        attention output dropped (in each call, the sums over the pieces
+        are the lookup's, then each layer's attention and MLP)."""
+        torch = self.torch
+        from repro_torch.launch import tensor_parallel as tp
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        real, seen = tp.reduce_out, [0]
+        at = 2 * cfg.num_layers - 1
+
+        def planted(group, parts):
+            if seen[0] == at:
+                parts = [parts[0], *map(torch.zeros_like, parts[1:])]
+            seen[0] += 1
+            return real(group, parts)
+        tp.reduce_out = planted
+        try:
+            with torch.inference_mode():
+                cache, last = engine.prefill(mp, cfg, batch, max_len)
+                check(seen[0] == 2 * cfg.num_layers + 1, f"{cfg.name} tp: "
+                      f"{seen[0]} sums over the pieces in a prefill, not "
+                      "the lookup's and two a layer")
+                seen[0] = 0
+                dec, _ = lm.decode_step(mp, cfg, cache, tok,
+                                        batch["tokens"].shape[1])
+        finally:
+            tp.reduce_out = real
+        return {"prefill": last.float().cpu().numpy(),
+                "first decode step": dec.float().cpu().numpy()}
+
+    def tp_bf16_logits(self, model, cfg, batch, max_len, tok, logits,
+                       planted):
+        """bf16 logits over the pieces against the same weights in
+        float32 (the model converted in place): each no farther from them
+        than ``TP_ROUNDING`` times one device's bf16 logits are, and those
+        of :meth:`tp_planted` farther."""
+        torch = self.torch
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        f32 = self.float32(cfg)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.float()
+        with torch.inference_mode():
+            cache, last = engine.prefill(model, f32, batch, max_len)
+            dec, _ = lm.decode_step(model, f32, cache, tok,
+                                    batch["tokens"].shape[1])
+        notes = []
+        for what, ref in (("prefill", last), ("first decode step", dec)):
+            ref = ref.float().cpu().numpy()
+            x, y = logits[what]
+            d_tp, d_one, d_bad = (float(np.abs(z - ref).max())
+                                  for z in (x, y, planted[what]))
+            check(d_tp <= TP_ROUNDING * d_one, f"{cfg.name} tp serve: the "
+                  f"{what}'s bf16 logits over the pieces lie {d_tp} from "
+                  f"float32, past {TP_ROUNDING} x one device's {d_one}")
+            check(d_bad > TP_ROUNDING * d_one, f"{cfg.name} tp serve: with "
+                  f"the planted fault the {what}'s bf16 logits lie {d_bad} "
+                  f"from float32, within {TP_ROUNDING} x one device's "
+                  f"{d_one}: the bound cannot see it")
+            notes.append(f"{what} {d_tp:.4g} vs one device's {d_one:.4g} "
+                         f"({d_tp / d_one:.3f} of it, the planted fault "
+                         f"{d_bad / d_one:.3f}; logits' scale "
+                         f"{float(np.abs(ref).max()):.1f})")
+        log(f"[tp] {cfg.name} bf16 logits' largest distance from the same "
+            f"weights in float32: over the pieces {', '.join(notes)}; held "
+            f"at {TP_ROUNDING} x one device's, the planted fault (piece 1's "
+            f"share of the last layer's attention dropped) past it")
+        del cache
+
     # ------------------------------------------------------- graph apps
     def graph_phase(self) -> None:
         """The four graph apps on the soc-Pokec analogue (see the module
         docstring, phase 7): the graph and the four plans are made while
-        the second share of the card tests runs, which is joined before
-        anything is timed."""
+        the second share of the card tests (started by ``[dryrun]``)
+        runs, which is joined before anything is timed."""
         from scipy.sparse import csr_matrix
-        self.start_card_tests(1)
         t0 = time.perf_counter()
         c = self.G.graph_case(GRAPH["kind"], GRAPH["n"],
                               avg_deg=GRAPH["avg_deg"])
@@ -3520,16 +4158,17 @@ class Smoke:
 
     def start_card_tests(self, share: int) -> None:
         """Start share ``share`` of the ``cuda``-marked tests of
-        ``tests/test_torch_cuda.py`` (every ``CARD_TEST_SHARES``-th test
-        from the ``share``-th, :func:`pytest_collection_modifyitems`) in a
-        child process on this card; the kernels are already built."""
+        ``tests/test_torch_cuda.py`` (the tests in its ``CARD_TEST_SLOTS``,
+        :func:`pytest_collection_modifyitems`) in a child process on this
+        card; the kernels are already built."""
+        lo, hi = CARD_TEST_SLOTS[share]
         proc = subprocess.Popen(
             [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
              "no:cacheprovider", "-p", "chip_smoke",
              "tests/test_torch_cuda.py"], cwd=ROOT, env=dict(
                 os.environ, PYTHONPATH=os.pathsep.join(
                     (str(ROOT), str(ROOT / "src"))),
-                CHIP_SMOKE_TESTS=f"{share}/{CARD_TEST_SHARES}",
+                CHIP_SMOKE_TESTS=f"{lo}-{hi}/50",
                 OMP_NUM_THREADS="2"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.card_procs.append((share, time.perf_counter(), proc))
@@ -3554,8 +4193,10 @@ class Smoke:
                 check(proc.returncode == 0, "tests/test_torch_cuda.py failed "
                       f"on the card (share {share} of {CARD_TEST_SHARES}, "
                       f"pytest exit {proc.returncode})")
-                log(f"[tests] tests/test_torch_cuda.py on the card, every "
-                    f"{CARD_TEST_SHARES}th test from the {share}th: "
+                lo, hi = CARD_TEST_SLOTS[share]
+                log(f"[tests] tests/test_torch_cuda.py on the card, the "
+                    f"tests of index {lo}-{hi - 1} modulo 50 (share "
+                    f"{share}): "
                     f"{lines[-1] if lines else '?'} "
                     f"({time.perf_counter() - started:.1f} s since its start; "
                     f"waited {time.perf_counter() - t0:.1f} s for it)")
@@ -3578,7 +4219,7 @@ class Smoke:
                           self.matvec_many_phase, self.segment_reduce_phase,
                           self.gather_vload_phase, self.row_gather_phase,
                           self.lm_phase, self.train_phase, self.dp_phase,
-                          self.dryrun_phase, self.graph_phase,
+                          self.tp_phase, self.dryrun_phase, self.graph_phase,
                           self.serve_phase, self.tune_phase,
                           self.shard_phase, self.main_timings,
                           self.stage_a_timings):
@@ -3602,14 +4243,17 @@ class Smoke:
 
 
 def pytest_collection_modifyitems(config, items):
-    """A pytest hook, for ``-p chip_smoke``: with ``CHIP_SMOKE_TESTS=i/n``
-    keep every ``n``-th collected test from the ``i``-th."""
+    """A pytest hook, for ``-p chip_smoke``: with
+    ``CHIP_SMOKE_TESTS=lo-hi/n`` keep the collected tests whose index
+    modulo ``n`` lies in ``[lo, hi)``."""
     share = os.environ.get("CHIP_SMOKE_TESTS")
     if share:
-        i, n = map(int, share.split("/"))
+        span, n = share.split("/")
+        lo, hi = map(int, span.split("-"))
+        keep = [lo <= k % int(n) < hi for k in range(len(items))]
         config.hook.pytest_deselected(items=[
-            t for k, t in enumerate(items) if k % n != i])
-        items[:] = items[i::n]
+            t for t, k in zip(items, keep) if not k])
+        items[:] = [t for t, k in zip(items, keep) if k]
 
 
 def main() -> None:

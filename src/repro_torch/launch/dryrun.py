@@ -36,13 +36,15 @@ or ``lm.decode_step`` at the last slot of a full cache.  What it records:
   reduce-scatter and the all-to-all of item 23), per device;
 * ``traced``: the whole step's numbers and the divisor.
 
-**Per-device rule.**  The port has no tensor-parallel compute (ROADMAP
-item 21), so the traced step is the whole batch on one device.  A
-device's flops, bytes accessed and temporaries are the traced step's
-divided by the reference's split of the work: the product of the
-data-parallel axes (``pod``, ``data``) where they divide the global batch
-(else 1: the batch is replicated, as ``batch_sharding`` falls back) times
-the ``model`` axis.
+**Per-device rule.**  The traced step is the whole batch on one device,
+the single-device program: the port computes over a mesh's model axis
+(``launch/tensor_parallel.py``), but the dry run does not trace one
+device's tensor-parallel program, and does not reckon the model axis's
+collectives (ROADMAP item 26).  A device's flops, bytes accessed and
+temporaries are the traced step's divided by the reference's split of
+the work: the product of the data-parallel axes (``pod``, ``data``) where
+they divide the global batch (else 1: the batch is replicated, as
+``batch_sharding`` falls back) times the ``model`` axis.
 
 Keys of the reference with no PyTorch meaning are left out, not written
 as 0: ``compile_s``, ``generated_code_bytes``, ``hlo_ops``, and the

@@ -9,17 +9,18 @@ the reference reads its mesh.  Nothing here starts a process or opens a
 connection.
 
 A *real* mesh takes ``cuda:0 ... cuda:k-1``.  A *simulated* mesh places
-all ``k`` shards on one device (the counterpart of
-``--xla_force_host_platform_device_count``); only
-``make_shard_mesh(k, device=..., simulate=True)`` builds one, and nothing
-else repeats a device.
+all its devices on one (the counterpart of
+``--xla_force_host_platform_device_count``): :func:`make_simulated_mesh`
+builds a ``(data, model)`` one, ``make_shard_mesh(k, device=...,
+simulate=True)`` the 1-D row-shard one, and nothing else repeats a
+device.
 
 The 256/512-chip production LM mesh of the reference's
 ``make_production_mesh`` exists here only as its shape,
 :func:`production_mesh` (a :class:`MeshShape`, the counterpart of an
 ``AbstractMesh``): the dry run (``repro_torch.launch.dryrun``) reckons a
 device's share of a step on it; running on it waits for a multi-card
-machine (``ROADMAP.md`` items 21 and 6).
+machine (``ROADMAP.md`` item 6).
 """
 from __future__ import annotations
 
@@ -113,6 +114,20 @@ def make_local_mesh(data: int | None = None, model: int = 1,
     return ShardMesh(devices=tuple(devs[:used]), data=data, model=model)
 
 
+def make_simulated_mesh(data: int, model: int = 1,
+                        device="cuda") -> ShardMesh:
+    """A ``data x model`` mesh whose every device is ``device`` itself,
+    the counterpart of ``make_local_mesh(data, model)`` under
+    ``--xla_force_host_platform_device_count``: each piece is a tensor of
+    its own on that one device, and a collective is a copy or a sum
+    there."""
+    from repro_torch.core.engine import resolve_device
+    if data < 1 or model < 1:
+        raise ValueError(f"a {data} x {model} mesh")
+    return ShardMesh(devices=(resolve_device(device),) * (data * model),
+                     data=data, model=model, simulated=True)
+
+
 def make_shard_mesh(shards: int | None = None, device="cuda",
                     simulate: bool = False) -> ShardMesh:
     """The 1-D row-shard mesh: ``shards`` devices on the "data" axis
@@ -121,13 +136,11 @@ def make_shard_mesh(shards: int | None = None, device="cuda",
     ``device`` itself.  Raises, naming the simulation recipe, when too
     few devices are visible."""
     if simulate:
-        from repro_torch.core.engine import resolve_device
         if shards is None:
             raise ValueError("a simulated mesh needs an explicit shards=")
         if shards < 1:
             raise ValueError(f"shards must be >= 1 (got {shards})")
-        return ShardMesh(devices=(resolve_device(device),) * shards,
-                         data=shards, simulated=True)
+        return make_simulated_mesh(shards, 1, device)
     kind = torch.device(device).type
     n = len(visible_devices(kind))
     if shards is None:

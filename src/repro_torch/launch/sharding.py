@@ -33,6 +33,7 @@ from typing import Mapping, Sequence
 import torch
 
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.models import params as pr
 
 Rules = dict
 
@@ -110,7 +111,7 @@ class Placement:
     def owners(self) -> tuple[int, ...]:
         """The devices holding one copy of every block: coordinate 0 on
         each mesh axis the spec does not use."""
-        used = {a for entry in self.spec for a in _axes(entry)}
+        used = axes_of(self)
         return tuple(n for n in range(len(self.mesh.devices))
                      if all(v == 0 for a, v in self.coords(n).items()
                             if a not in used))
@@ -132,25 +133,63 @@ class Placement:
         return Sharded(self, pieces, tuple(x.shape))
 
     def join(self, pieces: Sequence[torch.Tensor], shape: Sequence[int],
-             device=None, out: torch.Tensor | None = None) -> torch.Tensor:
+             device=None, out: torch.Tensor | None = None,
+             region: tuple | None = None) -> torch.Tensor:
         """The global tensor from its pieces (an all-gather), on
         ``device`` (by default the first piece's) or written into ``out``
-        in place.  Each block is read from a piece on the target device
-        where one holds it."""
+        in place.  With ``region`` (slices of the global shape holding
+        whole blocks) only that part of it is gathered: ``out`` is then
+        region-shaped.  Each block is read from a piece on the target
+        device where one holds it."""
+        if region is None:
+            region = tuple(slice(0, n) for n in shape)
         if out is None:
-            out = torch.empty(tuple(shape), dtype=pieces[0].dtype,
+            out = torch.empty(tuple(r.stop - r.start for r in region),
+                              dtype=pieces[0].dtype,
                               device=device or pieces[0].device)
+        blocks = [self.block(n, shape) for n in range(len(pieces))]
         with torch.no_grad():
             for n in self.owners():
-                sl = self.block(n, shape)
+                sl = blocks[n]
+                if not inside(sl, region):
+                    continue
                 src = pieces[n]
                 for m, piece in enumerate(pieces):
-                    if piece.device == out.device and \
-                            self.block(m, shape) == sl:
+                    if piece.device == out.device and blocks[m] == sl:
                         src = piece
                         break
-                out[sl].copy_(src)
+                out[relative(sl, region)].copy_(src)
         return out
+
+
+def inside(block: tuple, region: tuple) -> bool:
+    """Whether the slices ``block`` lie within the slices ``region``."""
+    return all(r.start <= b.start and b.stop <= r.stop
+               for b, r in zip(block, region))
+
+
+def relative(block: tuple, region: tuple) -> tuple:
+    """``block``'s slices counted from ``region``'s start."""
+    return tuple(slice(b.start - r.start, b.stop - r.start)
+                 for b, r in zip(block, region))
+
+
+def axes_of(placement: Placement) -> set:
+    """The mesh axes a placement cuts over."""
+    return {a for entry in placement.spec for a in _axes(entry)}
+
+
+def model_only(placement: Placement) -> Placement:
+    """The placement with the data-parallel axes dropped from its spec:
+    a device's block of it is the tensor gathered over ``data`` and cut
+    over ``model`` (what one piece of a data replica computes with)."""
+    dp = set(dp_axes(placement.mesh))
+    spec = []
+    for entry in placement.spec:
+        kept = tuple(a for a in _axes(entry) if a not in dp)
+        spec.append(None if not kept else
+                    kept[0] if len(kept) == 1 else kept)
+    return Placement(placement.mesh, tuple(spec))
 
 
 @dataclasses.dataclass
@@ -167,9 +206,10 @@ class Sharded:
     def dtype(self) -> torch.dtype:
         return self.pieces[0].dtype
 
-    def join(self, device=None, out: torch.Tensor | None = None
-             ) -> torch.Tensor:
-        return self.placement.join(self.pieces, self.shape, device, out)
+    def join(self, device=None, out: torch.Tensor | None = None,
+             region: tuple | None = None) -> torch.Tensor:
+        return self.placement.join(self.pieces, self.shape, device, out,
+                                   region)
 
     def load(self, x: torch.Tensor) -> None:
         """Copy the global tensor ``x`` into the pieces, in place."""
@@ -276,6 +316,19 @@ def _shape(v) -> tuple:
     if isinstance(v, list):              # a stacked-structure layer leaf
         return (len(v), *v[0].shape)
     return tuple(v.shape)
+
+
+def per_layer(placements, values):
+    """Placements of the stacked layout (``params_shardings`` of
+    ``stack_tree(values)``) on the port's per-layer tree ``values``: a
+    layer's tensor drops the leading ("layers" -> None) entry."""
+    if isinstance(values, list):
+        inner = pr.stacked_map(
+            lambda pl: Placement(pl.mesh, pl.spec[1:]), placements)
+        return [per_layer(inner, v) for v in values]
+    if isinstance(values, Mapping):
+        return {k: per_layer(placements[k], v) for k, v in values.items()}
+    return placements
 
 
 def params_shardings(shd: Shd, axes_tree, values_tree=None):

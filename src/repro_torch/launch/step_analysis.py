@@ -50,6 +50,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import params as pr
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -197,11 +198,15 @@ def reckon_collectives(shd: sh.Shd, leaves, kind: str, q_block=None,
     reference's unit (see the module docstring), from the parameter
     ``leaves`` of :func:`stacked_leaves`.  ``kind`` "train" adds the
     gradients' (``microbatches`` times, none where the batch is
-    replicated: ``split`` False) and, with ``q_block``, the 8-bit
+    replicated: ``split`` False, or the data axes hold one device) and,
+    with ``q_block``, the 8-bit
     moments' flat reduce-scatter and all-to-all; "prefill" and "decode"
     gather the parameters only.  The all-to-all runs whether or not the
     batch is split."""
     out = {c: {"count": 0, "bytes": 0} for c in COLLECTIVES}
+    # a data axis of one device sums nothing
+    split = split and math.prod(shd.mesh.shape[a]
+                                for a in dp_axes(shd.mesh)) > 1
 
     def add(c, count, nbytes):
         out[c]["count"] += count

@@ -14,7 +14,7 @@ fits one H100).  As in the reference, training runs on the local mesh
 CPU) with ``default_rules``: data parallel over the cards, parameters and
 moments FSDP-sharded over them; a mesh of one device (one card, or the
 CPU) trains on the single-device step.  ``--production-mesh`` raises
-(ROADMAP items 21 and 6), naming the dry run that reckons that mesh.  ``main(argv)`` returns the ``Trainer``'s output.
+(ROADMAP item 6: 256 cards), naming the dry run that reckons that mesh.  ``main(argv)`` returns the ``Trainer``'s output.
 """
 from __future__ import annotations
 
@@ -63,8 +63,9 @@ def main(argv=None) -> dict:
     if args.production_mesh:
         raise NotImplementedError(
             "training on the 256/512-chip production mesh needs 256 cards "
-            "(multi-card runs: ROADMAP item 6) and tensor-parallel compute "
-            "over its model axis (ROADMAP item 21); a device's share of a "
+            "(multi-card runs: ROADMAP item 6); its tensor and expert "
+            "parallel compute runs on a simulated (data, model) mesh "
+            "(launch.mesh.make_simulated_mesh), and a device's share of a "
             "step on that mesh is reckoned by python -m "
             "repro_torch.launch.dryrun --arch ... --shape ... --mesh pod")
     dev = resolve_device(args.device)

@@ -5,11 +5,20 @@ decode path over an externally managed KV cache (the JAX package's
 Plain torch einsums and a float32 softmax, as the reference computes
 attention outside any Pallas kernel.  ``cross_attention`` is whisper's
 decoder reading the encoder's output: no RoPE and no mask.
+
+Over a mesh's model axis (:func:`attention_pieces`,
+:func:`attention_decode_pieces`; ``launch/tensor_parallel.py``) ``wq`` is
+column-parallel over ``heads``, ``wk`` and ``wv`` over ``kv_heads`` (or
+whole in every piece where the model axis does not divide them: piece
+``j`` then attends with the kv heads its q heads map to), ``wo``
+row-parallel, and the pieces' partial outputs are reduced out.  Each
+piece holds its own decode cache of the kv heads it holds.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import params as pr
 
@@ -103,12 +112,24 @@ def attention_decode(p, x, cache, *, cfg, kind: str, cur_pos: int,
     positions = torch.full((b, 1), cur_pos, dtype=torch.int32,
                            device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, positions, theta)
+    k, v, mask = _cache_write(cache, k_new, v_new, cfg, kind, cur_pos,
+                              prefix_len, ring)
+    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), mask.expand(b, 1, -1),
+                cfg.logit_softcap)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, {"k": k, "v": v}
+
+
+def _cache_write(cache, k_new, v_new, cfg, kind, cur_pos, prefix_len,
+                 ring):
+    """Write this token's k/v into the cache in place -> (k, v, the (1,
+    1, T) additive mask of the slots it may attend to)."""
     k, v = cache["k"], cache["v"]
     t = k.shape[1]
     slot = (cur_pos % t) if ring else cur_pos
     k[:, slot] = k_new[:, 0].to(k.dtype)
     v[:, slot] = v_new[:, 0].to(v.dtype)
-    slots = torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
+    slots = torch.arange(t, dtype=torch.int32, device=k.device)[None, :]
     if ring:
         # token position stored in slot s after writing cur_pos
         kv_pos = cur_pos - ((cur_pos - slots) % t)
@@ -120,10 +141,82 @@ def attention_decode(p, x, cache, *, cfg, kind: str, cur_pos: int,
     elif kind == "prefix":
         valid |= (kv_pos < prefix_len) & (kv_pos >= 0)
     mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, :]  # (1, 1, T)
-    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), mask.expand(b, 1, t),
-                cfg.logit_softcap)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, {"k": k, "v": v}
+    return k, v, mask
+
+
+# ------------------------------------------------------ over model pieces
+def _heads_cut(g, cfg) -> bool:
+    h_loc = g.lead["wq"].shape[1]
+    if h_loc == cfg.num_heads:        # heads whole in every piece
+        if g.lead["wk"].shape[1] < cfg.num_kv_heads:
+            raise ValueError("kv heads cut over the model axis while the "
+                             "q heads are whole")
+        return False
+    return True
+
+
+def _kv_of_piece(j, q, k, v, cfg):
+    """The kv heads piece ``j``'s q heads ``q`` attend with."""
+    lo, hi, index = tp.kv_heads_of(j, q.shape[2], cfg.num_heads,
+                                   cfg.num_kv_heads, k.shape[2])
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if index is not None:
+        index = index.to(k.device)
+        k, v = k.index_select(2, index), v.index_select(2, index)
+    return k, v
+
+
+def attention_pieces(g, x, *, cfg, kind: str, positions,
+                     theta: float | None = None, prefix_len: int = 0,
+                     return_kv: bool = False):
+    """:func:`attention` over a group of model pieces (``x`` and
+    ``positions`` on the lead; the output there).  With ``return_kv`` the
+    k/v are the pieces' own, one pair a piece.  Heads the model axis does
+    not divide are computed whole on the lead."""
+    if not _heads_cut(g, cfg):
+        out = attention(g.lead, x, cfg=cfg, kind=kind, positions=positions,
+                        theta=theta, prefix_len=prefix_len,
+                        return_kv=return_kv)
+        return (out[0], [out[1]]) if return_kv else out
+    theta = cfg.rope_theta if theta is None else theta
+    outs, kvs, masks = [], [], {}
+    for j, (p, xj) in enumerate(zip(g.trees, tp.copy_in(g, x))):
+        dev = xj.device
+        pos = positions.to(dev)
+        if dev not in masks:
+            masks[dev] = _mask(pos, pos, kind, cfg.window, prefix_len)
+        q, k, v = _qkv(p, xj, cfg, pos, theta)
+        ks, vs = _kv_of_piece(j, q, k, v, cfg)
+        out = _sdpa(q, ks, vs, masks[dev], cfg.logit_softcap)
+        outs.append(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
+        kvs.append((k, v))
+    out = tp.reduce_out(g, outs)
+    return (out, kvs) if return_kv else out
+
+
+def attention_decode_pieces(g, x, caches, *, cfg, kind: str, cur_pos: int,
+                            theta: float | None = None, prefix_len: int = 0,
+                            ring: bool = False):
+    """:func:`attention_decode` over a group of model pieces: ``caches[j]``
+    piece ``j``'s cache (its kv heads), written in place.  -> the output
+    on the lead."""
+    if not _heads_cut(g, cfg):
+        return attention_decode(g.lead, x, caches[0], cfg=cfg, kind=kind,
+                                cur_pos=cur_pos, theta=theta,
+                                prefix_len=prefix_len, ring=ring)[0]
+    theta = cfg.rope_theta if theta is None else theta
+    b = x.shape[0]
+    outs = []
+    for j, (p, xj) in enumerate(zip(g.trees, tp.copy_in(g, x))):
+        positions = torch.full((b, 1), cur_pos, dtype=torch.int32,
+                               device=xj.device)
+        q, k_new, v_new = _qkv(p, xj, cfg, positions, theta)
+        k, v, mask = _cache_write(caches[j], k_new, v_new, cfg, kind,
+                                  cur_pos, prefix_len, ring)
+        ks, vs = _kv_of_piece(j, q, k.to(x.dtype), v.to(x.dtype), cfg)
+        out = _sdpa(q, ks, vs, mask.expand(b, 1, -1), cfg.logit_softcap)
+        outs.append(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
+    return tp.reduce_out(g, outs)
 
 
 def cross_kv(p, kv_src):

@@ -93,6 +93,60 @@ def dense_layer_replicas(ps, xs, *, cfg, kind_flag: int, positions,
     return [x + h for x, h in zip(xs, hs)], aux
 
 
+def dense_layer_groups(gs, xs, *, cfg, kind_flag: int, positions,
+                       prefix_len: int = 0, return_kv: bool = False):
+    """:func:`dense_layer_replicas` over data replicas whose layers are
+    cut over the mesh's model axis: ``gs[r]`` replica ``r``'s
+    :class:`~repro_torch.launch.tensor_parallel.Group` of the layer's
+    pieces, ``xs[r]`` and ``positions[r]`` its rows on the group's lead.
+    The norms run on the lead; attention and the MLP are Megatron pieces,
+    an MoE FFN expert pieces over the global batch's groups.  Returns
+    (the replicas' outputs, aux) and, with ``return_kv``, each replica's
+    pieces' k/v."""
+    kind, theta = _attn_kind(cfg, kind_flag)
+    outs, kvs = [], []
+    for g, x, pos in zip(gs, xs, positions):
+        h = A.attention_pieces(
+            g["attn"], L.rmsnorm(g.lead["ln_attn"], x, cfg.norm_eps),
+            cfg=cfg, kind=kind, positions=pos, theta=theta,
+            prefix_len=prefix_len, return_kv=return_kv)
+        if return_kv:
+            h, kv = h
+            kvs.append(kv)
+        outs.append(x + h)
+    out, aux = _ffn_groups(gs, outs, cfg)
+    return (out, aux, kvs) if return_kv else (out, aux)
+
+
+def _ffn_groups(gs, xs, cfg):
+    hin = [L.rmsnorm(g.lead["ln_mlp"], x, cfg.norm_eps)
+           for g, x in zip(gs, xs)]
+    if cfg.family == "moe":
+        hs, aux = MOE.moe_replicas([g["moe"] for g in gs], hin, cfg)
+    else:
+        hs, aux = [MLP.mlp_pieces(g["mlp"], h, cfg)
+                   for g, h in zip(gs, hin)], {}
+    return [x + h for x, h in zip(xs, hs)], aux
+
+
+def dense_layer_decode_groups(gs, xs, caches, *, cfg, kind_flag: int,
+                              cur_pos: int, prefix_len: int = 0,
+                              ring: bool = False):
+    """:func:`dense_layer_decode` over data replicas whose layers are cut
+    over the mesh's model axis: ``caches[r][j]`` the layer's cache of
+    replica ``r``'s piece ``j`` (its rows, its kv heads), written in
+    place.  Returns the replicas' outputs."""
+    kind, theta = _attn_kind(cfg, kind_flag)
+    outs = []
+    for g, x, cache in zip(gs, xs, caches):
+        h = A.attention_decode_pieces(
+            g["attn"], L.rmsnorm(g.lead["ln_attn"], x, cfg.norm_eps), cache,
+            cfg=cfg, kind=kind, cur_pos=cur_pos, theta=theta,
+            prefix_len=prefix_len, ring=ring)
+        outs.append(x + h)
+    return _ffn_groups(gs, outs, cfg)[0]
+
+
 def dense_layer_decode(p, x, cache, *, cfg, kind_flag: int, cur_pos: int,
                        prefix_len: int = 0, ring: bool = False):
     kind, theta = _attn_kind(cfg, kind_flag)

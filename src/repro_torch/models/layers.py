@@ -5,7 +5,11 @@ The port places tensors explicitly (``repro_torch.launch.sharding``), so
 the reference's ``shard`` activation constraints, layout hints to GSPMD
 and identities on values, are left out.  :func:`embed_lookup_psum` is the
 reference's decode lookup over a vocab-sharded table, its pieces gathered
-by the hand-written row gather.
+by the hand-written row gather; over a mesh's model axis
+(:func:`embed_lookup_pieces`) it is the lookup of training and serving
+too, with a backward that adds each token's gradient into the rows of
+the piece that holds it (a scatter-add: the reference has no kernel
+there).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_dispatch.kernel import row_gather
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import params as pr
 
 
@@ -50,6 +55,46 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     return table[ids.long()].to(compute_dtype)
 
 
+class PieceRows(torch.autograd.Function):
+    """Rows ``ids - lo`` of a vocab piece ``table`` (rows ``[lo, lo +
+    len(table))`` of the whole), gathered by the hand-written row gather
+    at ``clip(ids - lo, 0, len(table) - 1)``, zero where ``ids`` lies
+    outside the piece; backward, each token's gradient added into the row
+    it read (``index_add_``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo: int):
+        rel = ids.long() - lo
+        ok = (rel >= 0) & (rel < table.shape[0])
+        rows = row_gather(table, rel.clamp(0, table.shape[0] - 1).to(
+            torch.int32).reshape(-1)).view(*ids.shape, table.shape[1])
+        ctx.save_for_backward(rel, ok)
+        ctx.shape = table.shape
+        return torch.where(ok[..., None], rows, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rel, ok = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        out.index_add_(0, rel[ok], grad[ok])
+        return out, None, None
+
+
+def embed_lookup_pieces(g, ids: torch.Tensor, compute_dtype,
+                        vocab: int) -> torch.Tensor:
+    """The token lookup over a group of model pieces of the table
+    (``g[j]`` piece ``j``'s rows; ``ids`` and the output on the lead):
+    each piece gathers its rows (:class:`PieceRows`) and the pieces are
+    reduced out.  A vocabulary the model axis does not divide is whole in
+    every piece and is looked up on the lead."""
+    v_loc = g.lead.shape[0]
+    if v_loc == vocab:
+        return embed_lookup(g.lead, ids, compute_dtype)
+    return tp.reduce_out(g, [
+        PieceRows.apply(t, ids.to(dev), j * v_loc).to(compute_dtype)
+        for j, (t, dev) in enumerate(zip(g.trees, g.devices))])
+
+
 def embed_lookup_psum(table: torch.Tensor, ids: torch.Tensor, compute_dtype,
                       shd) -> torch.Tensor:
     """Decode-path embedding lookup over a vocab-sharded table.
@@ -79,12 +124,8 @@ def embed_lookup_psum(table: torch.Tensor, ids: torch.Tensor, compute_dtype,
         lo = rows.start
         if (cols.start, rows.start) in blocks:
             continue        # a replica of a block already summed
-        rel = ids.to(tab.device).long() - lo
-        ok = (rel >= 0) & (rel < v_loc)
-        part = row_gather(tab, rel.clamp(0, v_loc - 1).to(
-            torch.int32).reshape(-1)).view(*ids.shape, tab.shape[1])
-        part = torch.where(ok[..., None], part, 0).to(compute_dtype)
-        blocks[(cols.start, lo)] = part.to(ids.device)
+        part = PieceRows.apply(tab, ids.to(tab.device), lo)
+        blocks[(cols.start, lo)] = part.to(compute_dtype).to(ids.device)
     out = []
     for c in sorted({c for c, _ in blocks}):
         parts = [blocks[k] for k in sorted(blocks) if k[0] == c]

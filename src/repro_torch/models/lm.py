@@ -25,6 +25,18 @@ positions.  The encdec family runs the bidirectional encoder over
 ``enc_frames`` (B, T_enc, D) once; each decoder layer attends causally to
 the tokens and, through ``cross_attention``, to the encoder's output.
 
+Over a mesh's model axis (``launch/tensor_parallel.py``) the dense and
+MoE families run each data replica's :class:`~repro_torch.launch.
+tensor_parallel.Group` of model pieces (:func:`forward_replicas` of
+groups, and :class:`~repro_torch.launch.tensor_parallel.ModelPieces` in
+:func:`decode_step`): the embedding lookup and the logits are vocab
+parallel, each piece holding ``(B, S, V / m)`` of them; the loss takes the
+logsumexp as a max and then a sum over the pieces, and the label's logit
+from the piece that holds it, so no ``(B, S, V)`` tensor is built; decode
+gathers only the last position's ``(B, 1, V)`` logits.  The decode cache
+is cut as ``CACHE_AXES`` places it (``k``/``v`` by ``kv_heads``, rows by
+``batch``), one cache a device.
+
 The recurrent families carry states, not a growing KV cache: rwkv6 the
 ``wkv`` (L, B, H, K, K) float32 state and two token-shift carries; zamba2
 the SSD state (L, B, H, P, N) float32, a causal-conv tail and one KV
@@ -43,6 +55,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -119,6 +133,20 @@ def _remat(fn, cfg):
     if cfg.remat == "full":
         return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
     raise ValueError(f"remat {cfg.remat!r} is not full, dots or none")
+
+
+def _remat_whole(fn, cfg):
+    """:func:`_remat` whose backward recomputes the whole of ``fn`` (no
+    early stop), so every sum over the model pieces runs, and is counted,
+    again there."""
+    inner = _remat(fn, cfg)
+    if inner is fn:
+        return fn
+
+    def run(*args, **kw):
+        with ckpt.set_checkpoint_early_stop(False):
+            return inner(*args, **kw)
+    return run
 
 
 # --------------------------------------------------------------------- model
@@ -289,6 +317,14 @@ def forward(p, cfg, batch):
     enc_frames (B,T_enc,D) for encdec].  The MoE family is
     :func:`forward_replicas` of one replica."""
     check_family(cfg)
+    if isinstance(p, tp.ModelPieces):
+        rows = p.rows(batch["tokens"].shape[0])
+        logits, aux = forward_replicas(p.groups, cfg, [
+            {k: v[r].to(g.devices[0]) for k, v in batch.items()}
+            for g, r in zip(p.groups, rows)])
+        return _join_rows(p, [_gather_vocab(g, lg) for g, lg in
+                              zip(p.groups, logits)],
+                          batch["tokens"].shape[0]), aux
     if cfg.family == "moe":
         logits, aux = forward_replicas([p], cfg, [batch])
         return logits[0], aux
@@ -327,7 +363,10 @@ def forward_replicas(ps, cfg, batches):
     (:func:`~repro_torch.models.blocks.dense_layer_replicas`, each layer
     of all replicas under one ``cfg.remat`` checkpoint), the others each
     replica's whole :func:`forward` in turn.  The MoE family's one layer
-    loop, for one replica as for many."""
+    loop, for one replica as for many.  Groups of model pieces (the dense
+    and MoE families) run :func:`_forward_groups`."""
+    if isinstance(ps[0], tp.Group):
+        return _forward_groups(ps, cfg, batches)
     if cfg.family != "moe":
         outs = [forward(p, cfg, b) for p, b in zip(ps, batches)]
         return [o[0] for o in outs], outs[0][1]
@@ -350,6 +389,105 @@ def forward_replicas(ps, cfg, batches):
         x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
         logits.append(_logits(p, cfg, x[:, prefix_len:]))
     return logits, aux
+
+
+# ------------------------------------------------------ over model pieces
+def _embed_pieces(g, cfg, tokens):
+    x = L.embed_lookup_pieces(g["embed"], tokens, cfg.compute_dtype,
+                              cfg.vocab_size)
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
+    return x
+
+
+def _logits_pieces(g, cfg, x):
+    """The logits of ``x`` (on the lead) as ``[(vocab offset, block)]``:
+    piece ``j``'s ``(B, S, V / m)`` block on its device, or one whole block
+    on the lead where the model axis does not cut the vocabulary."""
+    head = g["embed"] if cfg.tie_embeddings else g["lm_head"]
+    v_loc = head.lead.shape[0 if cfg.tie_embeddings else 1]
+    if v_loc == cfg.vocab_size:
+        return [(0, _logits(g.lead, cfg, x))]
+    return [(j * v_loc, _logits(t, cfg, xj)) for j, (t, xj) in
+            enumerate(zip(g.trees, tp.copy_in(g, x)))]
+
+
+def _gather_vocab(g, blocks):
+    """Vocab blocks joined into the whole logits on the lead."""
+    if len(blocks) == 1:
+        return blocks[0][1]
+    return tp.all_gather(g, [b for _, b in blocks], dim=-1)
+
+
+def _forward_groups(gs, cfg, batches):
+    """:func:`forward_replicas` of data replicas cut over the model axis:
+    ``gs[r]`` replica ``r``'s group of model pieces (whole LMs), its rows
+    ``batches[r]`` on the group's lead.  -> (each replica's logits as
+    :func:`_logits_pieces` blocks, aux on the first lead)."""
+    xs, positions = [], []
+    for g, b in zip(gs, batches):
+        x = _embed_pieces(g, cfg, b["tokens"])
+        xs.append(x)
+        positions.append(positions_for(x.shape[0], x.shape[1], x.device))
+    aux = {k: torch.zeros((), dtype=torch.float32, device=xs[0].device)
+           for k in ("moe_aux_loss", "moe_dropped_frac")}
+    for i, kind in enumerate(layer_kinds(cfg)):
+        xs, aux_i = _remat_whole(B.dense_layer_groups, cfg)(
+            [g["layers"][i] for g in gs], xs, cfg=cfg, kind_flag=int(kind),
+            positions=positions)
+        for k, v in aux_i.items():
+            aux[k] = aux[k] + v
+    logits = [_logits_pieces(g, cfg, L.rmsnorm(g.lead["final_norm"], x,
+                                               cfg.norm_eps))
+              for g, x in zip(gs, xs)]
+    return logits, aux
+
+
+def _token_sums_pieces(g, blocks, batch):
+    """:func:`_token_sums` of vocab blocks: the logsumexp as the max over
+    the pieces, then the sum of each piece's exponentials reduced out;
+    the label's logit from the piece that holds it, reduced out."""
+    if len(blocks) == 1:
+        return _token_sums(blocks[0][1], batch)
+    labels = batch["labels"]
+    lgs = [b.float() for _, b in blocks]
+    mx = tp.all_max(g, [lg.detach().amax(dim=-1) for lg in lgs])
+    total = tp.reduce_out(g, [
+        torch.exp(lg - mx.to(lg.device)[..., None]).sum(dim=-1)
+        for lg in lgs])
+    lse = mx + torch.log(total)
+    lls = []
+    for (lo, _), lg in zip(blocks, lgs):
+        rel = labels.to(lg.device).long() - lo
+        ok = (rel >= 0) & (rel < lg.shape[-1])
+        ll = torch.gather(lg, -1, rel.clamp(0, lg.shape[-1] - 1)[..., None])
+        lls.append(torch.where(ok, ll[..., 0], 0.0))
+    nll = lse - tp.reduce_out(g, lls)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    return (nll * mask).sum(), ((lse ** 2) * mask).sum(), mask.sum()
+
+
+def _join_rows(mp, outs, b: int):
+    """Each data replica's rows of a serving batch of ``b`` joined on the
+    first lead (replica 0's where every replica served the whole
+    batch)."""
+    if mp.data == 1 or b % mp.data:
+        return outs[0]
+    return torch.cat([o.to(outs[0].device) for o in outs])
+
+
+def pieces_logits(mp, cfg, xs, b: int):
+    """The final norm and the whole logits of each data replica's last
+    hidden states ``xs`` (on the leads) of :class:`~repro_torch.launch.
+    tensor_parallel.ModelPieces`, the vocab blocks gathered, the rows
+    joined."""
+    outs = []
+    for g, x in zip(mp.groups, xs):
+        x = L.rmsnorm(g.lead["final_norm"], x, cfg.norm_eps)
+        outs.append(_gather_vocab(g, _logits_pieces(g, cfg, x)))
+    return _join_rows(mp, outs, b)
 
 
 # --------------------------------------------------------------------- loss
@@ -392,8 +530,12 @@ def loss_fn_replicas(ps, cfg, batches, z_loss: float = 1e-4,
     global mask count, so the loss is the global batch's.  -> (total on
     the first replica's device, metrics)."""
     logits, aux = forward_replicas(ps, cfg, batches)
-    sums = [_token_sums(lg, b) for lg, b in zip(logits, batches)]
-    dev = logits[0].device
+    if isinstance(ps[0], tp.Group):
+        sums = [_token_sums_pieces(g, lg, b)
+                for g, lg, b in zip(ps, logits, batches)]
+    else:
+        sums = [_token_sums(lg, b) for lg, b in zip(logits, batches)]
+    dev = sums[0][0].device
     nll, zsum, count = (_global_sum([x[i] for x in sums], dev)
                         for i in range(3))
     denom = torch.clamp(count, min=1.0)
@@ -489,6 +631,36 @@ CACHE_AXES = {
 }
 
 
+def init_cache_pieces(mp, batch_size: int, max_len: int,
+                      dtype=None) -> dict:
+    """Zeroed decode cache of :class:`~repro_torch.launch.tensor_parallel.
+    ModelPieces`: each leaf a :class:`~repro_torch.launch.sharding.
+    Sharded` placed by ``CACHE_AXES`` under the pieces' rules, device
+    ``n`` holding its replica's rows and its piece's kv heads."""
+    cfg, mesh = mp.cfg, mp.shd.mesh
+    rows = mp.rows(batch_size)
+    per_device = []
+    for n, dev in enumerate(mesh.devices):
+        i, j = divmod(n, mp.model)
+        kh = mp.groups[i].trees[j]["layers"][0]["attn"]["wk"].shape[1]
+        per_device.append(init_cache(
+            cfg.replace(num_kv_heads=kh), rows[i].stop - rows[i].start,
+            max_len, dtype, device=dev))
+    out = {}
+    for key, first in per_device[0].items():
+        shape = (first.shape[0], batch_size, first.shape[2],
+                 cfg.num_kv_heads, first.shape[4])
+        pl = mp.shd.named(CACHE_AXES[key], shape)
+        pieces = [c[key] for c in per_device]
+        for n, piece in enumerate(pieces):
+            block = tuple(b.stop - b.start for b in pl.block(n, shape))
+            if block != tuple(piece.shape):
+                raise ValueError(f"cache {key}: piece {n} of "
+                                 f"{tuple(piece.shape)}, placed {block}")
+        out[key] = sh.Sharded(pl, pieces, shape)
+    return out
+
+
 def cache_axes(cache: dict) -> dict:
     """Logical axes for every cache leaf (the sharding rules place the
     decode cache by them)."""
@@ -504,11 +676,17 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0,
     ``cfg.decode_embed == "psum"`` the token embedding is
     :func:`~repro_torch.models.layers.embed_lookup_psum` over the table
     split by ``shd``'s rules; every other leaf stays whole on the
-    parameters' device (tensor-parallel compute over the model axis is
-    ROADMAP item 21).  ``shd`` follows ``prefix_len`` here, where the
-    reference has it before (positional callers pass ``prefix_len``)."""
+    parameters' device.  ``p`` a :class:`~repro_torch.launch.
+    tensor_parallel.ModelPieces` (the dense and MoE families) runs over
+    its model pieces, ``cache`` then :func:`init_cache_pieces`'s, and the
+    logits are gathered on the first lead.  ``shd`` follows
+    ``prefix_len`` here, where the reference has it before (positional
+    callers pass ``prefix_len``)."""
     check_family(cfg)
     cur_pos = int(cur_pos)
+    if isinstance(p, tp.ModelPieces):
+        return _decode_pieces(p, cfg, cache, tokens, cur_pos,
+                              prefix_len), cache
     x = _embed_tokens(p, cfg, tokens, shd=shd, decode=True)
     if cfg.family == "ssm":
         for i, layer in enumerate(p["layers"]):
@@ -555,3 +733,21 @@ def _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len):
                 x, layer_cache, cfg=cfg, kind_flag=kind, cur_pos=cur_pos,
                 prefix_len=prefix_len, ring=(kind == 1))
     return x
+
+
+def _decode_pieces(mp, cfg, cache, tokens, cur_pos, prefix_len):
+    m = mp.model
+    rows = mp.rows(tokens.shape[0])
+    xs = [_embed_pieces(g, cfg, tokens[r].to(g.devices[0]))
+          for g, r in zip(mp.groups, rows)]
+    for kind, l0, l1, k0 in layer_runs(layer_kinds(cfg)):
+        keys = ("k_local", "v_local") if kind == 1 else ("k", "v")
+        for jl in range(l1 - l0):
+            caches = [[{"k": cache[keys[0]].pieces[i * m + j][k0 + jl],
+                        "v": cache[keys[1]].pieces[i * m + j][k0 + jl]}
+                       for j in range(m)] for i in range(mp.data)]
+            xs = B.dense_layer_decode_groups(
+                [g["layers"][l0 + jl] for g in mp.groups], xs, caches,
+                cfg=cfg, kind_flag=kind, cur_pos=cur_pos,
+                prefix_len=prefix_len, ring=(kind == 1))
+    return pieces_logits(mp, cfg, xs, tokens.shape[0])

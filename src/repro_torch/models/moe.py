@@ -45,6 +45,17 @@ copied to, in a fixed order (choice ``j`` ascending):
 No float ``index_add_`` / ``scatter_add_`` runs forward or backward: on
 the card those use atomics and would make runs differ bitwise.  The
 gradient with respect to the gates flows through ``rows * gates``.
+
+**Expert parallel** (:func:`moe_groups`, over a mesh's model axis): piece
+``j`` holds experts ``[j E/m, (j + 1) E/m)`` and the router's columns of
+them (``router_experts``), so each replica's router logits are gathered
+over the pieces before the softmax and top-k.  Each group's sort is
+computed once, on the lead; piece ``j`` dispatches only the slots of its
+experts (``[j E/m C, (j + 1) E/m C)`` of the buffer, every entry of
+another piece's expert or past capacity reading its zero row), runs its
+experts and combines its share of each token's ``k`` rows, weighted by
+the gates; the shares are reduced out.  The same two row gathers run on
+each piece, with the same inverse maps cut to its slots.
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_dispatch.kernel import row_gather
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.sharding import take_rows
 from repro_torch.models import params as pr
 
@@ -134,27 +146,49 @@ def _entry_slots(slot, order):
     return torch.empty_like(slot).scatter_(0, order, slot)
 
 
-def _dispatch(xg, slot, tok, order, e: int, c: int):
-    """(Tg, D) token rows -> (E*C, D) dispatch buffer via one row gather."""
+def _dispatch(xg, slot, tok, order, e: int, c: int, lo: int = 0,
+              n: int | None = None):
+    """(Tg, D) token rows -> (E*C, D) dispatch buffer via one row gather;
+    with ``n``, only its rows ``[lo, lo + n)`` (a piece's experts'
+    slots)."""
     tg = xg.shape[0]
     # slot e*c collects every dropped entry and is cut off
     slot_src = torch.full((e * c + 1,), tg, dtype=torch.int32,
                           device=xg.device)
     slot_src.scatter_(0, slot.long(), tok)
-    return RowGather.apply(xg, slot_src[:e * c], _entry_slots(slot, order),
-                           slot.numel() // tg)
+    if n is None:
+        ids, back = slot_src[:e * c], _entry_slots(slot, order)
+    else:
+        ids = slot_src[lo:lo + n]
+        back = _local(_entry_slots(slot, order), lo, n)
+    return RowGather.apply(xg, ids, back, slot.numel() // tg)
 
 
-def _combine(flat, slot, order, gates):
+def _local(slots, lo: int, n: int):
+    """Slots counted from ``lo``, and ``n`` (the zero row) for those
+    outside ``[lo, lo + n)``."""
+    inside = (slots >= lo) & (slots < lo + n)
+    return torch.where(inside, slots - lo, n).to(torch.int32)
+
+
+def _combine(flat, slot, order, gates, total: int | None = None,
+             lo: int = 0):
     """(E*C, D) expert outputs -> (Tg, D): each token's k rows, gathered in
-    (token, choice) order by one row gather, weighted and summed."""
+    (token, choice) order by one row gather, weighted and summed.  With
+    ``total`` (E*C), ``flat`` holds only slots ``[lo, lo + len(flat))``
+    and a token's rows outside them are zero (a piece's share)."""
     tg, k = gates.shape
     ec = flat.shape[0]
-    # the entry filling each slot (the dropped entries' slot ec is cut off)
-    slot_entry = torch.full((ec + 1,), tg * k, dtype=torch.int32,
+    whole = total is None
+    total = ec if whole else total
+    # the entry filling each slot (the dropped entries' slot is cut off)
+    slot_entry = torch.full((total + 1,), tg * k, dtype=torch.int32,
                             device=flat.device)
     slot_entry.scatter_(0, slot.long(), order.to(torch.int32))
-    rows = RowGather.apply(flat, _entry_slots(slot, order), slot_entry[:ec],
+    ids = _entry_slots(slot, order)
+    if not whole:
+        ids = _local(ids, lo, ec)
+    rows = RowGather.apply(flat, ids, slot_entry[lo:lo + ec],
                            1).view(tg, k, -1)
     return (rows * gates.to(flat.dtype)[..., None]).sum(dim=1)
 
@@ -168,9 +202,11 @@ def moe(p, x: torch.Tensor, cfg, group_size: int | None = None):
 def moe_replicas(ps, xs, cfg, group_size: int | None = None):
     """The MoE layer over the rows of one global batch split over data
     replicas: ``xs[r]`` (B_r, S, D) replica ``r``'s rows, in order, on its
-    device, ``ps[r]`` its copy of the layer's parameters.  -> (outputs,
-    one per replica on its device, aux_metrics on the first replica's
-    device).
+    device, ``ps[r]`` its copy of the layer's parameters, or its
+    :class:`~repro_torch.launch.tensor_parallel.Group` of model pieces
+    (``xs[r]`` on the group's lead; see the module docstring).  ->
+    (outputs, one per replica on its device, aux_metrics on the first
+    replica's device).
 
     As in the reference, where GSPMD keeps the global semantics, the
     groups, their capacity and the load-balance statistics are those of
@@ -182,6 +218,8 @@ def moe_replicas(ps, xs, cfg, group_size: int | None = None):
     and router probabilities of every replica come to the first replica's
     device for the aux loss.  Autograd carries the gradients back across
     the copies.  With one replica this is the single-device layer."""
+    if not isinstance(ps[0], tp.Group):
+        ps = [tp.Group([p], [x.device]) for p, x in zip(ps, xs)]
     s, d = xs[0].shape[1:]
     sizes = [x.shape[0] * s for x in xs]
     offsets = [sum(sizes[:r]) for r in range(len(xs))]
@@ -190,38 +228,59 @@ def moe_replicas(ps, xs, cfg, group_size: int | None = None):
     g = _group_count(t, group_size or cfg.moe_group_size)
     tg = t // g
     c = max(1, int(np.ceil(tg * k / e * cfg.capacity_factor)))
+    e_loc = ps[0].lead["w_gate"].shape[0]
+    experts_cut = e_loc < e
+    router_cut = ps[0].lead["router"].shape[1] < e
 
+    # per replica: its rows and gates on each piece that reads them
     flat, probs, gates, eidx = [], [], [], []
-    for p, x in zip(ps, xs):
+    for grp, x in zip(ps, xs):
         xf = x.reshape(-1, d)
-        logits = torch.einsum("td,de->te", xf.float(), p["router"].float())
+        pieces = tp.copy_in(grp, xf) if experts_cut or router_cut else [xf]
+        if router_cut:     # each piece's experts' logits, gathered
+            logits = tp.all_gather(grp, [
+                torch.einsum("td,de->te", xj.float(), p["router"].float())
+                for p, xj in zip(grp.trees, pieces)], dim=-1)
+        else:
+            logits = torch.einsum("td,de->te", xf.float(),
+                                  grp.lead["router"].float())
         pr_r = torch.softmax(logits, dim=-1)
         gt, ei = torch.topk(pr_r, k, dim=-1)      # (T_r, k)
-        flat.append(xf)
+        gt = gt / torch.clamp(gt.sum(-1, keepdim=True), min=1e-9)
+        flat.append(pieces if experts_cut else [xf])
+        gates.append(tp.copy_in(grp, gt) if experts_cut else [gt])
         probs.append(pr_r)
         eidx.append(ei.to(torch.int32))
-        gates.append(gt / torch.clamp(gt.sum(-1, keepdim=True), min=1e-9))
 
-    weights = {}          # replica -> its expert weights in x's dtype
+    n_loc = e_loc * c
+    weights = {}          # (replica, piece) -> its expert weights
     ys, kept = [], []
     for gi in range(g):
         lo, hi = gi * tg, (gi + 1) * tg
         r = max(i for i, off in enumerate(offsets) if off <= lo)
-        dev = xs[r].device
-        if r not in weights:
-            weights[r] = tuple(ps[r][w].to(xs[r].dtype)
-                               for w in ("w_gate", "w_up", "w_down"))
-        wg, wu, wd = weights[r]
+        grp = ps[r]
         slot, tok, order, valid = _dispatch_indices(
-            take_rows(eidx, offsets, lo, hi, dev), k, e, c)
-        disp = _dispatch(take_rows(flat, offsets, lo, hi, dev), slot, tok,
-                         order, e, c).view(e, c, d)
-        # expert FFN (dense over the expert dim)
-        h = F.silu(torch.einsum("ecd,edf->ecf", disp, wg)) * \
-            torch.einsum("ecd,edf->ecf", disp, wu)
-        out_e = torch.einsum("ecf,efd->ecd", h, wd)
-        ys.append(_combine(out_e.reshape(e * c, d), slot, order,
-                           take_rows(gates, offsets, lo, hi, dev)))
+            take_rows(eidx, offsets, lo, hi, xs[r].device), k, e, c)
+        shares = []
+        for j in range(len(grp) if experts_cut else 1):
+            dev = grp.devices[j]
+            if (r, j) not in weights:
+                weights[r, j] = tuple(grp.trees[j][w].to(xs[r].dtype)
+                                      for w in ("w_gate", "w_up", "w_down"))
+            wg, wu, wd = weights[r, j]
+            sl, tk, od = (v.to(dev) for v in (slot, tok, order))
+            xg = take_rows([f[j] for f in flat], offsets, lo, hi, dev)
+            span = (j * n_loc, n_loc) if experts_cut else ()
+            disp = _dispatch(xg, sl, tk, od, e, c, *span).view(e_loc, c, d)
+            # expert FFN (dense over the expert dim)
+            h = F.silu(torch.einsum("ecd,edf->ecf", disp, wg)) * \
+                torch.einsum("ecd,edf->ecf", disp, wu)
+            out_e = torch.einsum("ecf,efd->ecd", h, wd)
+            gg = take_rows([gp[j] for gp in gates], offsets, lo, hi, dev)
+            share = (e * c, j * n_loc) if experts_cut else ()
+            shares.append(_combine(out_e.reshape(n_loc, d), sl, od, gg,
+                                   *share))
+        ys.append(tp.reduce_out(grp, shares) if experts_cut else shares[0])
         kept.append(valid)
     group_offsets = [gi * tg for gi in range(g)]
     outs = [take_rows(ys, group_offsets, off, off + n, x.device).view(x.shape)

@@ -27,7 +27,11 @@ pieces: parameters and float32 gradients cut by the rules.  A float32
 moment is then a ``Sharded`` of the stacked leaf, cut as its layers are,
 and every piece is updated on its own device with the step's scalars
 copied there; the gradient norm counts every logical element once (a
-replicated leaf's first copy).
+replicated leaf's first copy).  On a ``(data, model)`` mesh a leaf's
+pieces may be cut in two dimensions (``data`` on ``embed``, ``model`` on
+heads, mlp, experts or vocab); each moment piece is cut as its
+parameter's.  8-bit moments on a model axis above 1 raise (ROADMAP item
+25).
 
 8-bit moments under a mesh keep the reference's layout: ``q`` and ``s``
 of the flat stacked leaf, their blocks' dim 0 cut over the ``"embed"``
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.sharding import Placement, Sharded, blocks_placement
+from repro_torch.launch.tensor_parallel import QUANTIZED
 from repro_torch.models import params as pr
 
 CHUNK = 1 << 24      # elements of one chunk of a stacked leaf's update
@@ -129,6 +134,8 @@ def _sharded_q8_zeros(leaf, shd, block: int) -> dict:
     if shd is None:
         raise ValueError("8-bit moments of Sharded parameters need shd= "
                          "(the rules that place their blocks)")
+    if shd.mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(QUANTIZED)
     nb = -(-math.prod(pr.stacked_shape(leaf)) // block)
     pl = blocks_placement(shd, nb, block)
     pieces = []

@@ -16,12 +16,22 @@ run on the hand-written row gather there.  ``shd`` (a
 ``cfg.decode_embed == "psum"`` looks the tokens up in the table split by
 its rules (:func:`~repro_torch.models.layers.embed_lookup_psum`); the
 prefill keeps the gather, as in the reference.
+
+A model split over a mesh's model axis, :class:`~repro_torch.launch.
+tensor_parallel.ModelPieces` (the dense and MoE families), serves over its
+pieces: ``generate(ModelPieces(model, shd), cfg, ...)``.  Each data
+replica runs its rows of the batch (all of them where ``data`` does not
+divide it) through its group of pieces, each piece filling its own cache
+(:func:`~repro_torch.models.lm.init_cache_pieces`); the last position's
+logits are gathered over the vocab pieces to sample.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 
@@ -29,7 +39,10 @@ from repro_torch.models import lm
 def prefill(p, cfg, batch, max_len: int, shd=None):
     """Run the prompt, returning (cache, last_logits (B, 1, V)).  ``shd``
     is accepted as the reference's is; the prefill's lookup is the
-    gather."""
+    gather.  ``p`` a ``ModelPieces`` runs over its pieces (its own rules;
+    ``shd`` is not read)."""
+    if isinstance(p, tp.ModelPieces):
+        return _prefill_pieces(p, cfg, batch, max_len)
     x, positions, prefix_len = lm.embed_inputs(p, cfg, batch)
     b, s = positions.shape
     cache = lm.init_cache(cfg, b, max_len, device=x.device)
@@ -65,16 +78,20 @@ def prefill(p, cfg, batch, max_len: int, shd=None):
     return cache, lm._logits(p, cfg, x[:, -1:, :])
 
 
+def _ring(s: int, w: int, dev):
+    """The prompt positions a ring of ``w`` slots holds after ``s``
+    tokens -> (the position of each slot, whether it holds one)."""
+    slot_pos = (s - 1) - ((s - 1 - np.arange(w)) % w)
+    valid = torch.as_tensor(slot_pos >= 0, device=dev)[None, :, None, None]
+    take = torch.as_tensor(np.where(slot_pos >= 0, slot_pos, 0), device=dev)
+    return take, valid
+
+
 def _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len):
     s = x.shape[1]
     dev = x.device
     if "k_local" in cache:   # ring stacks (sliding-window layers)
-        w = cache["k_local"].shape[2]
-        slot_pos = (s - 1) - ((s - 1 - np.arange(w)) % w)
-        valid = torch.as_tensor(slot_pos >= 0, device=dev)[None, :, None,
-                                                           None]
-        take = torch.as_tensor(np.where(slot_pos >= 0, slot_pos, 0),
-                               device=dev)
+        take, valid = _ring(s, cache["k_local"].shape[2], dev)
     seen = {0: 0, 1: 0}
     for layer, kind in zip(p["layers"], lm.layer_kinds(cfg)):
         kind = int(kind)
@@ -92,6 +109,41 @@ def _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len):
     return x
 
 
+def _prefill_pieces(mp, cfg, batch, max_len):
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    m = mp.model
+    cache = lm.init_cache_pieces(mp, b, max_len)
+    xs, positions = [], []
+    for g, r in zip(mp.groups, mp.rows(b)):
+        x = lm._embed_pieces(g, cfg, tokens[r].to(g.devices[0]))
+        xs.append(x)
+        positions.append(lm.positions_for(x.shape[0], s, x.device))
+    rings = {}
+    seen = {0: 0, 1: 0}
+    for i, kind in enumerate(lm.layer_kinds(cfg)):
+        kind = int(kind)
+        xs, _, kvs = B.dense_layer_groups(
+            [g["layers"][i] for g in mp.groups], xs, cfg=cfg,
+            kind_flag=kind, positions=positions, return_kv=True)
+        li = seen[kind]
+        seen[kind] += 1
+        for r, pairs in enumerate(kvs):
+            for j, (k, v) in enumerate(pairs):
+                n = r * m + j
+                if kind == 0:        # full-length stacks (global layers)
+                    cache["k"].pieces[n][li, :, :s] = k
+                    cache["v"].pieces[n][li, :, :s] = v
+                    continue
+                dst_k = cache["k_local"].pieces[n]
+                if k.device not in rings:
+                    rings[k.device] = _ring(s, dst_k.shape[2], k.device)
+                take, valid = rings[k.device]
+                dst_k[li] = k[:, take] * valid
+                cache["v_local"].pieces[n][li] = v[:, take] * valid
+    return cache, lm.pieces_logits(mp, cfg, [x[:, -1:, :] for x in xs], b)
+
+
 def generate(p, cfg, batch, steps: int, max_len: int,
              temperature: float = 0.0,
              generator: torch.Generator | None = None, shd=None):
@@ -103,7 +155,8 @@ def generate(p, cfg, batch, steps: int, max_len: int,
     tokens' device) when one is given.  For vlm, ``max_len`` counts the
     ``num_prefix`` patch slots too.  ``shd`` goes to every decode step
     (it follows ``generator`` here; the reference has it after
-    ``max_len``)."""
+    ``max_len``).  ``p`` a ``ModelPieces`` serves over its pieces; the
+    cache is then a dict of ``Sharded`` pieces."""
     s = batch["tokens"].shape[1]
     prefix_len = lm.prefix_slots(cfg)
     cache, last_logits = prefill(p, cfg, batch, max_len, shd)

@@ -41,12 +41,30 @@ Microbatch ``i`` is rows ``[i B/m, (i + 1) B/m)`` of the global batch, as
 the reference's reshape makes it, its rows moved to the replicas that
 compute them.  The parameters are gathered whole onto each replica at the
 step's start, where the reference gathers them layer by layer inside its
-scan.  A mesh whose model axis is above 1 raises: tensor-parallel compute
-is ROADMAP item 21.
+scan.
+
+**Tensor and expert parallel.**  On a ``(data, model)`` mesh whose model
+axis is above 1 (the ``dense`` and ``moe`` families) the pieces are cut
+over ``model`` too, by the ``heads``, ``kv_heads``, ``mlp``, ``experts``,
+``router_experts`` and ``vocab`` rules: device ``(i, j)`` holds its data
+block of its model block.  ``DataParallel`` keeps one ``LM`` piece per
+device, the model block whole over ``data``: :meth:`DataParallel.gather`
+all-gathers over ``data`` only, and data replica ``i``'s pieces form a
+:class:`~repro_torch.launch.tensor_parallel.Group` that computes its rows
+piece by piece (``launch/tensor_parallel.py``: Megatron attention and
+MLP, expert-parallel MoE, vocab-parallel lookup, logits and loss), its
+sums over the pieces counted in ``collectives``.  The gradients are
+reduce-scattered over ``data`` within each model piece; a leaf whole in
+every model piece that several pieces compute with (kv heads the model
+axis does not divide) sums their gradients first.  The program is the
+reference's global one: its single-device result is what the pieces
+compute.  The other families and 8-bit moments on such a mesh raise
+(ROADMAP items 24 and 25).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import signal
@@ -60,14 +78,10 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import DataIterator
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.step_analysis import COLLECTIVES
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import lm
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
-
-TENSOR_PARALLEL = ("compute over the mesh's model axis (tensor, expert and "
-                   "vocab parallel layers) is not ported: ROADMAP item 21")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -146,18 +160,6 @@ def _accumulate(p, acc) -> None:
 
 
 # ----------------------------------------------------------- data parallel
-def _per_layer(placements, values):
-    """The stacked layout's placements on the port's per-layer tree: a
-    layer's tensor drops the leading ("layers" -> None) entry."""
-    if isinstance(values, list):
-        inner = pr.stacked_map(
-            lambda pl: sh.Placement(pl.mesh, pl.spec[1:]), placements)
-        return [_per_layer(inner, v) for v in values]
-    if isinstance(values, dict):
-        return {k: _per_layer(placements[k], v) for k, v in values.items()}
-    return placements
-
-
 def flat_boxes(lo: int, hi: int, a: int, s: int, c: int) -> list:
     """The flat range ``[lo, hi)`` of an ``(a, s, c)`` array as at most
     five boxes ``(a0, a1, s0, s1, c0, c1)``."""
@@ -210,6 +212,10 @@ def copy_flat_range(dst: torch.Tensor, src: torch.Tensor, block: tuple,
                 src3[a0:a1, u0:u1, c0:c1])
 
 
+def _block_shape(block: tuple) -> tuple:
+    return tuple(b.stop - b.start for b in block)
+
+
 def _layer_grads(parts) -> list:
     """The gradients of a stacked leaf's per-layer tensors (zeros where
     the loss does not reach one)."""
@@ -218,63 +224,116 @@ def _layer_grads(parts) -> list:
 
 
 class DataParallel:
-    """The parameters of data-parallel training over ``shd``'s mesh (its
-    model axis 1): ``params``, the ``Sharded`` pieces in the port's
-    per-layer tree (what :meth:`tree` returns and AdamW updates), and
-    ``models``, one ``LM`` replica per data index on its device (``model``
-    itself the first), which :meth:`gather` refills.  ``collectives``
-    counts, by kind, the collectives the steps ran and their bytes on one
-    device (the output's: a gathered tensor, a float32 gradient piece, a
-    parameter piece filled by the exchange), as the reference's dry run
-    counts them in a device's program; :meth:`reset_collectives` zeroes
-    it."""
+    """The parameters of data-parallel training over ``shd``'s mesh:
+    ``params``, the ``Sharded`` pieces in the port's per-layer tree (what
+    :meth:`tree` returns and AdamW updates), and ``models``, one ``LM``
+    per device (``models[i * model + j]`` on device ``(i, j)``), which
+    :meth:`gather` refills.  With a model axis of 1 these are whole
+    replicas, ``model`` itself the first.  With a model axis above 1 each
+    is device ``(i, j)``'s model block of every leaf, whole over ``data``
+    (the model's own parameters are released meanwhile; :meth:`whole`
+    gathers them back), and ``groups[i]`` is data replica ``i``'s
+    :class:`~repro_torch.launch.tensor_parallel.Group` of them.
+    :attr:`replicas` is what the loss runs over: the models, or the
+    groups.  ``collectives`` counts, by kind, the collectives the steps
+    ran and their bytes on one device (the output's: a gathered tensor, a
+    float32 gradient piece, a parameter piece filled by the exchange, a
+    sum over the model pieces), as the reference's dry run counts them in
+    a device's program; :meth:`reset_collectives` zeroes it."""
 
     def __init__(self, model, shd):
+        """Split ``model`` over ``shd``'s mesh.  With a model axis above 1
+        this empties ``model``'s own parameters (each becomes an empty
+        tensor, so the card holds the pieces alone): read the model
+        through :meth:`whole`, which gathers them back, not directly."""
         mesh = shd.mesh
-        if mesh.shape["model"] != 1:
-            raise NotImplementedError(f"a mesh whose model axis is "
-                                      f"{mesh.shape['model']}: "
-                                      f"{TENSOR_PARALLEL}")
         if model.axes is None:
             raise ValueError("the model carries no logical axes (build it "
                              "with lm.init_model, or pass axes= to "
                              "convert.lm_params_from_numpy)")
+        tp.check(model.cfg, mesh)
         self.shd, self.cfg = shd, model.cfg
+        self.collectives = tp.zero_collectives()
         self.devices = tuple(mesh.devices)
+        self.data, self.model = mesh.shape["data"], tp.model_axis(mesh)
+        self.whole_model = model
         values = model.tree()
-        stacked = sh.params_shardings(shd, model.axes, pr.stack_tree(values))
+        placements = sh.per_layer(sh.params_shardings(
+            shd, model.axes, pr.stack_tree(values)), values)
         self.params = pr.tree_map(
             lambda t, pl: pl.split(t.detach(), copy=True), values,
-            _per_layer(stacked, values))
-        self.models = [model] + [lm.LM(model.cfg, pr.tree_map(
-            lambda t, d=d: torch.empty_like(t, device=d), values),
-            model.axes) for d in self.devices[1:]]
-        self.reset_collectives()
+            placements)
+        m = self.model
+        if m == 1:
+            self.blocks = None
+            self.models = [model] + [lm.LM(model.cfg, pr.tree_map(
+                lambda t, d=d: torch.empty_like(t, device=d), values),
+                model.axes) for d in self.devices[1:]]
+            self.groups = None
+        else:
+            self.blocks = pr.tree_map(sh.model_only, placements)
+            self.models = [lm.LM(model.cfg, pr.tree_map(
+                lambda t, pl, n=n, d=d: torch.empty(
+                    _block_shape(pl.block(n, t.shape)), dtype=t.dtype,
+                    device=d), values, self.blocks), model.axes)
+                for n, d in enumerate(self.devices)]
+            count = functools.partial(tp.count_into, self.collectives)
+            self.groups = [tp.Group(self.models[i * m:(i + 1) * m],
+                                    self.devices[i * m:(i + 1) * m], count)
+                           for i in range(self.data)]
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.data = p.data.new_empty(0)
+
+    @property
+    def replicas(self) -> list:
+        return self.models if self.groups is None else self.groups
+
+    def _region(self, n: int, leaf_blocks, shape):
+        """Device ``n``'s model block of a leaf (None: the whole)."""
+        return None if leaf_blocks is None else leaf_blocks.block(n, shape)
 
     def tree(self) -> dict:
         return self.params
 
     def reset_collectives(self) -> None:
-        self.collectives = {k: {"count": 0, "bytes": 0}
-                            for k in COLLECTIVES}
+        tp.zero_collectives(self.collectives)
 
     def _count(self, kind: str, nbytes: int) -> None:
-        self.collectives[kind]["count"] += 1
-        self.collectives[kind]["bytes"] += int(nbytes)
+        tp.count_into(self.collectives, kind, nbytes)
 
     @torch.no_grad()
     def gather(self, replicas: int | None = None) -> None:
-        """All-gather the pieces into the replicas (all, or the first
-        ``replicas``), in place."""
+        """All-gather the pieces over ``data`` into the models (all, or
+        those of the first ``replicas`` data replicas), in place."""
         def one(x):
             cut = sh.data_cut(x.placement)
             if cut > 1:
                 self._count("all-gather", x.pieces[0].numel() * cut *
                             x.pieces[0].element_size())
         pr.tree_map(one, self.params)
-        for m in self.models[:replicas]:
-            pr.tree_map(lambda dst, x: x.join(out=dst), m.tree(),
-                        self.params)
+        last = None if replicas is None else replicas * self.model
+        for n, m in enumerate(self.models[:last]):
+            if self.blocks is None:
+                pr.tree_map(lambda dst, x: x.join(out=dst), m.tree(),
+                            self.params)
+            else:
+                pr.tree_map(lambda dst, x, b, n=n: x.join(
+                    out=dst, region=b.block(n, x.shape)), m.tree(),
+                    self.params, self.blocks)
+
+    @torch.no_grad()
+    def whole(self):
+        """The model this was built from, holding the whole parameters
+        gathered from the pieces."""
+        if self.blocks is None:
+            self.gather(replicas=1)
+            return self.models[0]
+
+        def one(p, x):
+            p.data = x.join(device=self.devices[0])
+        pr.tree_map(one, self.whole_model.tree(), self.params)
+        return self.whole_model
 
     def _stacked(self):
         """The pieces' and the replicas' trees in the stacked structure."""
@@ -324,24 +383,25 @@ class DataParallel:
         pr.stacked_map(one, pr.stack_tree(self.params), flat)
 
     def rows(self, batch: dict, lo: int, hi: int):
-        """Rows ``[lo, hi)`` of the global batch for each replica -> (one
-        dict per replica, on its device; split).  ``split``: the data axis
-        divides the rows and replica ``r`` takes its ``r``-th share;
-        otherwise every replica takes them all."""
-        k, n = len(self.devices), hi - lo
+        """Rows ``[lo, hi)`` of the global batch for each data replica ->
+        (one dict per replica, on its (lead) device; split).  ``split``:
+        the data axis divides the rows and replica ``r`` takes its
+        ``r``-th share; otherwise every replica takes them all."""
+        k, m, n = self.data, self.model, hi - lo
         split = n % k == 0
         out = []
-        for r, dev in enumerate(self.devices):
+        for r, dev in enumerate(self.devices[::m]):
             a, b = (lo + r * n // k, lo + (r + 1) * n // k) if split \
                 else (lo, hi)
             one = {}
             for key, x in batch.items():
                 if x.placement.spec[0] is None:       # a replicated batch
-                    one[key] = x.pieces[r][a:b]
+                    one[key] = x.pieces[r * m][a:b]
                 else:
                     per = x.shape[0] // k
-                    one[key] = sh.take_rows(x.pieces, range(0, k * per, per),
-                                            a, b, dev)
+                    one[key] = sh.take_rows(x.pieces[::m],
+                                            range(0, k * per, per), a, b,
+                                            dev)
             out.append(one)
         return out, split
 
@@ -357,23 +417,35 @@ class DataParallel:
         its device's run of ``(nblocks, q_block)`` blocks of the flat
         stacked gradient (zero past its end)."""
         def count(pl, numel):
-            if split:
+            if split and self.data > 1:
                 self._count("reduce-scatter" if sh.data_cut(pl) > 1
                             else "all-reduce", numel * 4)
 
-        def one(x, *ps):
-            pieces = []
+        def one(x, *ps, blocks=None):
+            m, pieces = self.model, []
             for n, dev in enumerate(self.devices):
                 sl = x.placement.block(n, x.shape)
                 acc = None
-                for p in (ps if split else (ps[n],)):
-                    if p.grad is not None:
-                        g = p.grad[sl].to(dev, torch.float32).contiguous()
+                for i in (range(self.data) if split else (n // m,)):
+                    for j in range(m):
+                        p = ps[i * m + j]
+                        region = self._region(i * m + j, blocks, x.shape)
+                        if p.grad is None or (
+                                region is not None and
+                                not sh.inside(sl, region)):
+                            continue
+                        g = p.grad[sl if region is None else
+                                   sh.relative(sl, region)]
+                        g = g.to(dev, torch.float32).contiguous()
                         acc = g if acc is None else acc + g
                 if acc is None:                # the loss does not reach it
                     acc = torch.zeros(x.pieces[n].shape, dtype=torch.float32,
                                       device=dev)
                 pieces.append(acc)
+            if blocks is not None and not sh.axes_of(blocks) and sum(
+                    p.grad is not None for p in ps[:m]) > 1:
+                # a leaf whole in every model piece, computed with by several
+                self._count("all-reduce", math.prod(x.shape) * 4)
             for p in ps:
                 p.grad = None
             count(x.placement, pieces[0].numel())
@@ -400,7 +472,11 @@ class DataParallel:
             count(pl, pieces[0].numel())
             return sh.Sharded(pl, pieces, (nb, q_block))
 
-        if q_block is None:
+        if q_block is None and self.blocks is not None:
+            g = pr.tree_map(lambda x, b, *ps: one(x, *ps, blocks=b),
+                            self.params, self.blocks,
+                            *(m.tree() for m in self.models))
+        elif q_block is None:
             g = pr.tree_map(one, self.params,
                             *(m.tree() for m in self.models))
         else:
@@ -467,7 +543,7 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
             for i in range(microbatches):
                 mbs, split = dp.rows(batch, i * n // microbatches,
                                      (i + 1) * n // microbatches)
-                l, mb_metrics = _replica_loss(dp.models, cfg, mbs, split)
+                l, mb_metrics = _replica_loss(dp.replicas, cfg, mbs, split)
                 l.backward()
                 dp.reduce_scatter(split, into=g, q_block=q)
                 loss += mb_metrics["loss"]
@@ -477,7 +553,7 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
             metrics = {"loss": loss / microbatches}
         else:
             mbs, split = dp.rows(batch, 0, n)
-            l, metrics = _replica_loss(dp.models, cfg, mbs, split)
+            l, metrics = _replica_loss(dp.replicas, cfg, mbs, split)
             l.backward()
             g = dp.reduce_scatter(split, q_block=q)
         params = dp.params if q is None else dp.flat_params(q)
@@ -503,22 +579,21 @@ def train_state(model, opt_state) -> dict:
 
 class Trainer:
     """``Trainer(model_cfg, tc).run()`` trains on ``device`` (default
-    ``"cuda"``, which raises where torch sees no CUDA device), or data
-    parallel over ``mesh`` with ``rules`` (by default
-    ``default_rules(mesh)``; ignored without a mesh, as in the
-    reference).  A mesh of one device (what ``make_local_mesh()`` gives on
-    a one-card machine) trains on the single-device step, as
-    ``mesh=None`` on that device: no pieces, no replica, no collective."""
+    ``"cuda"``, which raises where torch sees no CUDA device), or over
+    ``mesh`` with ``rules`` (by default ``default_rules(mesh)``; ignored
+    without a mesh, as in the reference): data parallel over ``data``,
+    and for the dense and MoE families tensor and expert parallel over
+    ``model`` (see the module docstring).  A mesh of one device (what
+    ``make_local_mesh()`` gives on a one-card machine) trains on the
+    single-device step, as ``mesh=None`` on that device: no pieces, no
+    replica, no collective."""
 
     def __init__(self, model_cfg, tc: TrainConfig, mesh=None, rules=None,
                  device="cuda"):
         lm.check_family(model_cfg)
         self.shd = None
         if mesh is not None:
-            if mesh.shape["model"] > 1:
-                raise NotImplementedError(
-                    f"a mesh whose model axis is {mesh.shape['model']}: "
-                    f"{TENSOR_PARALLEL}")
+            tp.check(model_cfg, mesh, tc.opt.quantize_moments)
             if not mesh.devices:
                 raise ValueError("the mesh holds no device")
             for d in set(mesh.devices):
@@ -603,7 +678,7 @@ class Trainer:
             if pending is not None:
                 pending.join()
         if state is not model:          # the final parameters, whole
-            state.gather(replicas=1)
+            state.whole()
         return {"params": model, "opt": opt_state,
                 "metrics": self.metrics_log,
                 "stragglers": self.straggler_steps,

@@ -1419,3 +1419,105 @@ def test_8_bit_data_parallel_step_on_card_matches_cpu(arch):
             else:
                 np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4)
     assert flips < n / 1000, (flips, n)
+
+
+# ----------------------------------------------------- tensor parallel
+def _tp_state(st):
+    from repro_torch.models import params as pr
+    return {k: [x.join(device="cpu") for x in pr.leaves_like(st[k], st[k])]
+            for k in ("m", "v")}
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_tensor_parallel_step_on_card_matches_cpu(arch):
+    """One float32 step of a reduced model (``remat="full"``) on a
+    simulated (1, 2) ``(data, model)`` mesh on the card and on the CPU,
+    from the same weights and batch: loss and grad norm at ``rtol=1e-4``,
+    both moments at the dense rule (``rtol=1e-4, atol=1e-5`` x scale), the
+    counted collectives equal; the card's row gathers counted (the vocab
+    pieces' lookups, and 6 a piece in an MoE layer)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_simulated_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(remat="full")
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    batch = synth_batch(cfg, 4, 16, step=0)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=5)
+    got, state, counted = {}, {}, {}
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
+        m.axes = model.axes
+        mesh = make_simulated_mesh(1, 2, device=where)
+        shd = sh.Shd(mesh, sh.default_rules(mesh))
+        dp = loop.DataParallel(m, shd)
+        before = RG.row_gather.launches
+        st, got[where.type] = loop.make_train_step(cfg, opt, shd=shd)(
+            dp, adamw.init(dp.tree(), opt),
+            {k: torch.as_tensor(v, device=where) for k, v in batch.items()})
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            moe = 6 * 2 * cfg.num_layers if cfg.family == "moe" else 0
+            assert RG.row_gather.launches - before == moe + 2
+        state[where.type] = _tp_state(st)
+        counted[where.type] = dp.collectives
+    assert counted["cuda"] == counted["cpu"]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got["cuda"][k]),
+                                   float(got["cpu"][k]), rtol=1e-4,
+                                   err_msg=k)
+    for key in ("m", "v"):
+        for a, b in zip(state["cuda"][key], state["cpu"][key]):
+            scale = max(1.0, float(b.abs().max()))
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                       atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_tensor_parallel_generate_on_card_matches_cpu(arch):
+    """Greedy ``generate`` of a reduced float32 model over ``ModelPieces``
+    on a simulated (1, 2) mesh on the card and on the CPU: tokens equal,
+    the prefill's last logits at the dense rule; the card's row gathers
+    counted (one a piece a lookup, 2 a piece per MoE layer and
+    forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.launch.mesh import make_simulated_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 6),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    steps, out, last = 4, {}, {}
+    for where in (dev, torch.device("cpu")):
+        m = model.to(where)
+        mesh = make_simulated_mesh(1, 2, device=where)
+        mp = tp.ModelPieces(m, sh.Shd(mesh, sh.default_rules(mesh)))
+        batch = {"tokens": toks.to(where)}
+        before = RG.row_gather.launches
+        out[where.type], cache = engine.generate(mp, cfg, batch, steps, 16)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            moe = 2 * 2 * cfg.num_layers if cfg.family == "moe" else 0
+            assert RG.row_gather.launches - before == (moe + 2) * steps
+            assert all(p.device.type == "cuda" for x in cache.values()
+                       for p in x.pieces)
+        _, lg = engine.prefill(mp, cfg, batch, 16)
+        last[where.type] = lg.cpu()
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+    scale = max(1.0, float(last["cpu"].abs().max()))
+    np.testing.assert_allclose(last["cuda"].numpy(), last["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-5 * scale)

@@ -23,8 +23,8 @@ encoder layers over 16 frames, paligemma 8 patch tokens) for every arch:
   losses stay within the tolerance);
 * ``remat`` ``"none"``, ``"full"`` and ``"dots"``: bitwise-equal
   gradients;
-* the Trainer's straggler count, a 2-shard mesh and the refusal of a
-  model axis (its checkpoint/restart tests are in
+* the Trainer's straggler count, a 2-shard mesh, a model axis of 2 and
+  its refusal of the recurrent family (its checkpoint/restart tests are in
   ``test_torch_checkpoint.py``, data parallel in ``test_torch_dp.py``);
 * the launcher in process with ``--device cpu`` (whisper and paligemma
   too), and the ``NotImplementedError``s naming their ROADMAP items.
@@ -350,8 +350,10 @@ def test_stragglers_are_counted(tmp_path, monkeypatch):
 def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
     """A 2-shard simulated mesh with rules trains (data parallel, the
     parameters FSDP-sharded; ``test_torch_dp.py`` holds it to the
-    reference); a mesh whose model axis is above 1 raises, citing ROADMAP
-    item 21 (tensor-parallel compute)."""
+    reference); a mesh whose model axis is above 1 trains a dense model
+    (tensor parallel; ``test_torch_tensor_parallel.py`` holds it to the
+    reference) and refuses the recurrent family, citing ROADMAP item
+    24."""
     cfg = get_config("granite_3_2b").reduced()
     two = make_shard_mesh(2, device="cpu", simulate=True)
     out = loop.Trainer(cfg, _tc(tmp_path, steps=3), mesh=two,
@@ -363,10 +365,19 @@ def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
         [(cfg.vocab_size, cfg.d_model // 2)] * 2
     tp = ShardMesh(devices=(torch.device("cpu"),) * 2, data=1, model=2,
                    simulated=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        loop.Trainer(cfg, _tc(tmp_path), mesh=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        loop.Trainer(cfg, _tc(tmp_path), mesh=tp, rules=default_rules(tp))
+    for rules in (None, default_rules(tp)):
+        out = loop.Trainer(cfg, _tc(tmp_path / str(rules is None), steps=3),
+                           mesh=tp, rules=rules).run()
+        assert len(out["metrics"]) == 3 and all(
+            np.isfinite(m["loss"]) for m in out["metrics"])
+        wq = out["data_parallel"].params["layers"][0]["attn"]["wq"]
+        assert [tuple(p.shape) for p in wq.pieces] == \
+            [(cfg.d_model, cfg.num_heads // 2, cfg.head_dim)] * 2
+    rwkv = get_config("rwkv6_3b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
+        loop.Trainer(rwkv, _tc(tmp_path), mesh=tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
+        loop.Trainer(rwkv, _tc(tmp_path), mesh=tp, rules=default_rules(tp))
     one = ShardMesh(devices=(torch.device("cpu"),), data=1)
     assert loop.Trainer(cfg, _tc(tmp_path), mesh=one).device.type == "cpu"
 
@@ -404,10 +415,10 @@ def test_train_launcher_trains_the_modality_families(arch, tmp_path,
 
 
 def test_train_launcher_production_mesh_raises():
-    """Training on the production mesh waits for ROADMAP items 6 and 21;
-    the message names the dry run that reckons it."""
+    """Training on the production mesh waits for 256 cards (ROADMAP item
+    6); the message names the dry run that reckons it."""
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError,
-                       match=r"item 6\).*item 21\).*repro_torch"
+                       match=r"256 cards.*item 6\).*repro_torch"
                              r"\.launch\.dryrun"):
         train.main(["--production-mesh", "--device", "cpu"])
