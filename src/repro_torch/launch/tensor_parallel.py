@@ -1,7 +1,8 @@
 """Compute over the mesh's model axis: Megatron tensor parallel, expert
 parallel and vocab parallel pieces (the program GSPMD makes of the JAX
-package's rules table, ``launch/sharding.py``: ``heads``, ``kv_heads``,
-``mlp``, ``experts``, ``router_experts`` and ``vocab`` -> ``"model"``).
+package's rules table, ``launch/sharding.py``: ``heads``, ``heads_flat``,
+``kv_heads``, ``mlp``, ``experts``, ``router_experts`` and ``vocab`` ->
+``"model"``), for every model family.
 
 One process drives the mesh (as in ``DataParallel``).  A data replica's
 ``m`` model pieces are a :class:`Group`: ``trees[j]``, piece ``j``'s
@@ -21,14 +22,26 @@ autograd functions:
 * :func:`reduce_out`: the sum of the pieces' partial results forward,
   the identity backward (Megatron's ``g``).
 
+A tensor on the lead stands for one every piece holds (the activations
+are replicated over ``model``), so a piece may read any part of its copy
+without an exchange.  :func:`norm_sum` is the all-reduce of a norm whose
+axis is cut over the pieces (rwkv6's ``ln_x``, Mamba2's gated norm): each
+piece's sums of squares of its block, summed onto every piece, forward
+and backward.
+
 On a simulated mesh every piece is on one card and a sum is an addition
 there.  Each sum (:func:`reduce_out` forward, :func:`copy_in` backward,
-the logsumexp's max in :func:`all_max`) is counted as one
-``"all-reduce"`` and :func:`all_gather` as one ``"all-gather"`` in the
-counter the group carries, with the bytes of the output on one device, as
-``DataParallel`` counts its own (``step_analysis.COLLECTIVES``).  Under
-``remat`` the layers' forward runs again in the backward, and its sums
-are counted again.
+:func:`norm_sum` forward and backward, the logsumexp's max in
+:func:`all_max`) is counted as one ``"all-reduce"`` and
+:func:`all_gather` as one ``"all-gather"`` in the counter the group
+carries, with the bytes of the output on one device, as ``DataParallel``
+counts its own (``step_analysis.COLLECTIVES``).  Under ``remat`` the
+layers' forward runs again in the backward, and its sums are counted
+again.  A group of one piece (:meth:`Group.one`: a model on one device)
+exchanges nothing: :func:`copy_in` is the input itself, :func:`reduce_out`
+and :func:`norm_sum` the identity, and nothing is counted; so the ssm,
+hybrid and encdec families' one-device functions are their one-piece
+case.
 
 :class:`ModelPieces` is a model split this way for serving
 (``serve.engine.generate(ModelPieces(model, shd), ...)``).
@@ -43,9 +56,7 @@ from repro_torch.launch import sharding as sh
 from repro_torch.launch.step_analysis import COLLECTIVES
 from repro_torch.models import params as pr
 
-FAMILIES = ("dense", "moe")
-OTHER_FAMILIES = ("compute over the mesh's model axis for the ssm, hybrid, "
-                  "encdec and vlm families is not ported: ROADMAP item 24")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 QUANTIZED = ("8-bit AdamW moments on a mesh whose model axis is above 1 "
              "are not ported: ROADMAP item 25")
 
@@ -71,14 +82,9 @@ def model_axis(mesh) -> int:
 
 def check(cfg, mesh, quantize_moments: bool = False) -> None:
     """Refuse what a model axis above 1 does not run yet."""
-    m = model_axis(mesh)
-    if m <= 1:
-        return
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) on a mesh "
-                                  f"whose model axis is {m}: "
-                                  f"{OTHER_FAMILIES}")
-    if quantize_moments:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    if model_axis(mesh) > 1 and quantize_moments:
         raise NotImplementedError(QUANTIZED)
 
 
@@ -93,6 +99,12 @@ class Group:
         self.devices = tuple(devices)
         self.count = count
 
+    @classmethod
+    def one(cls, tree, device) -> "Group":
+        """A model on one device as a group of one piece (nothing
+        counted)."""
+        return cls([tree], [device])
+
     def __getitem__(self, key) -> "Group":
         return Group([t[key] for t in self.trees], self.devices, self.count)
 
@@ -102,6 +114,11 @@ class Group:
     @property
     def lead(self):
         return self.trees[0]
+
+    def first(self) -> "Group":
+        """The lead piece alone: where the model axis does not cut a
+        block, the lead computes it whole."""
+        return Group(self.trees[:1], self.devices[:1], self.count)
 
     def record(self, kind: str, t: torch.Tensor) -> None:
         if self.count is not None:
@@ -142,16 +159,55 @@ class _ReduceOut(torch.autograd.Function):
         return (None, *(_on(grad, d) for d in ctx.devices))
 
 
+class _NormSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.group, ctx.devices = group, [p.device for p in parts]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device)
+        group.record("all-reduce", total)
+        return tuple(_on(total, d) for d in ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g.to(total.device)
+        ctx.group.record("all-reduce", total)
+        return (None, *(_on(total, d) for d in ctx.devices))
+
+
 def copy_in(group: Group, x: torch.Tensor) -> list:
     """``x`` (on the lead) on every piece's device; backward, the sum of
     the pieces' gradients."""
+    if len(group) == 1 and x.device == group.devices[0]:
+        return [x]
     return list(_CopyIn.apply(x, group))
 
 
 def reduce_out(group: Group, parts) -> torch.Tensor:
     """The sum of the pieces' partial results, on the lead, in piece
     order; backward, the gradient on every piece's device."""
+    if len(parts) == 1 and parts[0].device == group.devices[0]:
+        return parts[0]
     return _ReduceOut.apply(group, *parts)
+
+
+def norm_sum(group: Group, parts) -> list:
+    """The sum of ``parts[j]`` (piece ``j``'s sums of squares over its
+    block of a norm's axis) on every piece's device, summed in piece
+    order; backward, the sum of the pieces' gradients on every piece's
+    device (an all-reduce each way)."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_NormSum.apply(group, *parts))
+
+
+def piece_range(j: int, local: int, whole: int) -> tuple[int, int]:
+    """The run ``[lo, hi)`` of a dimension of ``whole`` that piece ``j``
+    holding ``local`` of it holds (all of it where it is not cut)."""
+    return (0, whole) if local == whole else (j * local, (j + 1) * local)
 
 
 def all_gather(group: Group, parts, dim: int) -> torch.Tensor:

@@ -12,7 +12,11 @@ column-parallel over ``heads``, ``wk`` and ``wv`` over ``kv_heads`` (or
 whole in every piece where the model axis does not divide them: piece
 ``j`` then attends with the kv heads its q heads map to), ``wo``
 row-parallel, and the pieces' partial outputs are reduced out.  Each
-piece holds its own decode cache of the kv heads it holds.
+piece holds its own decode cache of the kv heads it holds.  Whisper's
+cross attention (:func:`cross_attention_pieces`) is cut alike: the
+decoder's ``q`` over ``heads``, the encoder output's ``k`` / ``v`` over
+``kv_heads``, the cross cache likewise; the encoder's ``bidir`` kind runs
+in :func:`attention_pieces`.
 """
 from __future__ import annotations
 
@@ -227,15 +231,41 @@ def cross_kv(p, kv_src):
     return k, v
 
 
+def cross_kv_pieces(g, srcs, cfg) -> list:
+    """:func:`cross_kv` over a group of model pieces: ``srcs[j]`` the
+    encoder's output on piece ``j``'s device -> each piece's k/v of the kv
+    heads it holds (one pair, the lead's, where the heads are whole)."""
+    if not _heads_cut(g, cfg):
+        return [cross_kv(g.lead, srcs[0])]
+    return [cross_kv(t, src) for t, src in zip(g.trees, srcs)]
+
+
 def cross_attention_kv(p, x, k, v, *, cfg):
     """x (B, S, D) attending to every position of the encoder's k/v: a
-    zero float32 (B, S, T_enc) mask through :func:`_sdpa`."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    q = q * (cfg.head_dim ** -0.5)
-    zero = torch.zeros((x.shape[0], x.shape[1], k.shape[1]),
-                       dtype=torch.float32, device=x.device)
-    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), zero, cfg.logit_softcap)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    zero float32 (B, S, T_enc) mask through :func:`_sdpa`.  The one-piece
+    case of :func:`cross_attention_pieces`."""
+    return cross_attention_pieces(tp.Group.one(p, x.device), x, [(k, v)],
+                                  cfg=cfg)
+
+
+def cross_attention_pieces(g, x, kvs, *, cfg):
+    """:func:`cross_attention_kv` over a group of model pieces (``x`` and
+    the output on the lead): ``wq`` column-parallel over ``heads``, each
+    piece attending with its k/v ``kvs[j]`` (:func:`cross_kv_pieces`),
+    ``wo`` row-parallel, reduced out."""
+    if not _heads_cut(g, cfg):
+        g = g.first()
+    outs = []
+    for j, (p, xj, (k, v)) in enumerate(zip(g.trees, tp.copy_in(g, x),
+                                            kvs)):
+        q = torch.einsum("bsd,dhk->bshk", xj, p["wq"].to(x.dtype))
+        q = q * (cfg.head_dim ** -0.5)
+        ks, vs = _kv_of_piece(j, q, k.to(x.dtype), v.to(x.dtype), cfg)
+        zero = torch.zeros((x.shape[0], x.shape[1], k.shape[1]),
+                           dtype=torch.float32, device=xj.device)
+        out = _sdpa(q, ks, vs, zero, cfg.logit_softcap)
+        outs.append(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)))
+    return tp.reduce_out(g, outs)
 
 
 def cross_attention(p, x, kv_src, *, cfg):

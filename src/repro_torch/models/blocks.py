@@ -9,9 +9,19 @@ layers in Python, so gemma3's 5:1 local:global pattern is a per-layer
 :class:`MambaLayer` and the weight-tied :class:`SharedAttnBlock`, the
 ``encdec`` family (whisper) :class:`EncoderLayer` and
 :class:`DecoderLayer`.
+
+Over a mesh's model axis each layer runs over a
+:class:`~repro_torch.launch.tensor_parallel.Group` of its pieces (the
+``*_groups`` functions for the dense, MoE and vlm layers; the
+``*_pieces`` functions for the rwkv6, Mamba2, shared, encoder and decoder
+layers): the norms on the lead, attention, the MLPs, the time and channel
+mixes and the SSD in pieces.  The rwkv6, Mamba2, shared, encoder and
+decoder layers on one device are the one-piece case of their ``*_pieces``
+form.
 """
 from __future__ import annotations
 
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -65,6 +75,12 @@ def _attention_residual(p, x, cfg, kind_flag, positions, prefix_len,
     return x + h, kv
 
 
+def _layer_kind(cfg, kind_flag):
+    """:func:`_attn_kind`, the prefix-LM mask for the vlm family."""
+    kind, theta = _attn_kind(cfg, kind_flag)
+    return ("prefix" if cfg.family == "vlm" else kind), theta
+
+
 def dense_layer(p, x, *, cfg, kind_flag: int, positions,
                 prefix_len: int = 0, return_kv: bool = False):
     x, kv = _attention_residual(p, x, cfg, kind_flag, positions, prefix_len,
@@ -103,7 +119,7 @@ def dense_layer_groups(gs, xs, *, cfg, kind_flag: int, positions,
     an MoE FFN expert pieces over the global batch's groups.  Returns
     (the replicas' outputs, aux) and, with ``return_kv``, each replica's
     pieces' k/v."""
-    kind, theta = _attn_kind(cfg, kind_flag)
+    kind, theta = _layer_kind(cfg, kind_flag)
     outs, kvs = [], []
     for g, x, pos in zip(gs, xs, positions):
         h = A.attention_pieces(
@@ -136,7 +152,7 @@ def dense_layer_decode_groups(gs, xs, caches, *, cfg, kind_flag: int,
     over the mesh's model axis: ``caches[r][j]`` the layer's cache of
     replica ``r``'s piece ``j`` (its rows, its kv heads), written in
     place.  Returns the replicas' outputs."""
-    kind, theta = _attn_kind(cfg, kind_flag)
+    kind, theta = _layer_kind(cfg, kind_flag)
     outs = []
     for g, x, cache in zip(gs, xs, caches):
         h = A.attention_decode_pieces(
@@ -184,14 +200,26 @@ def init_rwkv_layer(generator, cfg) -> dict:
 
 def rwkv_layer(p, x, *, cfg, state=None):
     """state: (wkv, x_last_t, x_last_c) or None (zeros) -> (x, new state
-    triple)."""
-    wkv, xlt, xlc = (None, None, None) if state is None else state
-    hin = L.rmsnorm(p["ln_t"], x, cfg.norm_eps)
-    h, (wkv2, xlt2) = R6.rwkv6_time_mix(p["time_mix"], hin, cfg, state=wkv,
-                                        x_last=xlt)
+    triple).  The one-piece case of :func:`rwkv_layer_pieces`."""
+    x, (wkv, xlt, xlc) = rwkv_layer_pieces(
+        tp.Group.one(p, x.device), x, cfg=cfg,
+        states=None if state is None else [state[0]],
+        carries=None if state is None else state[1:])
+    return x, (wkv[0], xlt, xlc)
+
+
+def rwkv_layer_pieces(g, x, *, cfg, states=None, carries=None):
+    """:func:`rwkv_layer` over a group of model pieces: ``states`` the
+    pieces' wkv states (or None), ``carries`` the two token-shift carries
+    on the lead (or None) -> (x, (the pieces' new wkv states, the new
+    carries))."""
+    xlt, xlc = (None, None) if carries is None else carries
+    hin = L.rmsnorm(g.lead["ln_t"], x, cfg.norm_eps)
+    h, (wkv2, xlt2) = R6.time_mix_pieces(g["time_mix"], hin, cfg,
+                                         states=states, x_last=xlt)
     x = x + h
-    hin = L.rmsnorm(p["ln_c"], x, cfg.norm_eps)
-    h, xlc2 = R6.rwkv_channel_mix(p["channel_mix"], hin, cfg, x_last=xlc)
+    hin = L.rmsnorm(g.lead["ln_c"], x, cfg.norm_eps)
+    h, xlc2 = R6.channel_mix_pieces(g["channel_mix"], hin, cfg, x_last=xlc)
     return x + h, (wkv2, xlt2, xlc2)
 
 
@@ -222,34 +250,65 @@ def init_shared_attn_block(generator, cfg) -> dict:
 
 
 def mamba_layer(p, x, *, cfg, state=None, conv_state=None):
-    hin = L.rmsnorm(p["ln"], x, cfg.norm_eps)
-    h, new_state, new_conv = M2.mamba2_block(p["mamba"], hin, cfg,
-                                             state=state,
-                                             conv_state=conv_state)
-    return x + h, new_state, new_conv
+    """The one-piece case of :func:`mamba_layer_pieces`."""
+    x, states, convs = mamba_layer_pieces(
+        tp.Group.one(p, x.device), x, cfg=cfg,
+        states=None if state is None else [state],
+        conv_states=None if conv_state is None else [conv_state])
+    return x, states[0], convs[0]
+
+
+def mamba_layer_pieces(g, x, *, cfg, states=None, conv_states=None):
+    """:func:`mamba_layer` over a group of model pieces -> (x, the
+    pieces' new SSD states, their new conv tails)."""
+    hin = L.rmsnorm(g.lead["ln"], x, cfg.norm_eps)
+    h, states, convs = M2.mamba2_pieces(g["mamba"], hin, cfg, states,
+                                        conv_states)
+    return x + h, states, convs
 
 
 def shared_attn_block(p, x, *, cfg, positions, return_kv: bool = False):
-    h = A.attention(p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
-                    cfg=cfg, kind="full", positions=positions,
-                    return_kv=return_kv)
-    kv = None
+    """The one-piece case of :func:`shared_attn_block_pieces`."""
+    out = shared_attn_block_pieces(tp.Group.one(p, x.device), x, cfg=cfg,
+                                   positions=positions, return_kv=return_kv)
+    return (out[0], out[1][0]) if return_kv else out
+
+
+def shared_attn_block_pieces(g, x, *, cfg, positions,
+                             return_kv: bool = False):
+    """zamba2's shared attention + MLP block over a group of model pieces
+    (Megatron attention and MLP); with ``return_kv`` also the pieces'
+    k/v."""
+    h = A.attention_pieces(g["attn"], L.rmsnorm(g.lead["ln_attn"], x,
+                                                cfg.norm_eps),
+                           cfg=cfg, kind="full", positions=positions,
+                           return_kv=return_kv)
     if return_kv:
-        h, kv = h
+        h, kvs = h
     x = x + h
-    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
-    if return_kv:
-        return x + h, kv
-    return x + h
+    h = MLP.mlp_pieces(g["mlp"], L.rmsnorm(g.lead["ln_mlp"], x,
+                                           cfg.norm_eps), cfg)
+    return (x + h, kvs) if return_kv else x + h
 
 
 def shared_attn_block_decode(p, x, cache, *, cfg, cur_pos: int):
-    h, cache = A.attention_decode(
-        p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps), cache,
+    """The one-piece case of :func:`shared_attn_block_decode_pieces`."""
+    return shared_attn_block_decode_pieces(
+        tp.Group.one(p, x.device), x, [cache], cfg=cfg,
+        cur_pos=cur_pos), cache
+
+
+def shared_attn_block_decode_pieces(g, x, caches, *, cfg, cur_pos: int):
+    """One token through the shared block over a group of model pieces:
+    ``caches[j]`` piece ``j``'s k/v history of this application, written
+    in place."""
+    h = A.attention_decode_pieces(
+        g["attn"], L.rmsnorm(g.lead["ln_attn"], x, cfg.norm_eps), caches,
         cfg=cfg, kind="full", cur_pos=cur_pos)
     x = x + h
-    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
-    return x + h, cache
+    h = MLP.mlp_pieces(g["mlp"], L.rmsnorm(g.lead["ln_mlp"], x,
+                                           cfg.norm_eps), cfg)
+    return x + h
 
 
 class MambaLayer(pr.Tree):
@@ -283,11 +342,19 @@ def init_encoder_layer(generator, cfg) -> dict:
 
 def encoder_layer(p, x, *, cfg, positions):
     """Bidirectional self-attention (RoPE over the frame positions) and the
-    MLP."""
-    h = A.attention(p["attn"], L.rmsnorm(p["ln_attn"], x, cfg.norm_eps),
-                    cfg=cfg, kind="bidir", positions=positions)
+    MLP.  The one-piece case of :func:`encoder_layer_pieces`."""
+    return encoder_layer_pieces(tp.Group.one(p, x.device), x, cfg=cfg,
+                                positions=positions)
+
+
+def encoder_layer_pieces(g, x, *, cfg, positions):
+    """:func:`encoder_layer` over a group of model pieces."""
+    h = A.attention_pieces(g["attn"], L.rmsnorm(g.lead["ln_attn"], x,
+                                                cfg.norm_eps),
+                           cfg=cfg, kind="bidir", positions=positions)
     x = x + h
-    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
+    h = MLP.mlp_pieces(g["mlp"], L.rmsnorm(g.lead["ln_mlp"], x,
+                                           cfg.norm_eps), cfg)
     return x + h
 
 
@@ -304,35 +371,61 @@ def init_decoder_layer(generator, cfg) -> dict:
 
 def decoder_layer(p, x, enc_out, *, cfg, positions, return_kv: bool = False):
     """Causal self-attention, cross attention on ``enc_out``, the MLP.
-    ``return_kv``: also (self k, self v, cross k, cross v)."""
-    h = A.attention(p["self_attn"], L.rmsnorm(p["ln_self"], x, cfg.norm_eps),
-                    cfg=cfg, kind="causal", positions=positions,
-                    return_kv=return_kv)
-    kv = None
+    ``return_kv``: also (self k, self v, cross k, cross v).  The one-piece
+    case of :func:`decoder_layer_pieces`."""
+    out = decoder_layer_pieces(tp.Group.one(p, x.device), x, [enc_out],
+                               cfg=cfg, positions=positions,
+                               return_kv=return_kv)
     if return_kv:
-        h, kv = h
+        x, (kvs, cross) = out
+        return x, (*kvs[0], *cross[0])
+    return out
+
+
+def decoder_layer_pieces(g, x, encs, *, cfg, positions,
+                         return_kv: bool = False):
+    """:func:`decoder_layer` over a group of model pieces: ``encs[j]``
+    the encoder's output on piece ``j``'s device (one copy for every
+    layer).  ``return_kv``: also (the pieces' self k/v, their cross
+    k/v)."""
+    h = A.attention_pieces(g["self_attn"], L.rmsnorm(g.lead["ln_self"], x,
+                                                     cfg.norm_eps),
+                           cfg=cfg, kind="causal", positions=positions,
+                           return_kv=return_kv)
+    if return_kv:
+        h, kvs = h
     x = x + h
-    xin = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-    ck, cv = A.cross_kv(p["cross_attn"], enc_out.to(x.dtype))
-    x = x + A.cross_attention_kv(p["cross_attn"], xin, ck, cv, cfg=cfg)
-    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
-    if return_kv:
-        return x + h, (kv[0], kv[1], ck, cv)
-    return x + h
+    xin = L.rmsnorm(g.lead["ln_cross"], x, cfg.norm_eps)
+    cross = A.cross_kv_pieces(g["cross_attn"],
+                              [e.to(x.dtype) for e in encs], cfg)
+    x = x + A.cross_attention_pieces(g["cross_attn"], xin, cross, cfg=cfg)
+    h = MLP.mlp_pieces(g["mlp"], L.rmsnorm(g.lead["ln_mlp"], x,
+                                           cfg.norm_eps), cfg)
+    return (x + h, (kvs, cross)) if return_kv else x + h
 
 
 def decoder_layer_decode(p, x, cache, enc_kv, *, cfg, cur_pos: int):
     """One token: self-attention over ``cache`` (written in place), cross
-    attention against the encoder's cached ``enc_kv`` k/v."""
-    h, cache = A.attention_decode(
-        p["self_attn"], L.rmsnorm(p["ln_self"], x, cfg.norm_eps), cache,
-        cfg=cfg, kind="causal", cur_pos=cur_pos)
+    attention against the encoder's cached ``enc_kv`` k/v.  The one-piece
+    case of :func:`decoder_layer_decode_pieces`."""
+    return decoder_layer_decode_pieces(
+        tp.Group.one(p, x.device), x, [cache], [(enc_kv["k"], enc_kv["v"])],
+        cfg=cfg, cur_pos=cur_pos), cache
+
+
+def decoder_layer_decode_pieces(g, x, caches, cross, *, cfg, cur_pos: int):
+    """One token through a decoder layer over a group of model pieces:
+    ``caches[j]`` piece ``j``'s self-attention cache (written in place),
+    ``cross[j]`` its cached cross k/v."""
+    h = A.attention_decode_pieces(
+        g["self_attn"], L.rmsnorm(g.lead["ln_self"], x, cfg.norm_eps),
+        caches, cfg=cfg, kind="causal", cur_pos=cur_pos)
     x = x + h
-    xin = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-    x = x + A.cross_attention_kv(p["cross_attn"], xin, enc_kv["k"],
-                                 enc_kv["v"], cfg=cfg)
-    h = MLP.mlp(p["mlp"], L.rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg)
-    return x + h, cache
+    xin = L.rmsnorm(g.lead["ln_cross"], x, cfg.norm_eps)
+    x = x + A.cross_attention_pieces(g["cross_attn"], xin, cross, cfg=cfg)
+    h = MLP.mlp_pieces(g["mlp"], L.rmsnorm(g.lead["ln_mlp"], x,
+                                           cfg.norm_eps), cfg)
+    return x + h
 
 
 class EncoderLayer(pr.Tree):

@@ -34,6 +34,24 @@ def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * (1.0 + p["scale"].float())).to(dt)
 
 
+def rmsnorm_pieces(g, scales, xs, eps: float, width: int) -> list:
+    """:func:`rmsnorm` over an axis of ``width`` cut into the pieces'
+    blocks: ``xs[j]`` piece ``j``'s block on its device, ``scales[j]`` the
+    whole scale (a ``"norm"`` leaf) on that device.  The mean square is
+    each piece's sum of squares summed over the pieces
+    (:func:`~repro_torch.launch.tensor_parallel.norm_sum`); one piece is
+    :func:`rmsnorm` itself."""
+    if len(xs) == 1:
+        return [rmsnorm({"scale": scales[0]}, xs[0], eps)]
+    xfs = [x.float() for x in xs]
+    totals = tp.norm_sum(g, [torch.sum(xf * xf, dim=-1, keepdim=True)
+                             for xf in xfs])
+    blocks = [s[slice(*tp.piece_range(j, x.shape[-1], width))]
+              for j, (x, s) in enumerate(zip(xs, scales))]
+    return [(xf * torch.rsqrt(t / width + eps) * (1.0 + s.float())).to(
+        x.dtype) for x, xf, t, s in zip(xs, xfs, totals, blocks)]
+
+
 def layernorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()

@@ -25,17 +25,21 @@ positions.  The encdec family runs the bidirectional encoder over
 ``enc_frames`` (B, T_enc, D) once; each decoder layer attends causally to
 the tokens and, through ``cross_attention``, to the encoder's output.
 
-Over a mesh's model axis (``launch/tensor_parallel.py``) the dense and
-MoE families run each data replica's :class:`~repro_torch.launch.
-tensor_parallel.Group` of model pieces (:func:`forward_replicas` of
-groups, and :class:`~repro_torch.launch.tensor_parallel.ModelPieces` in
+Over a mesh's model axis (``launch/tensor_parallel.py``) every family
+runs each data replica's :class:`~repro_torch.launch.tensor_parallel.
+Group` of model pieces (:func:`forward_replicas` of groups, and
+:class:`~repro_torch.launch.tensor_parallel.ModelPieces` in
 :func:`decode_step`): the embedding lookup and the logits are vocab
 parallel, each piece holding ``(B, S, V / m)`` of them; the loss takes the
 logsumexp as a max and then a sum over the pieces, and the label's logit
 from the piece that holds it, so no ``(B, S, V)`` tensor is built; decode
 gathers only the last position's ``(B, 1, V)`` logits.  The decode cache
-is cut as ``CACHE_AXES`` places it (``k``/``v`` by ``kv_heads``, rows by
-``batch``), one cache a device.
+is cut as ``CACHE_AXES`` places it (``k``/``v`` and the cross and shared
+caches by ``kv_heads``, ``wkv`` and ``ssm`` by ``heads``, ``conv`` by
+``mlp``, rows by ``batch``), one cache a device.  The ssm, hybrid and
+encdec families' one-device forward, decode step and prefill are the
+one-piece case of their group forms (:func:`_forward_group`,
+:func:`_decode_group`, ``serve.engine._prefill_group``).
 
 The recurrent families carry states, not a growing KV cache: rwkv6 the
 ``wkv`` (L, B, H, K, K) float32 state and two token-shift carries; zamba2
@@ -99,6 +103,10 @@ _LAYERS = {"dense": (B.init_dense_layer, B.DenseLayer),
            "ssm": (B.init_rwkv_layer, B.RwkvLayer),
            "hybrid": (B.init_mamba_layer, B.MambaLayer),
            "encdec": (B.init_decoder_layer, B.DecoderLayer)}
+
+
+# the families whose one-device functions are their one-piece group case
+GROUP_FAMILIES = ("ssm", "hybrid", "encdec")
 
 
 def check_family(cfg) -> None:
@@ -260,17 +268,25 @@ def positions_for(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
-def _rwkv_body(layer, x, cfg):
-    return layer(x, cfg=cfg)[0]
+def _rwkv_body(g, x, cfg):
+    return B.rwkv_layer_pieces(g, x, cfg=cfg)[0]
 
 
-def _hybrid_body(layer, shared, x, cfg, positions):
+def _hybrid_body(g, shared, x, cfg, positions):
     """One Mamba2 layer and, after every ``shared_attn_every``-th layer,
-    the shared block (``shared`` None elsewhere)."""
-    x, _, _ = layer(x, cfg=cfg)
+    the shared block (``shared`` None elsewhere), over groups of
+    pieces."""
+    x, _, _ = B.mamba_layer_pieces(g, x, cfg=cfg)
     if shared is not None:
-        x = shared(x, cfg=cfg, positions=positions)
+        x = B.shared_attn_block_pieces(shared, x, cfg=cfg,
+                                       positions=positions)
     return x
+
+
+def _group_remat(fn, cfg, g):
+    """:func:`_remat_whole` over several pieces (their sums re-run, and
+    are counted, in the backward), :func:`_remat` over one."""
+    return _remat_whole(fn, cfg) if len(g) > 1 else _remat(fn, cfg)
 
 
 def shared_after(cfg, i: int) -> bool:
@@ -288,10 +304,12 @@ def prefix_slots(cfg) -> int:
 
 def embed_inputs(p, cfg, batch):
     """The first layer's input and its positions: the token embeddings
-    and, for vlm, ``prefix_embeds`` (cast, not scaled) in front of them ->
-    (x (B, P + S, D), positions, prefix_len P)."""
+    (over the pieces where ``p`` is a group) and, for vlm,
+    ``prefix_embeds`` (cast, not scaled) in front of them -> (x (B, P + S,
+    D), positions, prefix_len P)."""
     tokens = batch["tokens"]
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_pieces(p, cfg, tokens) if isinstance(p, tp.Group) else \
+        _embed_tokens(p, cfg, tokens)
     prefix_len = 0
     if cfg.family == "vlm":
         prefix = batch["prefix_embeds"].to(cfg.compute_dtype)
@@ -302,12 +320,15 @@ def embed_inputs(p, cfg, batch):
 
 def encode(p, cfg, enc_frames):
     """The encdec encoder over ``enc_frames`` (B, T_enc, D): every layer
-    (each under ``cfg.remat``) and ``enc_norm``."""
+    (each under ``cfg.remat``) and ``enc_norm``; over the pieces where
+    ``p`` is a group (the output on the lead)."""
+    g = p if isinstance(p, tp.Group) else tp.Group.one(p, enc_frames.device)
     e = enc_frames.to(cfg.compute_dtype)
     positions = positions_for(e.shape[0], e.shape[1], e.device)
-    for layer in p["enc_layers"]:
-        e = _remat(layer, cfg)(e, cfg=cfg, positions=positions)
-    return L.rmsnorm(p["enc_norm"], e, cfg.norm_eps)
+    for i in range(cfg.enc_layers):
+        e = _group_remat(B.encoder_layer_pieces, cfg, g)(
+            g["enc_layers"][i], e, cfg=cfg, positions=positions)
+    return L.rmsnorm(g.lead["enc_norm"], e, cfg.norm_eps)
 
 
 def forward(p, cfg, batch):
@@ -315,7 +336,8 @@ def forward(p, cfg, batch):
 
     batch: tokens (B,S) int32 [+ prefix_embeds (B,P,D) for vlm,
     enc_frames (B,T_enc,D) for encdec].  The MoE family is
-    :func:`forward_replicas` of one replica."""
+    :func:`forward_replicas` of one replica, the ssm, hybrid and encdec
+    families :func:`_forward_group` of one piece."""
     check_family(cfg)
     if isinstance(p, tp.ModelPieces):
         rows = p.rows(batch["tokens"].shape[0])
@@ -328,27 +350,19 @@ def forward(p, cfg, batch):
     if cfg.family == "moe":
         logits, aux = forward_replicas([p], cfg, [batch])
         return logits[0], aux
+    if cfg.family in GROUP_FAMILIES:
+        blocks, aux = _forward_group(tp.Group.one(p, p["embed"].device),
+                                     cfg, batch)
+        return blocks[0][1], aux
     x, positions, prefix_len = embed_inputs(p, cfg, batch)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
-    if cfg.family == "ssm":
-        for layer in p["layers"]:
-            x = _remat(_rwkv_body, cfg)(layer, x, cfg)
-    elif cfg.family == "hybrid":
-        for i, layer in enumerate(p["layers"]):
-            shared = p["shared"] if shared_after(cfg, i) else None
-            x = _remat(_hybrid_body, cfg)(layer, shared, x, cfg, positions)
-    elif cfg.family == "encdec":
-        enc_out = encode(p, cfg, batch["enc_frames"])
-        for layer in p["layers"]:
-            x = _remat(layer, cfg)(x, enc_out, cfg=cfg, positions=positions)
-    else:
-        for layer, kind in zip(p["layers"], layer_kinds(cfg)):
-            x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
-                                          positions=positions,
-                                          prefix_len=prefix_len)
-            for k, v in aux_i.items():
-                aux[k] = aux[k] + v
+    for layer, kind in zip(p["layers"], layer_kinds(cfg)):
+        x, aux_i = _remat(layer, cfg)(x, cfg=cfg, kind_flag=int(kind),
+                                      positions=positions,
+                                      prefix_len=prefix_len)
+        for k, v in aux_i.items():
+            aux[k] = aux[k] + v
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, cfg, x[:, prefix_len:]), aux
 
@@ -363,8 +377,8 @@ def forward_replicas(ps, cfg, batches):
     (:func:`~repro_torch.models.blocks.dense_layer_replicas`, each layer
     of all replicas under one ``cfg.remat`` checkpoint), the others each
     replica's whole :func:`forward` in turn.  The MoE family's one layer
-    loop, for one replica as for many.  Groups of model pieces (the dense
-    and MoE families) run :func:`_forward_groups`."""
+    loop, for one replica as for many.  Groups of model pieces run
+    :func:`_forward_groups`."""
     if isinstance(ps[0], tp.Group):
         return _forward_groups(ps, cfg, batches)
     if cfg.family != "moe":
@@ -423,24 +437,57 @@ def _forward_groups(gs, cfg, batches):
     """:func:`forward_replicas` of data replicas cut over the model axis:
     ``gs[r]`` replica ``r``'s group of model pieces (whole LMs), its rows
     ``batches[r]`` on the group's lead.  -> (each replica's logits as
-    :func:`_logits_pieces` blocks, aux on the first lead)."""
+    :func:`_logits_pieces` blocks, aux on the first lead).  The dense,
+    MoE and vlm families run the replicas layer by layer, the others each
+    replica's :func:`_forward_group` in turn."""
+    if cfg.family in GROUP_FAMILIES:
+        outs = [_forward_group(g, cfg, b) for g, b in zip(gs, batches)]
+        return [o[0] for o in outs], outs[0][1]
     xs, positions = [], []
     for g, b in zip(gs, batches):
-        x = _embed_pieces(g, cfg, b["tokens"])
+        x, pos, prefix_len = embed_inputs(g, cfg, b)
         xs.append(x)
-        positions.append(positions_for(x.shape[0], x.shape[1], x.device))
+        positions.append(pos)
     aux = {k: torch.zeros((), dtype=torch.float32, device=xs[0].device)
            for k in ("moe_aux_loss", "moe_dropped_frac")}
     for i, kind in enumerate(layer_kinds(cfg)):
         xs, aux_i = _remat_whole(B.dense_layer_groups, cfg)(
             [g["layers"][i] for g in gs], xs, cfg=cfg, kind_flag=int(kind),
-            positions=positions)
+            positions=positions, prefix_len=prefix_len)
         for k, v in aux_i.items():
             aux[k] = aux[k] + v
     logits = [_logits_pieces(g, cfg, L.rmsnorm(g.lead["final_norm"], x,
-                                               cfg.norm_eps))
+                                               cfg.norm_eps)[:, prefix_len:])
               for g, x in zip(gs, xs)]
     return logits, aux
+
+
+def _forward_group(g, cfg, batch):
+    """The ssm, hybrid or encdec forward of one data replica's group of
+    model pieces (``batch`` on its lead) -> (its logits as
+    :func:`_logits_pieces` blocks, aux).  rwkv6 runs its layers over the
+    pieces, zamba2 its Mamba2 layers and after every
+    ``shared_attn_every``-th the shared block, whisper the encoder over
+    the pieces and then the decoder layers, the encoder's output copied
+    onto the pieces once."""
+    x, positions, _ = embed_inputs(g, cfg, batch)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in ("moe_aux_loss", "moe_dropped_frac")}
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = _group_remat(_rwkv_body, cfg, g)(g["layers"][i], x, cfg)
+    elif cfg.family == "hybrid":
+        for i in range(cfg.num_layers):
+            shared = g["shared"] if shared_after(cfg, i) else None
+            x = _group_remat(_hybrid_body, cfg, g)(g["layers"][i], shared,
+                                                   x, cfg, positions)
+    else:
+        encs = tp.copy_in(g, encode(g, cfg, batch["enc_frames"]))
+        for i in range(cfg.num_layers):
+            x = _group_remat(B.decoder_layer_pieces, cfg, g)(
+                g["layers"][i], x, encs, cfg=cfg, positions=positions)
+    x = L.rmsnorm(g.lead["final_norm"], x, cfg.norm_eps)
+    return _logits_pieces(g, cfg, x), aux
 
 
 def _token_sums_pieces(g, blocks, batch):
@@ -634,30 +681,21 @@ CACHE_AXES = {
 def init_cache_pieces(mp, batch_size: int, max_len: int,
                       dtype=None) -> dict:
     """Zeroed decode cache of :class:`~repro_torch.launch.tensor_parallel.
-    ModelPieces`: each leaf a :class:`~repro_torch.launch.sharding.
-    Sharded` placed by ``CACHE_AXES`` under the pieces' rules, device
-    ``n`` holding its replica's rows and its piece's kv heads."""
-    cfg, mesh = mp.cfg, mp.shd.mesh
-    rows = mp.rows(batch_size)
-    per_device = []
-    for n, dev in enumerate(mesh.devices):
-        i, j = divmod(n, mp.model)
-        kh = mp.groups[i].trees[j]["layers"][0]["attn"]["wk"].shape[1]
-        per_device.append(init_cache(
-            cfg.replace(num_kv_heads=kh), rows[i].stop - rows[i].start,
-            max_len, dtype, device=dev))
+    ModelPieces`: each leaf of :func:`init_cache` a :class:`~repro_torch.
+    launch.sharding.Sharded` placed by ``CACHE_AXES`` under the pieces'
+    rules, device ``n`` holding its replica's rows and its piece's block
+    (kv heads, heads or conv channels; whole where the model axis does
+    not divide them)."""
+    whole = init_cache(mp.cfg, batch_size, max_len, dtype, device="meta")
+    devices = mp.shd.mesh.devices
     out = {}
-    for key, first in per_device[0].items():
-        shape = (first.shape[0], batch_size, first.shape[2],
-                 cfg.num_kv_heads, first.shape[4])
+    for key, t in whole.items():
+        shape = tuple(t.shape)
         pl = mp.shd.named(CACHE_AXES[key], shape)
-        pieces = [c[key] for c in per_device]
-        for n, piece in enumerate(pieces):
-            block = tuple(b.stop - b.start for b in pl.block(n, shape))
-            if block != tuple(piece.shape):
-                raise ValueError(f"cache {key}: piece {n} of "
-                                 f"{tuple(piece.shape)}, placed {block}")
-        out[key] = sh.Sharded(pl, pieces, shape)
+        out[key] = sh.Sharded(pl, [
+            torch.zeros(tuple(b.stop - b.start for b in pl.block(n, shape)),
+                        dtype=t.dtype, device=dev)
+            for n, dev in enumerate(devices)], shape)
     return out
 
 
@@ -677,9 +715,9 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0,
     :func:`~repro_torch.models.layers.embed_lookup_psum` over the table
     split by ``shd``'s rules; every other leaf stays whole on the
     parameters' device.  ``p`` a :class:`~repro_torch.launch.
-    tensor_parallel.ModelPieces` (the dense and MoE families) runs over
-    its model pieces, ``cache`` then :func:`init_cache_pieces`'s, and the
-    logits are gathered on the first lead.  ``shd`` follows
+    tensor_parallel.ModelPieces` runs over its model pieces, ``cache``
+    then :func:`init_cache_pieces`'s, and the logits are gathered on the
+    first lead.  ``shd`` follows
     ``prefix_len`` here, where the reference has it before (positional
     callers pass ``prefix_len``)."""
     check_family(cfg)
@@ -688,37 +726,59 @@ def decode_step(p, cfg, cache, tokens, cur_pos: int, prefix_len: int = 0,
         return _decode_pieces(p, cfg, cache, tokens, cur_pos,
                               prefix_len), cache
     x = _embed_tokens(p, cfg, tokens, shd=shd, decode=True)
-    if cfg.family == "ssm":
-        for i, layer in enumerate(p["layers"]):
-            state = (cache["wkv"][i], cache["xlt"][i], cache["xlc"][i])
-            x, new = layer(x, cfg=cfg, state=state)
-            for old, t in zip(state, new):
-                old.copy_(t)
-    elif cfg.family == "hybrid":
-        # every layer, the trailing num_layers % shared_attn_every too; the
-        # shared block after each whole segment, with that application's
-        # own KV history
-        for i, layer in enumerate(p["layers"]):
-            x, ssm, conv = layer(x, cfg=cfg, state=cache["ssm"][i],
-                                 conv_state=cache["conv"][i])
-            cache["ssm"][i].copy_(ssm)
-            cache["conv"][i].copy_(conv)
-            if shared_after(cfg, i):
-                si = i // cfg.shared_attn_every
-                x, _ = p["shared"].decode(
-                    x, {"k": cache["shared_k"][si],
-                        "v": cache["shared_v"][si]}, cfg=cfg,
-                    cur_pos=cur_pos)
-    elif cfg.family == "encdec":
-        for i, layer in enumerate(p["layers"]):
-            x, _ = layer.decode(
-                x, {"k": cache["k"][i], "v": cache["v"][i]},
-                {"k": cache["cross_k"][i], "v": cache["cross_v"][i]},
-                cfg=cfg, cur_pos=cur_pos)
+    if cfg.family in GROUP_FAMILIES:
+        x = _decode_group(tp.Group.one(p, x.device), cfg, [cache], x,
+                          cur_pos)
     else:
         x = _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, cfg, x), cache
+
+
+def _decode_group(g, cfg, caches, x, cur_pos):
+    """One token of the ssm, hybrid or encdec family through a group of
+    model pieces: ``caches[j]`` piece ``j``'s cache (whole layer stacks of
+    its blocks), written in place; ``x`` on the lead -> the last hidden
+    state there.  rwkv6's token-shift carries are read from the lead's
+    copy and written into every piece's.  A hybrid model runs every
+    layer, the trailing ``num_layers % shared_attn_every`` too, and the
+    shared block after each whole segment with that application's own KV
+    history."""
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            wkv = [c["wkv"][i] for c in caches]
+            x, (new, xlt, xlc) = B.rwkv_layer_pieces(
+                g["layers"][i], x, cfg=cfg, states=wkv,
+                carries=(caches[0]["xlt"][i], caches[0]["xlc"][i]))
+            for old, t in zip(wkv, new):
+                old.copy_(t)
+            for c in caches:
+                c["xlt"][i].copy_(xlt)
+                c["xlc"][i].copy_(xlc)
+    elif cfg.family == "hybrid":
+        for i in range(cfg.num_layers):
+            ssm = [c["ssm"][i] for c in caches]
+            conv = [c["conv"][i] for c in caches]
+            x, new_ssm, new_conv = B.mamba_layer_pieces(
+                g["layers"][i], x, cfg=cfg, states=ssm, conv_states=conv)
+            for olds, news in ((ssm, new_ssm), (conv, new_conv)):
+                for old, t in zip(olds, news):
+                    old.copy_(t)
+            if shared_after(cfg, i):
+                si = i // cfg.shared_attn_every
+                x = B.shared_attn_block_decode_pieces(
+                    g["shared"], x, [{"k": c["shared_k"][si],
+                                      "v": c["shared_v"][si]}
+                                     for c in caches],
+                    cfg=cfg, cur_pos=cur_pos)
+    else:
+        for i in range(cfg.num_layers):
+            x = B.decoder_layer_decode_pieces(
+                g["layers"][i], x,
+                [{"k": c["k"][i], "v": c["v"][i]} for c in caches],
+                [(c["cross_k"][i], c["cross_v"][i]) for c in caches],
+                cfg=cfg, cur_pos=cur_pos)
+    return x
 
 
 def _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len):
@@ -735,11 +795,23 @@ def _decode_attention_layers(p, cfg, cache, x, cur_pos, prefix_len):
     return x
 
 
+def piece_caches(mp, cache, i: int) -> list:
+    """Data replica ``i``'s pieces' caches of :func:`init_cache_pieces`:
+    one dict of tensors a piece."""
+    m = mp.model
+    return [{k: v.pieces[i * m + j] for k, v in cache.items()}
+            for j in range(m)]
+
+
 def _decode_pieces(mp, cfg, cache, tokens, cur_pos, prefix_len):
     m = mp.model
     rows = mp.rows(tokens.shape[0])
     xs = [_embed_pieces(g, cfg, tokens[r].to(g.devices[0]))
           for g, r in zip(mp.groups, rows)]
+    if cfg.family in GROUP_FAMILIES:
+        xs = [_decode_group(g, cfg, piece_caches(mp, cache, i), x, cur_pos)
+              for i, (g, x) in enumerate(zip(mp.groups, xs))]
+        return pieces_logits(mp, cfg, xs, tokens.shape[0])
     for kind, l0, l1, k0 in layer_runs(layer_kinds(cfg)):
         keys = ("k_local", "v_local") if kind == 1 else ("k", "v")
         for jl in range(l1 - l0):

@@ -18,12 +18,16 @@ its rules (:func:`~repro_torch.models.layers.embed_lookup_psum`); the
 prefill keeps the gather, as in the reference.
 
 A model split over a mesh's model axis, :class:`~repro_torch.launch.
-tensor_parallel.ModelPieces` (the dense and MoE families), serves over its
-pieces: ``generate(ModelPieces(model, shd), cfg, ...)``.  Each data
-replica runs its rows of the batch (all of them where ``data`` does not
-divide it) through its group of pieces, each piece filling its own cache
-(:func:`~repro_torch.models.lm.init_cache_pieces`); the last position's
-logits are gathered over the vocab pieces to sample.
+tensor_parallel.ModelPieces` (every family), serves over its pieces:
+``generate(ModelPieces(model, shd), cfg, ...)``.  Each data replica runs
+its rows of the batch (all of them where ``data`` does not divide it;
+whisper's encoder frames and paligemma's patch prefix with them) through
+its group of pieces, each piece filling its own cache
+(:func:`~repro_torch.models.lm.init_cache_pieces`: its kv heads of the
+self, cross and shared caches, its heads of the wkv and SSD states, its
+channels of the conv tail); the last position's logits are gathered over
+the vocab pieces to sample.  The ssm, hybrid and encdec families'
+one-device prefill is the one-piece case of the same group prefill.
 """
 from __future__ import annotations
 
@@ -43,39 +47,63 @@ def prefill(p, cfg, batch, max_len: int, shd=None):
     ``shd`` is not read)."""
     if isinstance(p, tp.ModelPieces):
         return _prefill_pieces(p, cfg, batch, max_len)
+    if cfg.family in lm.GROUP_FAMILIES:
+        dev = p["embed"].device
+        cache = lm.init_cache(cfg, batch["tokens"].shape[0], max_len,
+                              device=dev)
+        x = _prefill_group(tp.Group.one(p, dev), cfg, batch, [cache])
+        x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+        return cache, lm._logits(p, cfg, x[:, -1:, :])
     x, positions, prefix_len = lm.embed_inputs(p, cfg, batch)
     b, s = positions.shape
     cache = lm.init_cache(cfg, b, max_len, device=x.device)
-    if cfg.family == "ssm":
-        for i, layer in enumerate(p["layers"]):
-            x, states = layer(x, cfg=cfg)
-            for key, t in zip(("wkv", "xlt", "xlc"), states):
-                cache[key][i] = t
-    elif cfg.family == "hybrid":
-        for i, layer in enumerate(p["layers"]):
-            x, ssm, conv = layer(x, cfg=cfg)
-            cache["ssm"][i] = ssm
-            cache["conv"][i] = conv
-            if lm.shared_after(cfg, i):
-                si = i // cfg.shared_attn_every
-                x, (k, v) = p["shared"](x, cfg=cfg, positions=positions,
-                                        return_kv=True)
-                cache["shared_k"][si, :, :s] = k
-                cache["shared_v"][si, :, :s] = v
-    elif cfg.family == "encdec":
-        enc_out = lm.encode(p, cfg, batch["enc_frames"])
-        for i, layer in enumerate(p["layers"]):
-            x, (k, v, ck, cv) = layer(x, enc_out, cfg=cfg,
-                                      positions=positions, return_kv=True)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["cross_k"][i] = ck
-            cache["cross_v"][i] = cv
-    else:
-        x = _prefill_attention_layers(p, cfg, cache, x, positions,
-                                      prefix_len)
+    x = _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len)
     x = L.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return cache, lm._logits(p, cfg, x[:, -1:, :])
+
+
+def _prefill_group(g, cfg, batch, caches):
+    """The ssm, hybrid or encdec prompt through a group of model pieces
+    (``batch`` on its lead), each piece filling its cache ``caches[j]`` ->
+    the last hidden states on the lead."""
+    x, positions, _ = lm.embed_inputs(g, cfg, batch)
+    s = x.shape[1]
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x, (wkv, xlt, xlc) = B.rwkv_layer_pieces(g["layers"][i], x,
+                                                     cfg=cfg)
+            for c, t in zip(caches, wkv):
+                c["wkv"][i] = t
+            for c in caches:
+                c["xlt"][i] = xlt
+                c["xlc"][i] = xlc
+    elif cfg.family == "hybrid":
+        for i in range(cfg.num_layers):
+            x, ssm, conv = B.mamba_layer_pieces(g["layers"][i], x, cfg=cfg)
+            for key, news in (("ssm", ssm), ("conv", conv)):
+                for c, t in zip(caches, news):
+                    c[key][i] = t
+            if lm.shared_after(cfg, i):
+                si = i // cfg.shared_attn_every
+                x, kvs = B.shared_attn_block_pieces(
+                    g["shared"], x, cfg=cfg, positions=positions,
+                    return_kv=True)
+                for c, (k, v) in zip(caches, kvs):
+                    c["shared_k"][si, :, :s] = k
+                    c["shared_v"][si, :, :s] = v
+    else:
+        encs = tp.copy_in(g, lm.encode(g, cfg, batch["enc_frames"]))
+        for i in range(cfg.num_layers):
+            x, (kvs, cross) = B.decoder_layer_pieces(
+                g["layers"][i], x, encs, cfg=cfg, positions=positions,
+                return_kv=True)
+            for c, (k, v) in zip(caches, kvs):
+                c["k"][i, :, :s] = k
+                c["v"][i, :, :s] = v
+            for c, (k, v) in zip(caches, cross):
+                c["cross_k"][i] = k
+                c["cross_v"][i] = v
+    return x
 
 
 def _ring(s: int, w: int, dev):
@@ -110,22 +138,30 @@ def _prefill_attention_layers(p, cfg, cache, x, positions, prefix_len):
 
 
 def _prefill_pieces(mp, cfg, batch, max_len):
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    b = batch["tokens"].shape[0]
     m = mp.model
     cache = lm.init_cache_pieces(mp, b, max_len)
+    batches = [{k: v[r].to(g.devices[0]) for k, v in batch.items()}
+               for g, r in zip(mp.groups, mp.rows(b))]
+    if cfg.family in lm.GROUP_FAMILIES:
+        xs = [_prefill_group(g, cfg, rb, lm.piece_caches(mp, cache, i))
+              for i, (g, rb) in enumerate(zip(mp.groups, batches))]
+        return cache, lm.pieces_logits(mp, cfg, [x[:, -1:, :] for x in xs],
+                                       b)
     xs, positions = [], []
-    for g, r in zip(mp.groups, mp.rows(b)):
-        x = lm._embed_pieces(g, cfg, tokens[r].to(g.devices[0]))
+    for g, rb in zip(mp.groups, batches):
+        x, pos, prefix_len = lm.embed_inputs(g, cfg, rb)
         xs.append(x)
-        positions.append(lm.positions_for(x.shape[0], s, x.device))
+        positions.append(pos)
+    s = xs[0].shape[1]
     rings = {}
     seen = {0: 0, 1: 0}
     for i, kind in enumerate(lm.layer_kinds(cfg)):
         kind = int(kind)
         xs, _, kvs = B.dense_layer_groups(
             [g["layers"][i] for g in mp.groups], xs, cfg=cfg,
-            kind_flag=kind, positions=positions, return_kv=True)
+            kind_flag=kind, positions=positions, prefix_len=prefix_len,
+            return_kv=True)
         li = seen[kind]
         seen[kind] += 1
         for r, pairs in enumerate(kvs):

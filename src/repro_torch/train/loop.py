@@ -44,22 +44,23 @@ step's start, where the reference gathers them layer by layer inside its
 scan.
 
 **Tensor and expert parallel.**  On a ``(data, model)`` mesh whose model
-axis is above 1 (the ``dense`` and ``moe`` families) the pieces are cut
-over ``model`` too, by the ``heads``, ``kv_heads``, ``mlp``, ``experts``,
+axis is above 1 (every family) the pieces are cut over ``model`` too, by
+the ``heads``, ``heads_flat``, ``kv_heads``, ``mlp``, ``experts``,
 ``router_experts`` and ``vocab`` rules: device ``(i, j)`` holds its data
 block of its model block.  ``DataParallel`` keeps one ``LM`` piece per
 device, the model block whole over ``data``: :meth:`DataParallel.gather`
 all-gathers over ``data`` only, and data replica ``i``'s pieces form a
 :class:`~repro_torch.launch.tensor_parallel.Group` that computes its rows
 piece by piece (``launch/tensor_parallel.py``: Megatron attention and
-MLP, expert-parallel MoE, vocab-parallel lookup, logits and loss), its
-sums over the pieces counted in ``collectives``.  The gradients are
-reduce-scattered over ``data`` within each model piece; a leaf whole in
-every model piece that several pieces compute with (kv heads the model
-axis does not divide) sums their gradients first.  The program is the
+MLP, the rwkv6 mixes and the Mamba2 SSD by heads, expert-parallel MoE,
+vocab-parallel lookup, logits and loss), its sums over the pieces
+counted in ``collectives``.  The gradients are reduce-scattered over
+``data`` within each model piece; a leaf whole in every model piece that
+several pieces compute with (kv heads the model axis does not divide,
+rwkv6's ``mu`` and ``w_lora_a``, a norm's scale cut by the pieces' use)
+sums their gradients first.  The program is the
 reference's global one: its single-device result is what the pieces
-compute.  The other families and 8-bit moments on such a mesh raise
-(ROADMAP items 24 and 25).
+compute.  8-bit moments on such a mesh raise (ROADMAP item 25).
 """
 from __future__ import annotations
 
@@ -582,11 +583,11 @@ class Trainer:
     ``"cuda"``, which raises where torch sees no CUDA device), or over
     ``mesh`` with ``rules`` (by default ``default_rules(mesh)``; ignored
     without a mesh, as in the reference): data parallel over ``data``,
-    and for the dense and MoE families tensor and expert parallel over
-    ``model`` (see the module docstring).  A mesh of one device (what
-    ``make_local_mesh()`` gives on a one-card machine) trains on the
-    single-device step, as ``mesh=None`` on that device: no pieces, no
-    replica, no collective."""
+    and tensor and expert parallel over ``model`` (see the module
+    docstring).  A mesh of one device (what ``make_local_mesh()`` gives
+    on a one-card machine) trains on the single-device step, as
+    ``mesh=None`` on that device: no pieces, no replica, no
+    collective."""
 
     def __init__(self, model_cfg, tc: TrainConfig, mesh=None, rules=None,
                  device="cuda"):

@@ -1521,3 +1521,85 @@ def test_tensor_parallel_generate_on_card_matches_cpu(arch):
     scale = max(1.0, float(last["cpu"].abs().max()))
     np.testing.assert_allclose(last["cuda"].numpy(), last["cpu"].numpy(),
                                rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "whisper-small",
+                                  "paligemma-3b"])
+def test_tensor_parallel_families_on_card_match_one_device(arch, monkeypatch):
+    """A reduced float32 model of the ssm, hybrid, encdec or vlm family
+    (``remat="full"``) over (1, 2) model pieces on the card against the
+    same weights on one device on the card: the forward logits at the
+    dense rule (zamba2's at ``atol=1e-4`` x scale: its float32 forward
+    amplifies rounding, ``test_torch_tensor_parallel_families.py``), the
+    loss at the dense rule, every gradient joined from the pieces at
+    ``rtol=1e-4, atol=1e-4`` x scale, greedy ``generate`` tokens equal;
+    every lookup row gather over the vocab pieces (one a piece a lookup)
+    counted and held bitwise to its plain version."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.launch.mesh import make_simulated_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import params as pr
+    from repro_torch.serve import engine
+    from repro_torch.train import loop
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(remat="full")
+    model = lm.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu").to(dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synth_batch(cfg, 2, 12, step=0).items()}
+    inputs = {k: v for k, v in batch.items()
+              if k not in ("labels", "loss_mask")}
+    mesh = make_simulated_mesh(1, 2, device=dev)
+    shd = sh.Shd(mesh, sh.default_rules(mesh))
+    calls = [0]
+
+    def checked(src, ids, d_tile=512):
+        got = RG.row_gather(src, ids, d_tile)
+        assert _same_bits(got, RG.row_gather_plain(src, ids))
+        calls[0] += 1
+        return got
+    monkeypatch.setattr(L, "row_gather", checked)
+
+    def close(got, want, atol=1e-5, what=""):
+        scale = max(1.0, float(want.detach().abs().max()))
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().cpu().numpy(), rtol=1e-4,
+                                   atol=atol * scale, err_msg=what)
+    with torch.no_grad():
+        one, _ = lm.forward(model, cfg, inputs)
+        before = RG.row_gather.launches
+        got, _ = lm.forward(tp.ModelPieces(model, shd), cfg, inputs)
+        torch.cuda.synchronize()
+        assert RG.row_gather.launches - before == calls[0] == 2
+    close(got, one, 1e-4 if cfg.family == "hybrid" else 1e-5, "logits")
+    # the loss and every gradient: one device, then the pieces
+    whole = copy.deepcopy(model)
+    whole.requires_grad_(True)
+    want_loss, _ = lm.loss_fn(whole, cfg, batch)
+    want_loss.backward()
+    want = pr.tree_map(lambda p: p.grad, whole.tree())
+    dp = loop.DataParallel(copy.deepcopy(model), shd)
+    dp.gather()
+    for m in dp.models:
+        m.requires_grad_(True)
+    loss, _ = lm.loss_fn_replicas(dp.groups, cfg, [batch])
+    loss.backward()
+    close(loss, want_loss, what="loss")
+    grads = dp.reduce_scatter(True)
+    pr.tree_map(lambda g, w: close(g.join(), w, 1e-4, "gradient"), grads,
+                want)
+    toks = batch["tokens"][:, :4]
+    gen_batch = dict(inputs, tokens=toks)
+    max_len = lm.prefix_slots(cfg) + 4 + 6 + 2
+    t1, _ = engine.generate(model, cfg, gen_batch, 6, max_len)
+    calls[0] = 0
+    t2, _ = engine.generate(tp.ModelPieces(model, shd), cfg, gen_batch, 6,
+                            max_len)
+    assert torch.equal(t1, t2)
+    assert calls[0] == 2 * 6          # a lookup a piece, prefill + 5 steps

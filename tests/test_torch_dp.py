@@ -27,8 +27,8 @@ default rules: parameters and moments FSDP-sharded over ``data``), at
 * elastic restart: a checkpoint written at k shards resumes on one device
   and the reverse, against the straight run at the dense rule; a 1-shard
   checkpoint byte for byte ``mesh=None``'s;
-* a model axis above 1 trains a dense model and raises for the recurrent
-  family, citing ROADMAP item 24; ``DataIterator`` pieces are the global
+* a model axis above 1 trains a dense model, and the recurrent
+  family trains there too; ``DataIterator`` pieces are the global
   batch's rows.
 """
 import dataclasses
@@ -364,9 +364,11 @@ def test_data_parallel_refuses_8_bit_moments():
 
 
 def test_model_axis_above_one_and_missing_devices_raise(tmp_path):
-    """A (2, 2) mesh trains a dense model (``test_torch_tensor_parallel.py``
-    holds it to the reference); the recurrent family on it raises, citing
-    ROADMAP item 24."""
+    """A (2, 2) mesh trains a dense model and the recurrent family
+    (``test_torch_tensor_parallel.py`` and
+    ``test_torch_tensor_parallel_families.py`` hold them to the
+    reference); a mesh of missing devices and a model without logical
+    axes raise."""
     cfg = get_config("granite_3_2b").reduced()
     tp = ShardMesh(devices=(torch.device("cpu"),) * 4, data=2, model=2,
                    simulated=True)
@@ -375,11 +377,10 @@ def test_model_axis_above_one_and_missing_devices_raise(tmp_path):
         np.isfinite(m["loss"]) for m in out["metrics"])
     assert len(out["data_parallel"].groups) == 2
     rwkv = get_config("rwkv6_3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        loop.Trainer(rwkv, _tc(tmp_path, "r"), mesh=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        loop.DataParallel(loop.lm.init_model(rwkv, device="cpu"),
-                          sh.Shd(tp, sh.default_rules(tp)))
+    out = loop.Trainer(rwkv, _tc(tmp_path, "r"), mesh=tp).run()
+    assert len(out["metrics"]) == 3 and all(
+        np.isfinite(m["loss"]) for m in out["metrics"])
+    assert len(out["data_parallel"].groups) == 2
     if not torch.cuda.is_available():
         card = ShardMesh(devices=(torch.device("cuda", 0),) * 2, data=2,
                          simulated=True)

@@ -37,7 +37,11 @@ the reference's on one element of 2,048):
   its sums, in the backward);
 * elastic restarts from ``(2, 2)`` onto ``(1, 1)``, ``(1, 2)`` and
   ``(2, 1)``;
-* the families and options still refused, with their ROADMAP items.
+* 8-bit moments on a model axis refused for every family, citing ROADMAP
+  item 25.
+
+The ssm, hybrid, encdec and vlm families over the model axis are held in
+``test_torch_tensor_parallel_families.py``.
 """
 import dataclasses
 import functools
@@ -518,22 +522,12 @@ def test_counted_collectives_equal_an_analytic_count(arch, mesh, remat):
 
 
 # ---------------------------------------------------------------- refused
-@pytest.mark.parametrize("arch", ["rwkv6_3b", "zamba2_1p2b",
+@pytest.mark.parametrize("arch", ["granite_3_2b", "rwkv6_3b", "zamba2_1p2b",
                                   "whisper_small", "paligemma_3b"])
-def test_other_families_on_a_model_axis_raise_item_24(arch, tmp_path):
+def test_8_bit_moments_on_a_model_axis_raise_item_25(arch, tmp_path):
+    """Every family trains on a model axis above 1; 8-bit AdamW moments
+    there are refused, citing ROADMAP item 25."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        loop.Trainer(cfg, _tc(tmp_path, "t"), **_mesh_kw((1, 2)))
-    model = lm.init_model(cfg, device="cpu")
-    for build in (loop.DataParallel, tp.ModelPieces):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-            build(model, _shd((2, 2)))
-    # a model axis of 1 still trains them data parallel
-    loop.DataParallel(model, _shd((2, 1)))
-
-
-def test_8_bit_moments_on_a_model_axis_raise_item_25(tmp_path):
-    cfg = get_config("granite_3_2b").reduced()
     q8 = adamw.AdamWConfig(**OCFG, quantize_moments=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
         loop.Trainer(cfg, _tc(tmp_path, "t", opt=q8), **_mesh_kw((1, 2)))

@@ -23,8 +23,9 @@ encoder layers over 16 frames, paligemma 8 patch tokens) for every arch:
   losses stay within the tolerance);
 * ``remat`` ``"none"``, ``"full"`` and ``"dots"``: bitwise-equal
   gradients;
-* the Trainer's straggler count, a 2-shard mesh, a model axis of 2 and
-  its refusal of the recurrent family (its checkpoint/restart tests are in
+* the Trainer's straggler count, a 2-shard mesh, a model axis of 2 (the
+  recurrent family on it, 8-bit moments refused; its checkpoint/restart
+  tests are in
   ``test_torch_checkpoint.py``, data parallel in ``test_torch_dp.py``);
 * the launcher in process with ``--device cpu`` (whisper and paligemma
   too), and the ``NotImplementedError``s naming their ROADMAP items.
@@ -351,9 +352,10 @@ def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
     """A 2-shard simulated mesh with rules trains (data parallel, the
     parameters FSDP-sharded; ``test_torch_dp.py`` holds it to the
     reference); a mesh whose model axis is above 1 trains a dense model
-    (tensor parallel; ``test_torch_tensor_parallel.py`` holds it to the
-    reference) and refuses the recurrent family, citing ROADMAP item
-    24."""
+    and the recurrent family (tensor parallel;
+    ``test_torch_tensor_parallel.py`` and
+    ``test_torch_tensor_parallel_families.py`` hold them to the
+    reference) and refuses 8-bit moments, citing ROADMAP item 25."""
     cfg = get_config("granite_3_2b").reduced()
     two = make_shard_mesh(2, device="cpu", simulate=True)
     out = loop.Trainer(cfg, _tc(tmp_path, steps=3), mesh=two,
@@ -374,10 +376,16 @@ def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
         assert [tuple(p.shape) for p in wq.pieces] == \
             [(cfg.d_model, cfg.num_heads // 2, cfg.head_dim)] * 2
     rwkv = get_config("rwkv6_3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        loop.Trainer(rwkv, _tc(tmp_path), mesh=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        loop.Trainer(rwkv, _tc(tmp_path), mesh=tp, rules=default_rules(tp))
+    out = loop.Trainer(rwkv, _tc(tmp_path / "rwkv", steps=3), mesh=tp,
+                       rules=default_rules(tp)).run()
+    assert len(out["metrics"]) == 3 and all(
+        np.isfinite(m["loss"]) for m in out["metrics"])
+    wr = out["data_parallel"].params["layers"][0]["time_mix"]["wr"]
+    assert [tuple(p.shape) for p in wr.pieces] == \
+        [(rwkv.d_model, rwkv.d_model // 2)] * 2
+    q8 = adamw.AdamWConfig(quantize_moments=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
+        loop.Trainer(rwkv, _tc(tmp_path, opt=q8), mesh=tp)
     one = ShardMesh(devices=(torch.device("cpu"),), data=1)
     assert loop.Trainer(cfg, _tc(tmp_path), mesh=one).device.type == "cpu"
 
