@@ -150,8 +150,8 @@ entry points of the three standalone kernels at real sizes, and fails
    its design before the ``"add_all"`` combine (``PERF.md``);
 11. card tests: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
    (every kernel bitwise against its plain version at the edges of the
-   ladder's shapes), in three shares (the tests of index 0-11, 12-33 and
-   34-49 modulo 50, sized to the work beside each), each in a child
+   ladder's shapes), in three shares (the tests of index 0-11, 12-39 and
+   40-49 modulo 50, sized to the work beside each), each in a child
    process while this one does untimed work: beside phases 3-4's checks,
    beside ``[dryrun]`` and the graph phase's generation and plan builds,
    and beside the
@@ -169,13 +169,14 @@ entry points of the three standalone kernels at real sizes, and fails
    single-device torch backend), ``backend="auto", shards=2`` (both shard
    counts measured, the winner within 1e-5), ``backend="cuda"`` with
    ``shards=2`` and ``matvec_many`` on a sharded SpMV raising.  On
-   soc-Pokec at 4 shards: BFS, SSSP, CC and PageRank through
-   ``from_edges(mesh=...)`` (BFS, SSSP and PageRank on the edges sorted by
-   destination, which cut into several non-empty shards; CC on the graph
-   phase's edges, whose symmetrized list always cuts into one non-empty
-   shard), each with both drivers bitwise the single-device torch run on
-   the same plan (states, sweeps and flags), ``run_multi`` on the sharded
-   BFS raising.  The
+   soc-Pokec at 4 shards: BFS, SSSP and PageRank through
+   ``from_edges(mesh=...)`` on the edges sorted by destination, which cut
+   into several non-empty shards (CC's symmetrized edges cut into one
+   non-empty shard whatever their order, so a CC cell runs no all-gather
+   across shards: ``tests/test_torch_shard.py`` holds sharded CC), each
+   with both drivers bitwise the single-device torch run on the same plan
+   (states, sweeps and flags), ``run_multi`` on the sharded BFS raising.
+   The
    counters, zeroed before each sharded run, must stay 0.  Prints the host
    seconds of ``ir.lower`` + ``partition_plan``, device ms per call or per
    resident sweep beside the single-device torch backend's, end-to-end ms
@@ -264,7 +265,13 @@ entry points of the three standalone kernels at real sizes, and fails
    equal ``FlopCounterMode`` over that step on the card, exactly; its
    reckoned peak of temporaries is printed beside
    ``torch.cuda.max_memory_allocated`` above the step's arguments, as a
-   ratio.
+   ratio.  Over model pieces (run after ``[tp]``): for the float32
+   granite (2, 2) cell, the qwen3-moe (1, 2) train cell and the 8-bit
+   granite (2, 2) cell, ``reckon`` traces one data replica's program over
+   its pieces; its collectives (the data axis's and the model axis's)
+   equal those ``DataParallel`` counted in one step, its argument bytes
+   what device 0 holds, and its flops over every device of the mesh
+   ``FlopCounterMode`` over one step on the card, exactly.
 
 16. tensor and expert parallel (``[tp]``, run after ``[dp]``): simulated
    ``(data, model)`` meshes with the default rules (``heads``,
@@ -318,6 +325,19 @@ entry points of the three standalone kernels at real sizes, and fails
    a profiled step (launches, idle share), peak memory and a device's
    bytes.
 
+17. 8-bit AdamW moments over model pieces (``[tp]``, run after phase 16;
+   ``q`` and ``s`` of the flat stacked leaf, their blocks over ``data``
+   alone, so every model replica of a data index updates the same run of
+   blocks, assembled from its data replica's pieces): float32 granite-3-2b
+   at 4 layers on (2, 2), 2 steps, unclipped: each step's weights and
+   ``q`` / ``s`` bitwise one device's 8-bit ``adamw.update`` from the same
+   state on the gradients the step assembled, every model replica's ``q``
+   / ``s`` bitwise alike; bf16 qwen3-moe-235b-a22b at 1 layer on (1, 2),
+   4 x 128, 4 steps through ``Trainer.run()``: losses finite, every row
+   gather held bitwise to the plain version and counted (12 in the expert
+   pieces and 2 in the lookup a step).  Each prints a device's bytes of
+   moments and the collectives a step.
+
 The build phase prints, per kernel, the registers, stack and spilled bytes
 of the compiler's report.  The line before the last is the kernels JSON
 line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
@@ -354,7 +374,7 @@ CARD_TESTS_S = 900             # time limit of a share of the card tests
 # builds (a share's wait is logged).  Share i takes the tests whose index
 # modulo 50 lies in its slots, sized to the untimed work beside it (~56,
 # ~110 and ~90 s on the H100's host)
-CARD_TEST_SLOTS = ((0, 12), (12, 34), (34, 50))
+CARD_TEST_SLOTS = ((0, 12), (12, 40), (40, 50))
 CARD_TEST_SHARES = len(CARD_TEST_SLOTS)
 # beside a host-clock reading taken while a share runs: such a reading is
 # not comparable with one taken with the card and the CPU to this process
@@ -510,6 +530,16 @@ TP_STATES = (
     dict(arch="zamba2-1.2b", layers=7, batch=8, seq=512, steps=1, data=2,
          model=2),
 )
+# 8-bit AdamW moments over model pieces (q and s of the flat stacked leaf,
+# their blocks over data alone, so every model replica of a data index
+# updates the same run): float32 granite on (2, 2), each step's weights and
+# q / s bitwise one device's 8-bit update on the same gradients
+# (unclipped); bf16 qwen3-moe at 1 layer on (1, 2), its expert pieces' and
+# vocab pieces' row gathers held bitwise
+TP_Q8_STATE = dict(arch="granite-3-2b", layers=4, batch=8, seq=512,
+                   steps=2, data=2, model=2)
+TP_Q8_TRAIN = dict(arch="qwen3-moe-235b-a22b", layers=1, batch=4, seq=128,
+                   steps=4, data=1, model=2)
 # at random init the bf16 logits of zamba2-1.2b and whisper-small lie ~120
 # and ~160 from the same weights' float32 logits at a scale of ~415 and
 # ~250 (one device and the pieces alike, H100), so bf16 rounding, not the
@@ -955,6 +985,10 @@ class Smoke:
         # collectives; the [train] granite step's flops and peak
         self.dp_held, self.dp_counted, self.dp_peaks = {}, {}, {}
         self.train_measured = None
+        # and the [tp] cells': name -> cfg, spec, mesh, opt override, one
+        # step's counted collectives, the bytes a device holds, and one
+        # step's flops under FlopCounterMode on the card
+        self.tp_measured = {}
         # the [train] cells' metrics and step ms, which [tp] compares with
         self.train_readings = {}
 
@@ -2421,7 +2455,53 @@ class Smoke:
             f"torch.cuda.max_memory_allocated above the arguments "
             f"{m['peak']} B: ratio {traced['peak_bytes'] / m['peak']:.4f}; "
             f"bytes accessed (the proxy) {traced['memory_bytes']} B")
+        self.dryrun_pieces()
         log(f"[dryrun] phase in {time.perf_counter() - t0:.1f} s")
+
+    def dryrun_pieces(self) -> None:
+        """The dry run's trace of one data replica's program over its
+        model pieces against the ``[tp]`` cells (:meth:`tp_measure`): the
+        reckoned collectives (the data axis's and the model axis's) equal
+        the counted ones, the reckoned argument bytes equal what device 0
+        holds, and the traced flops over every device of the mesh equal
+        ``FlopCounterMode`` over the same step on the card, exactly."""
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch.step_analysis import COLLECTIVES
+        t0 = time.perf_counter()
+        for name, mm in self.tp_measured.items():
+            spec, cfg = mm["spec"], mm["cfg"]
+            t1 = time.perf_counter()
+            rec = dr.reckon(cfg, "train", {"seq_len": spec["seq"],
+                                           "global_batch": spec["batch"]},
+                            mm["mesh"], mm["rules"],
+                            dataclasses.asdict(mm["opt"]))
+            what = f"[dryrun] {name} ({spec['data']}, {spec['model']})"
+            check(rec["arguments"] == mm["held"], f"{what}: reckoned "
+                  f"argument bytes {rec['arguments']} vs held {mm['held']}")
+            want = {c: rec["collectives"][c] for c in COLLECTIVES}
+            check(want == mm["counted"], f"{what}: reckoned collectives "
+                  f"{want} vs counted {mm['counted']}")
+            traced = rec["traced"]
+            check(traced["mesh_flops"] == mm["flops"], f"{what}: traced "
+                  f"flops over the mesh {traced['mesh_flops']} vs the "
+                  f"card's FlopCounterMode {mm['flops']}")
+            moved = {c: (v["count"], v["bytes"])
+                     for c, v in mm["counted"].items() if v["count"]}
+            log(f"{what} train step (batch {spec['batch']} x "
+                f"{spec['seq']}, {cfg.num_layers} layers, "
+                f"{'8-bit' if mm['opt'].quantize_moments else 'float32'} "
+                f"moments): one data replica's {spec['model']} pieces "
+                f"traced in {time.perf_counter() - t1:.1f} s; argument "
+                f"bytes {rec['memory']['argument_bytes']} = held exactly; "
+                f"collectives a step reckoned = counted {moved} exactly; "
+                f"flops over the mesh {traced['mesh_flops']} = the card's "
+                f"FlopCounterMode exactly; device 0: flops "
+                f"{rec['cost']['flops']}, bytes accessed "
+                f"{rec['cost']['bytes_accessed']}, peak of temporaries "
+                f"{rec['memory']['temp_bytes']} B")
+        check(len(self.tp_measured) == 3, f"[dryrun] the [tp] cells "
+              f"measured: {sorted(self.tp_measured)}")
+        log(f"[dryrun] the [tp] cells in {time.perf_counter() - t0:.1f} s")
 
     def dp_state(self, cfg) -> None:
         """The state after step 1 at ``shards`` simulated shards against
@@ -3007,6 +3087,12 @@ class Smoke:
             f"{tokens / single_ms * 1e3:.1f} tokens/s "
             f"({step_ms / single_ms:.3f}x); peak memory {peak} B (above "
             f"the {base} B held before)")
+        if spec is TP_TRAIN[1]:
+            self.tp_measure(f"bf16 {cfg.name}", cfg, spec, shd, dp,
+                            out["opt"], tc.opt, {
+                                c: {k: n // spec["steps"] for k, n in
+                                    v.items()}
+                                for c, v in dp.collectives.items()})
         step_fn = loop.make_train_step(cfg, tc.opt, shd=shd)
         state = [out["opt"]]
         batch = self.train_batch(cfg, spec, spec["steps"])
@@ -3028,6 +3114,184 @@ class Smoke:
                     f"simulated, batch {spec['batch']}, seq {spec['seq']})",
                     one_step, reps=1)
         del state, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tp_measure(self, name, cfg, spec, shd, dp, state, opt,
+                   counted) -> None:
+        """For ``[dryrun]``: a ``[tp]`` cell's one step's counted
+        collectives, the bytes device 0 holds of a step's arguments, and
+        the flops of one more step under ``FlopCounterMode`` on the card
+        (the whole simulated mesh's)."""
+        torch = self.torch
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch import sharding as sh
+        from repro_torch.train import loop
+        batch = self.train_batch(cfg, spec, spec["steps"])
+        pl = sh.batch_sharding(shd, batch)
+        held = dr.held_bytes(dp.tree(), state,
+                             {k: pl[k].split(v) for k, v in batch.items()})
+        step_fn = loop.make_train_step(cfg, opt, shd=shd)
+        with FlopCounterMode(display=False) as fc:
+            step_fn(dp, state, batch)
+        torch.cuda.synchronize()
+        self.tp_measured[name] = dict(
+            cfg=cfg, spec=spec, mesh=shd.mesh, rules=shd.rules, opt=opt,
+            counted=counted, held=held, flops=fc.get_total_flops())
+
+    def tp_q8_phase(self) -> None:
+        """8-bit AdamW moments over model pieces (see the module
+        docstring, phase 17)."""
+        t0 = time.perf_counter()
+        self.tp_q8_state(self.float32(self.lm_config(TP_Q8_STATE)),
+                         TP_Q8_STATE)
+        self.tp_q8_train(self.lm_config(TP_Q8_TRAIN), TP_Q8_TRAIN)
+        log(f"[tp] 8-bit phase in {time.perf_counter() - t0:.1f} s")
+
+    @staticmethod
+    def moment_bytes(opt_state) -> int:
+        """The bytes of AdamW moments device 0 holds."""
+        return sum(t.pieces[0].numel() * t.pieces[0].element_size()
+                   for key in ("m", "v")
+                   for t in sharded_leaves(opt_state[key]))
+
+    def tp_q8_state(self, cfg, spec) -> None:
+        """float32, 8-bit moments on a simulated ``(data, model)`` mesh,
+        unclipped: each step's new weights and ``q`` / ``s`` bitwise one
+        device's 8-bit ``adamw.update`` from the same weights and moments
+        on the gradients the step assembled, and every model replica's
+        ``q`` / ``s`` bitwise alike."""
+        torch = self.torch
+        from repro_torch.models import lm
+        from repro_torch.models import params as pr
+        from repro_torch.optim import adamw
+        from repro_torch.train import loop
+        d, m = spec["data"], spec["model"]
+        oc = adamw.AdamWConfig(lr=3e-3, warmup_steps=1,
+                               total_steps=spec["steps"], clip_norm=1e9,
+                               quantize_moments=True)
+        mesh, shd = self.dp_mesh(d, m)
+        gen = torch.Generator(self.dev).manual_seed(SEED)
+        dp = loop.DataParallel(lm.init_model(cfg, generator=gen,
+                                             device=self.dev), shd)
+        state = adamw.init(dp.tree(), oc, shd=shd)
+        step_fn = loop.make_train_step(cfg, oc, shd=shd)
+        seen, update = {}, adamw.update
+
+        def spy(params, grads, st, c):
+            seen["grads"] = pr.stacked_map(
+                lambda g: g.join().reshape(-1), grads)
+            return update(params, grads, st, c)
+
+        def per_layer(g, leaf):
+            """A flat stacked gradient as the leaf's per-layer tensors."""
+            shape = pr.stacked_shape(leaf)
+            t = g[:math.prod(shape)].reshape(shape)
+            return [t[i] for i in range(shape[0])] \
+                if isinstance(leaf, list) else t
+
+        def joined(tree):
+            return pr.tree_map(lambda x: x.join(), tree)
+        apart, n_el, t0 = 0, 0, time.perf_counter()
+        for i in range(spec["steps"]):
+            before = joined(dp.tree())
+            st1 = {"step": state["step"].clone(),
+                   **{k: pr.stacked_map(lambda x: x.join(), state[k])
+                      for k in ("m", "v")}}
+            dp.reset_collectives()
+            adamw.update = spy
+            try:
+                state, _ = step_fn(dp, state, self.train_batch(cfg, spec, i))
+            finally:
+                adamw.update = update
+            counted = {c: dict(v) for c, v in dp.collectives.items()}
+            stacked = pr.stacked_map(per_layer, seen.pop("grads"),
+                                     pr.stack_tree(before))
+            grads = {k: ([pr.stacked_map(lambda x, i=i: x[i], v)
+                          for i in range(cfg.num_layers)]
+                         if k == "layers" else v)
+                     for k, v in stacked.items()}
+            st1, _ = update(before, grads, st1, oc)
+            for a, b in zip(sharded_leaves(joined(dp.tree())),
+                            sharded_leaves(before)):
+                apart += int((a != b).sum())
+                n_el += a.numel()
+            for key in ("m", "v"):
+                for x, want in zip(sharded_leaves(state[key]),
+                                   sharded_leaves(st1[key])):
+                    apart += int((x.join() != want).sum())
+                    n_el += want.numel()
+                    for n, piece in enumerate(x.pieces):
+                        apart += int((piece != x.pieces[n - n % m]).sum())
+        check(apart == 0, f"{cfg.name} tp 8-bit: {apart} of {n_el} weight "
+              f"and moment elements part from one device's 8-bit update "
+              f"on the same gradients, or between model replicas")
+        log(f"[tp] {cfg.name} ({cfg.num_layers} layers, float32) 8-bit "
+            f"moments on a simulated ({d}, {m}) mesh, {spec['steps']} "
+            f"steps in {time.perf_counter() - t0:.2f} s (unclipped): each "
+            f"step's weights and q / s bitwise one device's 8-bit update "
+            f"from the same state on the gradients the step assembled "
+            f"({n_el} elements), every model replica's q / s bitwise "
+            f"alike; a device holds {self.moment_bytes(state)} B of "
+            f"moments; collectives counted a step: "
+            f"{self.tp_counted(counted)}")
+        self.tp_measure("8-bit granite", cfg, spec, shd, dp, state, oc,
+                        counted)
+        del dp, state, st1, before, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def tp_q8_train(self, cfg, spec) -> None:
+        """bf16, 8-bit moments: ``Trainer.run()`` on a simulated ``(data,
+        model)`` mesh, every row gather of the run held bitwise to the
+        plain version and counted (the expert pieces' 6 a piece and
+        dispatch group, the vocab pieces' lookup), losses finite."""
+        torch = self.torch
+        from repro_torch.models import moe as MOE
+        from repro_torch.train import loop
+        d, m = spec["data"], spec["model"]
+        tc = self.train_config(spec)
+        tc = dataclasses.replace(tc, ckpt_dir=str(
+            ROOT / "build" / "tp_ckpt" / spec["arch"]),
+            opt=dataclasses.replace(tc.opt, quantize_moments=True))
+        mesh, shd = self.dp_mesh(d, m)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        out = self.tp_checked(cfg, lambda: loop.Trainer(
+            cfg, tc, mesh=mesh, rules=shd.rules).run(),
+            "the 8-bit run")["result"]
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [x["loss"] for x in out["metrics"]]
+        check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+              f"{cfg.name} tp 8-bit: train losses {losses}")
+        groups = MOE._group_count(spec["batch"] * spec["seq"],
+                                  cfg.moe_group_size)
+        per_step = 6 * m * groups * cfg.num_layers + (
+            d * m if cfg.vocab_size % m == 0 else 0)
+        check(counts["row_gather"] == per_step * spec["steps"],
+              f"{cfg.name} tp 8-bit: row_gather launched "
+              f"{counts['row_gather']} times in {spec['steps']} steps, "
+              f"expected {per_step} a step")
+        step_ms = statistics.median(
+            x["step_time"] for x in out["metrics"][1:]) * 1e3
+        log(f"[tp] {cfg.name} ({cfg.num_layers} layers) Trainer.run with "
+            f"8-bit moments on a simulated ({d}, {m}) mesh: {spec['steps']} "
+            f"steps in {wall:.2f} s, losses {[round(x, 4) for x in losses]}"
+            f"; kernel launches { {n: c for n, c in counts.items() if c} } "
+            f"({per_step} row_gather a step); a device holds "
+            f"{self.moment_bytes(out['opt'])} B of moments; collectives "
+            f"counted a step: "
+            f"{self.tp_counted(out['data_parallel'].collectives, spec['steps'])}")
+        log(f"[time] {self.tag} {cfg.name} tp train 8-bit ({d}, {m}) batch "
+            f"{spec['batch']} seq {spec['seq']}: step {step_ms:.4f} ms "
+            f"(median of steps 2-{spec['steps']}, host clock); peak memory "
+            f"{peak} B (above the {base} B held before)")
+        del out
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3185,8 +3449,9 @@ class Smoke:
             runs[name] = ({key: flat(state[key]) for key in ("m", "v")},
                           flat(pr.stack_tree(holder.tree())),
                           {k: float(v) for k, v in metrics.items()},
-                          holder)
-        (om, ow, omet, _), (tm, tw, tmet, dp) = runs.values()
+                          holder, state)
+        (om, ow, omet, _, _), (tm, tw, tmet, dp, tstate) = runs.values()
+        counted = {c: dict(v) for c, v in dp.collectives.items()}
         o = tc.opt
         lr = float(adamw.schedule(o, 1))
         worst, past, parted, total = 0.0, 0, 0, 0
@@ -3220,10 +3485,13 @@ class Smoke:
             if g.numel():
                 g_max = max(g_max, float(g.max()))
             total += w.numel()
+        if spec is TP_STATES[0]:
+            self.tp_measure("float32 granite", cfg, spec, shd, dp, tstate,
+                            tc.opt, counted)
         return dict(past=past, total=total, worst=worst,
                     adam_worst=adam_worst, parted=parted, flips=flips,
                     g_max=g_max, one=omet, pieces=tmet,
-                    counted=self.tp_counted(dp.collectives))
+                    counted=self.tp_counted(counted))
 
     def tp_serve(self, cfg, spec) -> None:
         """``engine.generate`` over ``ModelPieces`` on a simulated (1,
@@ -4095,10 +4363,10 @@ class Smoke:
         self.shard_products(str(cache))
         self.shard_raises()
         self.shard_tuned(str(cache))
-        # the four builds while the last share of the card tests runs
+        # the three builds while the last share of the card tests runs
         self.start_card_tests(2)
         built = {name: self.shard_build(name)
-                 for name in ("bfs", "sssp", "cc", "pagerank")}
+                 for name in ("bfs", "sssp", "pagerank")}
         self.join_card_tests()
         for name, parts in built.items():
             self.shard_graph(name, parts)
@@ -4289,31 +4557,22 @@ class Smoke:
                 f"partition_plan {sec:.3f} s, {BESIDE_TESTS})")
         pagerank = name == "pagerank"
         t0 = time.perf_counter()
-        if name == "cc":
-            sharded = self.graphs.ConnectedComponents.from_edges(
-                c.src, c.dst, c.num_nodes, backend="torch", mesh=mesh,
-                device=self.dev)
-            single = torch_app
-            how = ("from_edges on the graph phase's edges; the symmetrized "
-                   "edges cut into one non-empty shard, so this cell runs "
-                   "the sharded path without an all-gather across shards")
-        else:
-            order = self.dst_order()
-            src, dst = c.src[order], c.dst[order]
-            cls = self.PageRank if pagerank else getattr(
-                self.graphs, name.upper())
-            args = (src, dst, c.weight[order], c.num_nodes) \
-                if name == "sssp" else (src, dst, c.num_nodes)
-            sharded = cls.from_edges(*args, backend="torch", mesh=mesh,
-                                     device=self.dev)
-            static = {"weight": np.asarray(c.weight[order], np.float32)} \
-                if name == "sssp" else {}
-            single = dataclasses.replace(
-                sharded, _run=eng.make_executor(sharded.plan, static,
-                                                backend="torch",
-                                                device=self.dev),
-                mesh=None, _shard_parts=(), _shard_step=None)
-            how = "from_edges on destination-sorted edges"
+        order = self.dst_order()
+        src, dst = c.src[order], c.dst[order]
+        cls = self.PageRank if pagerank else getattr(self.graphs,
+                                                     name.upper())
+        args = (src, dst, c.weight[order], c.num_nodes) \
+            if name == "sssp" else (src, dst, c.num_nodes)
+        sharded = cls.from_edges(*args, backend="torch", mesh=mesh,
+                                 device=self.dev)
+        static = {"weight": np.asarray(c.weight[order], np.float32)} \
+            if name == "sssp" else {}
+        single = dataclasses.replace(
+            sharded, _run=eng.make_executor(sharded.plan, static,
+                                            backend="torch",
+                                            device=self.dev),
+            mesh=None, _shard_parts=(), _shard_step=None)
+        how = "from_edges on destination-sorted edges"
         return mesh, sharded, single, how, time.perf_counter() - t0
 
     def shard_graph(self, name, built) -> None:
@@ -4327,16 +4586,11 @@ class Smoke:
         partition, then builds BFS, SSSP and PageRank through
         ``from_edges(mesh=...)`` on the same edges sorted by destination
         (a destination-major edge list, what a row-sharded engine is fed)
-        and checks that each cuts into two non-empty shards at least.  CC
-        symmetrizes its edges inside ``from_edges``, so no input order
-        sorts its destinations and its plan always cuts into one full
-        shard and empty ones: its cell builds it through
-        ``from_edges(mesh=...)`` on the graph phase's edges and shows that
-        the sharded path runs, not the all-gather.  Each sharded run, with
-        either driver, must equal bitwise (state and ConvergenceReport)
-        the single-device torch backend on the same plan; BFS, SSSP and CC
-        (exact min) must also equal the graph phase's runs, PageRank must
-        hold against the float64 power iteration."""
+        and checks that each cuts into two non-empty shards at least.
+        Each sharded run, with either driver, must equal bitwise (state
+        and ConvergenceReport) the single-device torch backend on the same
+        plan; BFS and SSSP (exact min) must also equal the graph phase's
+        runs, PageRank must hold against the float64 power iteration."""
         torch, eng = self.torch, self.eng
         mesh, sharded, single, how, build_s = built
         app, torch_app, _ = self.graph_apps[name]
@@ -4346,14 +4600,14 @@ class Smoke:
         rows = [p.num_rows for p in sharded._shard_parts]
         live = sum(r > 0 for r in rows)
         check(sharded.mesh is mesh and len(rows) == k
-              and (live == 1 if name == "cc" else live >= 2),
+              and live >= 2,
               f"{name} shards={k}: rows per shard {rows}")
 
         def run(a, driver):
             a.driver = driver
             if pagerank:
                 return a.run(iters=PAGERANK_ITERS), None
-            out = a.run() if name == "cc" else a.run(int(sources[0]))
+            out = a.run(int(sources[0]))
             return out, a.convergence
 
         (want, want_report), single_peak = self.peak_run(
@@ -4388,7 +4642,7 @@ class Smoke:
         one_sweep = {"pagerank": lambda a: a._step(state)}.get(
             name, lambda a: a.sweep(state))
         single_ms = device_ms(lambda: one_sweep(single), reps=5, repeats=3)
-        src_ms = "" if name == "cc" else (
+        src_ms = (
             "; on the source-sorted plan "
             f"{device_ms(lambda: one_sweep(torch_app), reps=5, repeats=3):.4f}"
             " ms")
@@ -4484,7 +4738,8 @@ class Smoke:
                           self.matvec_many_phase, self.segment_reduce_phase,
                           self.gather_vload_phase, self.row_gather_phase,
                           self.lm_phase, self.train_phase, self.dp_phase,
-                          self.tp_phase, self.dryrun_phase, self.graph_phase,
+                          self.tp_phase, self.tp_q8_phase,
+                          self.dryrun_phase, self.graph_phase,
                           self.serve_phase, self.tune_phase,
                           self.shard_phase, self.main_timings,
                           self.stage_a_timings):

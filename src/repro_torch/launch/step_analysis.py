@@ -21,22 +21,24 @@ it dispatches, forward, backward and optimizer alike.
   ``take``) charges twice its output and a scatter (``index_put``,
   ``scatter``, ``index_add``, ``index_copy``, ``*_scatter``) three times
   its update, so a small lookup does not charge the whole table.
-* ``collectives``: by kind, ``{"count", "bytes"}``, and ``total_bytes``,
-  reckoned by :func:`reckon_collectives` from the placements (the port's
-  one-process step runs no collective of its own to watch).
+* ``collectives``: by kind, ``{"count", "bytes"}``, and ``total_bytes``:
+  the data axes' reckoned by :func:`reckon_collectives` from the
+  placements (the port's one-process step runs no collective of its own
+  to watch); the model axis's are counted by a traced tensor-parallel
+  program's own hooks (``launch/dryrun.py``).
 * ``peak_bytes`` (beside them): the peak of the live bytes of the storages
   the step creates (its arguments excluded), a tensor live until autograd
   and the step drop every reference to it: the dry run's ``temp_bytes``.
 
 Collective bytes are in the reference's unit (``dryrun.py``'s
-``parse_collectives``): the output's bytes on one device.  They are the
-collectives of ``train.loop.DataParallel``, which counts the same bytes
-as it runs: the all-gather of every piece cut over a data-parallel axis
-(its output: the tensor gathered over those axes), the gradients'
-reduce-scatter in float32 onto the pieces (an all-reduce where a leaf is
-not cut over them), and with 8-bit moments the reduce-scatter in flat
-block order (``sharding.blocks_placement``) and the all-to-all that puts
-the new parameter values back into their pieces.
+``parse_collectives``): the output's bytes on one device.  The data
+axes' are the collectives of ``train.loop.DataParallel``, which counts
+the same bytes as it runs: the all-gather of every piece cut over a
+data-parallel axis (its output: the tensor gathered over those axes), the
+gradients' reduce-scatter in float32 onto the pieces (an all-reduce where
+a leaf is not cut over them), and with 8-bit moments the reduce-scatter
+in flat block order (``sharding.blocks_placement``) and the all-to-all
+that puts the new parameter values back into their pieces.
 """
 from __future__ import annotations
 
@@ -107,28 +109,43 @@ def op_traffic(func, args, kwargs, out) -> int:
     return total + sum(_nbytes(t) for t in _tensors(out))
 
 
+def _device_of(args, out):
+    """The device an op runs on: its first output's, else its first
+    operand's."""
+    ts = _tensors(out) or _tensors(args)
+    return str(ts[0].device) if ts else "cpu"
+
+
 class _Watch(TorchDispatchMode):
     """Sums :func:`op_traffic` and follows the live bytes of the storages
-    the ops create (argument storages excluded)."""
+    the ops create (argument storages excluded), in all and by the
+    device each op runs on (:func:`_device_of`)."""
 
     def __init__(self, arguments):
         super().__init__()
         self.memory_bytes = 0
         self.live = self.peak = 0
+        self.by_device = {}      # device -> [bytes, live, peak]
         self._args = {t.untyped_storage()._cdata for t in arguments}
-        self._storages = {}      # storage -> [bytes, live tensors on it]
+        self._storages = {}      # storage -> [bytes, live tensors, device]
+
+    def _device(self, dev: str) -> list:
+        return self.by_device.setdefault(dev, [0, 0, 0])
 
     def _release(self, key) -> None:
         entry = self._storages[key]
         entry[1] -= 1
         if entry[1] == 0:
             self.live -= entry[0]
+            self._device(entry[2])[1] -= entry[0]
             del self._storages[key]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.memory_bytes += op_traffic(func, args, kwargs, out)
+        traffic = op_traffic(func, args, kwargs, out)
+        self.memory_bytes += traffic
+        self._device(_device_of((args, kwargs), out))[0] += traffic
         for t in _tensors(out):
             key = t.untyped_storage()._cdata
             if key in self._args:
@@ -136,29 +153,55 @@ class _Watch(TorchDispatchMode):
             entry = self._storages.get(key)
             if entry is None:
                 entry = self._storages[key] = [
-                    t.untyped_storage().nbytes(), 0]
+                    t.untyped_storage().nbytes(), 0, str(t.device)]
                 self.live += entry[0]
                 self.peak = max(self.peak, self.live)
+                dev = self._device(entry[2])
+                dev[1] += entry[0]
+                dev[2] = max(dev[2], dev[1])
             entry[1] += 1
             weakref.finalize(t, self._release, key)
         return out
+
+
+class _Flops(FlopCounterMode):
+    """``FlopCounterMode``, its count also split by the device each
+    product runs on."""
+
+    def __init__(self):
+        super().__init__(display=False)
+        self.by_device = {}
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        before = self.get_total_flops()
+        result = super()._count_flops(func_packet, out, args, kwargs)
+        added = self.get_total_flops() - before
+        if added:
+            dev = _device_of((args, kwargs), out)
+            self.by_device[dev] = self.by_device.get(dev, 0) + added
+        return result
 
 
 def analyze_step(build) -> dict:
     """``build()`` makes a step's inputs on the CPU inside a fresh
     ``FakeTensorMode`` and returns ``(step, arguments)``: ``step()`` is
     then run there under the watch -> ``{"flops", "memory_bytes",
-    "peak_bytes"}``.  ``arguments`` lists every tensor the step takes
-    (parameters, state, batch): their storages are its arguments, not its
-    temporaries."""
+    "peak_bytes", "devices"}``.  ``arguments`` lists every tensor the step
+    takes (parameters, state, batch): their storages are its arguments,
+    not its temporaries.  ``devices`` splits the three by the device each
+    op ran on (``{"cpu:0": {"flops", "memory_bytes", "peak_bytes"}}``:
+    the fake devices of a tensor-parallel trace, one a model piece)."""
     with FakeTensorMode():
         step, arguments = build()
         watch = _Watch(arguments)
-        with FlopCounterMode(display=False) as flops, watch:
+        with _Flops() as flops, watch:
             step()
+    devices = {d: {"flops": int(flops.by_device.get(d, 0)),
+                   "memory_bytes": int(v[0]), "peak_bytes": int(v[2])}
+               for d, v in sorted(watch.by_device.items())}
     return {"flops": int(flops.get_total_flops()),
             "memory_bytes": int(watch.memory_bytes),
-            "peak_bytes": int(watch.peak)}
+            "peak_bytes": int(watch.peak), "devices": devices}
 
 
 # ------------------------------------------------------------- placements
@@ -194,9 +237,10 @@ def _axes_leaves(ref, axes) -> list:
 
 def reckon_collectives(shd: sh.Shd, leaves, kind: str, q_block=None,
                        split: bool = True, microbatches: int = 1) -> dict:
-    """The collectives of one step over ``shd``'s mesh, by kind, in the
-    reference's unit (see the module docstring), from the parameter
-    ``leaves`` of :func:`stacked_leaves`.  ``kind`` "train" adds the
+    """The data axes' collectives of one step over ``shd``'s mesh (the
+    model axis's are its program's: a traced tensor-parallel program
+    counts them), by kind, in the reference's unit (see the module
+    docstring), from the parameter ``leaves`` of :func:`stacked_leaves`.  ``kind`` "train" adds the
     gradients' (``microbatches`` times, none where the batch is
     replicated: ``split`` False, or the data axes hold one device) and,
     with ``q_block``, the 8-bit

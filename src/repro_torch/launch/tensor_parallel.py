@@ -56,11 +56,6 @@ from repro_torch.launch import sharding as sh
 from repro_torch.launch.step_analysis import COLLECTIVES
 from repro_torch.models import params as pr
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-QUANTIZED = ("8-bit AdamW moments on a mesh whose model axis is above 1 "
-             "are not ported: ROADMAP item 25")
-
-
 def zero_collectives(collectives: dict | None = None) -> dict:
     """A counter of collectives by kind (count, and bytes on one
     device), or ``collectives`` zeroed in place."""
@@ -78,14 +73,6 @@ def count_into(collectives: dict, kind: str, nbytes: int) -> None:
 
 def model_axis(mesh) -> int:
     return int(mesh.shape.get("model", 1))
-
-
-def check(cfg, mesh, quantize_moments: bool = False) -> None:
-    """Refuse what a model axis above 1 does not run yet."""
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"unknown model family {cfg.family!r}")
-    if model_axis(mesh) > 1 and quantize_moments:
-        raise NotImplementedError(QUANTIZED)
 
 
 class Group:
@@ -253,8 +240,9 @@ class ModelPieces:
     ``groups[i]`` is data replica ``i``'s pieces.  The serving batch is
     split over the data replicas where ``data`` divides it, else each
     replica serves it whole (``batch_sharding``'s fallback).
-    ``collectives`` counts the serving collectives, as ``DataParallel``
-    counts the training ones."""
+    ``collectives`` counts the serving collectives of one device's
+    program (data replica 0's group), as ``DataParallel`` counts the
+    training ones."""
 
     def __init__(self, model, shd):
         if model.axes is None:
@@ -262,7 +250,6 @@ class ModelPieces:
                              "with lm.init_model, or pass axes= to "
                              "convert.lm_params_from_numpy)")
         mesh = shd.mesh
-        check(model.cfg, mesh)
         self.cfg, self.shd = model.cfg, shd
         self.data, self.model = mesh.shape["data"], model_axis(mesh)
         values = model.tree()
@@ -281,7 +268,8 @@ class ModelPieces:
         self.collectives = zero_collectives()
         count = functools.partial(count_into, self.collectives)
         self.groups = [Group(trees[i * m:(i + 1) * m],
-                             mesh.devices[i * m:(i + 1) * m], count)
+                             mesh.devices[i * m:(i + 1) * m],
+                             count if i == 0 else None)
                        for i in range(self.data)]
 
     def reset_collectives(self) -> None:

@@ -13,8 +13,14 @@ fits one H100).  As in the reference, training runs on the local mesh
 (every visible device of ``--device``'s type: every CUDA card, or the one
 CPU) with ``default_rules``: data parallel over the cards, parameters and
 moments FSDP-sharded over them; a mesh of one device (one card, or the
-CPU) trains on the single-device step.  ``--production-mesh`` raises
-(ROADMAP item 6: 256 cards), naming the dry run that reckons that mesh.  ``main(argv)`` returns the ``Trainer``'s output.
+CPU) trains on the single-device step.  Beyond the reference's flags,
+``--simulated-mesh DATA MODEL`` trains on a simulated ``(data, model)``
+mesh whose every device is ``--device`` itself (tensor and expert
+parallel pieces over ``model``), and ``--opt-8bit`` keeps AdamW's
+moments in 8 bits (the dry run's ``opt_8bit`` variant) on any mesh.
+``--production-mesh`` raises (ROADMAP item 6: 256 cards), naming the dry
+run that reckons that mesh.  ``main(argv)`` returns the ``Trainer``'s
+output.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_simulated_mesh
 from repro_torch.optim import adamw
 from repro_torch.train.loop import TrainConfig, Trainer
 
@@ -58,6 +64,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--simulated-mesh", type=int, nargs=2, default=None,
+                    metavar=("DATA", "MODEL"),
+                    help="a simulated (data, model) mesh on --device")
+    ap.add_argument("--opt-8bit", action="store_true",
+                    help="8-bit AdamW moments")
     args = ap.parse_args(argv)
 
     if args.production_mesh:
@@ -81,7 +92,8 @@ def main(argv=None) -> dict:
                     remat="none", window=min(cfg.window, 64))
         cfg = cfg.replace(**over)
 
-    mesh = make_local_mesh(device=dev)
+    mesh = make_simulated_mesh(*args.simulated_mesh, device=dev) \
+        if args.simulated_mesh else make_local_mesh(device=dev)
     rules = sh.default_rules(mesh)
     print(f"[train] mesh {mesh.shape} over "
           f"{[str(d) for d in mesh.devices]}, default rules")
@@ -91,7 +103,8 @@ def main(argv=None) -> dict:
         microbatches=args.microbatches,
         opt=adamw.AdamWConfig(lr=args.lr,
                               warmup_steps=min(50, args.steps // 10 + 1),
-                              total_steps=args.steps))
+                              total_steps=args.steps,
+                              quantize_moments=args.opt_8bit))
     out = Trainer(cfg, tc, mesh=mesh, rules=rules).run()
     losses = [m.get("loss") for m in out["metrics"]]
     print(f"[train] done: {len(losses)} steps, "

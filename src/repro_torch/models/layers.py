@@ -78,7 +78,9 @@ class PieceRows(torch.autograd.Function):
     len(table))`` of the whole), gathered by the hand-written row gather
     at ``clip(ids - lo, 0, len(table) - 1)``, zero where ``ids`` lies
     outside the piece; backward, each token's gradient added into the row
-    it read (``index_add_``)."""
+    it read (``index_add_``; a token outside the piece adds a zero row,
+    so the backward's shapes, and its launches, do not depend on the
+    ids)."""
 
     @staticmethod
     def forward(ctx, table, ids, lo: int):
@@ -94,7 +96,9 @@ class PieceRows(torch.autograd.Function):
     def backward(ctx, grad):
         rel, ok = ctx.saved_tensors
         out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
-        out.index_add_(0, rel[ok], grad[ok])
+        out.index_add_(0, rel.clamp(0, ctx.shape[0] - 1).reshape(-1),
+                       torch.where(ok[..., None], grad, 0).reshape(
+                           -1, ctx.shape[1]))
         return out, None, None
 
 

@@ -30,8 +30,7 @@ copied there; the gradient norm counts every logical element once (a
 replicated leaf's first copy).  On a ``(data, model)`` mesh a leaf's
 pieces may be cut in two dimensions (``data`` on ``embed``, ``model`` on
 heads, mlp, experts or vocab); each moment piece is cut as its
-parameter's.  8-bit moments on a model axis above 1 raise (ROADMAP item
-25).
+parameter's.
 
 8-bit moments under a mesh keep the reference's layout: ``q`` and ``s``
 of the flat stacked leaf, their blocks' dim 0 cut over the ``"embed"``
@@ -44,8 +43,14 @@ gradient in the same block placement (``DataParallel``'s reduce-scatter
 in flat order) and, as the parameter, a ``Sharded`` over that placement
 whose piece ``n`` is device ``n``'s whole copy of the stacked leaf (its
 per-layer tensors: the data-parallel replica): each device updates its
-blocks' elements there in place, and ``DataParallel.exchange`` copies them
-into the parameter pieces.
+blocks' elements there in place, and ``DataParallel.exchange`` copies
+them into the parameter pieces.  On a model axis above 1 piece ``n`` is
+an object that reads and writes device ``n``'s blocks' elements in flat
+ranges (``read(a, b)``, ``write(a, b, values)``; ``DataParallel``'s reads
+them from its data replica's model pieces and writes them into the
+parameter pieces, the exchange).  The blocks are replicated over
+``model``, so every model replica of a data index runs the same update
+on the same elements.
 """
 from __future__ import annotations
 
@@ -56,7 +61,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.sharding import Placement, Sharded, blocks_placement
-from repro_torch.launch.tensor_parallel import QUANTIZED
 from repro_torch.models import params as pr
 
 CHUNK = 1 << 24      # elements of one chunk of a stacked leaf's update
@@ -134,8 +138,6 @@ def _sharded_q8_zeros(leaf, shd, block: int) -> dict:
     if shd is None:
         raise ValueError("8-bit moments of Sharded parameters need shd= "
                          "(the rules that place their blocks)")
-    if shd.mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(QUANTIZED)
     nb = -(-math.prod(pr.stacked_shape(leaf)) // block)
     pl = blocks_placement(shd, nb, block)
     pieces = []
@@ -211,6 +213,24 @@ def _write(parts, a: int, b: int, values: torch.Tensor) -> None:
         off += piece.numel()
 
 
+class FlatParts:
+    """A flat stacked leaf held by ``parts`` (the flat concatenation of
+    tensors of one size), read and written in flat ranges of its
+    elements (views where one part holds a range)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def numel(self) -> int:
+        return sum(x.numel() for x in self.parts)
+
+    def read(self, a: int, b: int) -> torch.Tensor:
+        return read_range(self.parts, a, b)
+
+    def write(self, a: int, b: int, values: torch.Tensor) -> None:
+        _write(self.parts, a, b, values)
+
+
 def _moment(mom, a: int, b: int, block: int) -> torch.Tensor:
     if isinstance(mom, dict):
         blocks = slice(a // block, -(-b // block))
@@ -231,14 +251,15 @@ def _store(mom, a: int, b: int, values: torch.Tensor, block: int) -> None:
 def _update_leaf(ps, gs, m, v, scale, lr, c1, c2, cfg, lo: int = 0,
                  hi: int | None = None) -> None:
     """Elements ``[lo, hi)`` (by default all) of the flat stacked leaf
-    ``ps``; the gradient parts ``gs`` and the moments hold them from their
-    own element 0 (``lo`` is a multiple of ``q_block``)."""
-    hi = ps[0].numel() * len(ps) if hi is None else hi
+    ``ps`` (a :class:`FlatParts`, or anything with its ``read`` and
+    ``write``); the gradient parts ``gs`` and the moments hold them from
+    their own element 0 (``lo`` is a multiple of ``q_block``)."""
+    hi = ps.numel() if hi is None else hi
     chunk = max(CHUNK // cfg.q_block, 1) * cfg.q_block
     for a in range(lo, hi, chunk):
         b = min(a + chunk, hi)
         g = read_range(gs, a - lo, b - lo).float() * scale
-        p = read_range(ps, a, b).float()
+        p = ps.read(a, b).float()
         m_f = cfg.b1 * _moment(m, a - lo, b - lo, cfg.q_block) + \
             (1 - cfg.b1) * g
         v_f = cfg.b2 * _moment(v, a - lo, b - lo, cfg.q_block) + \
@@ -246,15 +267,16 @@ def _update_leaf(ps, gs, m, v, scale, lr, c1, c2, cfg, lo: int = 0,
         mh = m_f / c1
         vh = v_f / c2
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p
-        _write(ps, a, b, p - lr * delta)
+        ps.write(a, b, p - lr * delta)
         _store(m, a - lo, b - lo, m_f, cfg.q_block)
         _store(v, a - lo, b - lo, v_f, cfg.q_block)
 
 
 def _update_blocks(p, g, m, v, scalars, cfg) -> None:
     """An 8-bit ``Sharded`` leaf (see the module docstring): device ``n``
-    updates the elements of its run of blocks in its copy ``p.pieces[n]``
-    of the stacked leaf, from its gradient piece."""
+    updates the elements of its run of blocks in ``p.pieces[n]`` (its copy
+    of the stacked leaf, or what reads and writes them), from its
+    gradient piece."""
     pl, shape = m["q"].placement, m["q"].shape
     if not (isinstance(p, Sharded) and isinstance(g, Sharded)
             and p.placement == pl == g.placement):
@@ -264,7 +286,9 @@ def _update_blocks(p, g, m, v, scalars, cfg) -> None:
     n_el = math.prod(p.shape)
     for n, dev in enumerate(pl.mesh.devices):
         blocks = pl.block(n, shape)[0]
-        _update_leaf(_parts(p.pieces[n]), [g.pieces[n]],
+        src = p.pieces[n]
+        _update_leaf(src if hasattr(src, "read") else
+                     FlatParts(_parts(src)), [g.pieces[n]],
                      {k: m[k].pieces[n] for k in m},
                      {k: v[k].pieces[n] for k in v},
                      *(x.to(dev) for x in scalars), cfg,
@@ -293,11 +317,12 @@ def update(params, grads, state, cfg: AdamWConfig):
             _update_blocks(p, g, m, v, (scale, lr, c1, c2), cfg)
             continue
         if not isinstance(m, Sharded):
-            _update_leaf(_parts(p), _parts(g), m, v, scale, lr, c1, c2, cfg)
+            _update_leaf(p if hasattr(p, "read") else FlatParts(_parts(p)),
+                         _parts(g), m, v, scale, lr, c1, c2, cfg)
             continue
         for n, (mn, vn) in enumerate(zip(m.pieces, v.pieces)):
             dev = mn.device
-            _update_leaf([x.pieces[n] for x in _parts(p)],
+            _update_leaf(FlatParts([x.pieces[n] for x in _parts(p)]),
                          [x.pieces[n] for x in _parts(g)], mn, vn,
                          scale.to(dev), lr.to(dev), c1.to(dev), c2.to(dev),
                          cfg)

@@ -60,7 +60,13 @@ several pieces compute with (kv heads the model axis does not divide,
 rwkv6's ``mu`` and ``w_lora_a``, a norm's scale cut by the pieces' use)
 sums their gradients first.  The program is the
 reference's global one: its single-device result is what the pieces
-compute.  8-bit moments on such a mesh raise (ROADMAP item 25).
+compute.  With 8-bit moments the blocks stay cut over ``data`` alone (the
+reference's layout), so every model replica of a data index holds the
+same run of blocks: its flat run of the gradient is summed over ``data``
+and assembled from the data replica's model pieces, and each model
+replica updates that run identically, reading the parameters from the
+data replica's model blocks and writing the new values straight into the
+pieces cut over ``data`` and ``model`` (:class:`FlatRun`).
 """
 from __future__ import annotations
 
@@ -161,56 +167,86 @@ def _accumulate(p, acc) -> None:
 
 
 # ----------------------------------------------------------- data parallel
-def flat_boxes(lo: int, hi: int, a: int, s: int, c: int) -> list:
-    """The flat range ``[lo, hi)`` of an ``(a, s, c)`` array as at most
-    five boxes ``(a0, a1, s0, s1, c0, c1)``."""
-    boxes, f = [], lo
-    if f < hi and f % c:                        # the rest of a c-row
-        r, e = f // c, min(hi, (f // c + 1) * c)
-        boxes.append((r // s, r // s + 1, r % s, r % s + 1, f % c,
-                      f % c + e - f))
-        f = e
-    if f < hi and (f // c) % s:                 # the rest of an s-block
-        r = f // c
-        end = min(hi // c, (r // s + 1) * s)
-        if end > r:
-            boxes.append((r // s, r // s + 1, r % s, r % s + end - r, 0, c))
-            f = end * c
-    if f < hi:                                  # whole s-blocks
-        r, end = f // (s * c), hi // (s * c)
-        if end > r:
-            boxes.append((r, end, 0, s, 0, c))
-            f = end * s * c
-    if f < hi:                                  # whole c-rows
-        r, end = f // c, hi // c
-        if end > r:
-            boxes.append((r // s, r // s + 1, r % s, r % s + end - r, 0, c))
-            f = end * c
-    if f < hi:                                  # part of a c-row
-        r = f // c
-        boxes.append((r // s, r // s + 1, r % s, r % s + 1, 0, hi - f))
+def flat_boxes(lo: int, hi: int, *shape: int) -> list:
+    """The flat range ``[lo, hi)`` of a C-ordered array of ``shape`` as at
+    most ``2 len(shape) - 1`` boxes, each the ``(start, stop)`` of every
+    dimension in turn."""
+    if lo >= hi:
+        return []
+    if len(shape) == 1:
+        return [(lo, hi)]
+    inner, rest = math.prod(shape[1:]), shape[1:]
+    r0, r1 = lo // inner, hi // inner
+    if r0 == (hi - 1) // inner:                 # within one row
+        return [(r0, r0 + 1) + b for b in
+                flat_boxes(lo - r0 * inner, hi - r0 * inner, *rest)]
+    boxes = []
+    if lo % inner:                              # the rest of a row
+        boxes += [(r0, r0 + 1) + b for b in
+                  flat_boxes(lo % inner, inner, *rest)]
+        r0 += 1
+    if r1 > r0:                                 # whole rows
+        boxes.append((r0, r1) + tuple(x for n in rest for x in (0, n)))
+    if hi % inner:                              # part of a row
+        boxes += [(r1, r1 + 1) + b for b in flat_boxes(0, hi % inner,
+                                                         *rest)]
     return boxes
 
 
+def _range_boxes(shape, block: tuple, lo: int, hi: int):
+    """The elements at flat indices ``[lo, hi)`` of a tensor of ``shape``
+    that lie in ``block`` (slices, cut in any dimensions), as boxes of
+    slices of the tensor."""
+    for box in flat_boxes(lo, hi, *shape):
+        sl = tuple(slice(max(box[2 * i], b.start), min(box[2 * i + 1],
+                                                        b.stop))
+                   for i, b in enumerate(block))
+        if all(x.start < x.stop for x in sl):
+            yield sl
+
+
+def _run_box(run: torch.Tensor, base: int, shape, box: tuple):
+    """The elements ``box`` (slices of a C-ordered tensor of ``shape``) in
+    ``run``, a flat contiguous tensor holding that tensor's elements from
+    flat index ``base``, as a strided view."""
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    start = sum(x.start * st for x, st in zip(box, strides)) - base
+    return run.as_strided(tuple(x.stop - x.start for x in box), strides,
+                          run.storage_offset() + start)
+
+
 def copy_flat_range(dst: torch.Tensor, src: torch.Tensor, block: tuple,
-                    lo: int, hi: int) -> None:
-    """Copy the elements of ``src`` (a whole tensor) at flat indices
-    ``[lo, hi)`` that lie in ``block`` (slices, at most one dimension
-    cut) into ``dst``, the block-shaped piece."""
-    shape = src.shape
-    cut = [i for i, (sl, n) in enumerate(zip(block, shape))
-           if (sl.start, sl.stop) != (0, n)]
-    if len(cut) > 1:
-        raise NotImplementedError(f"a block cut in dimensions {cut}")
-    d = cut[0] if cut else 0
-    a, c = math.prod(shape[:d]), math.prod(shape[d + 1:])
-    s0, s1 = block[d].start, block[d].stop
-    src3, dst3 = src.view(a, shape[d], c), dst.view(a, s1 - s0, c)
-    for a0, a1, t0, t1, c0, c1 in flat_boxes(lo, hi, a, shape[d], c):
-        u0, u1 = max(t0, s0), min(t1, s1)
-        if u0 < u1:
-            dst3[a0:a1, u0 - s0:u1 - s0, c0:c1].copy_(
-                src3[a0:a1, u0:u1, c0:c1])
+                    lo: int, hi: int, shape=None, base: int = 0) -> None:
+    """Copy the elements at flat indices ``[lo, hi)`` of a tensor of
+    ``shape`` that lie in ``block`` (slices, cut in any dimensions: a
+    parameter piece cut over ``data`` and ``model``) into ``dst``, the
+    block-shaped piece.  ``src`` is the whole tensor (``shape`` None), or
+    a flat run of it holding its elements from flat index ``base``."""
+    whole = shape is None
+    shape = tuple(src.shape) if whole else tuple(shape)
+    for box in _range_boxes(shape, block, lo, hi):
+        dst[sh.relative(box, block)].copy_(
+            src[box] if whole else _run_box(src, base, shape, box))
+
+
+def _into_run(run, base: int, shape, src, region: tuple, lo: int,
+              hi: int, add: bool) -> None:
+    """Write (or add) the elements of ``src``, the ``region``-shaped
+    block of a tensor of ``shape``, at flat indices ``[lo, hi)`` into
+    ``run`` (a flat run of that tensor from flat index ``base``)."""
+    for box in _range_boxes(shape, region, lo, hi):
+        out = _run_box(run, base, shape, box)
+        part = src[sh.relative(box, region)]
+        if add:
+            out.add_(part.to(out.device, torch.float32))
+        else:
+            out.copy_(part)
+
+
+def _layer_span(lo: int, hi: int, layer_n: int, layers: int) -> range:
+    """The layers of a stacked leaf that the flat range ``[lo, hi)``
+    touches."""
+    return range(lo // layer_n, min(-(-hi // layer_n), layers))
 
 
 def _block_shape(block: tuple) -> tuple:
@@ -222,6 +258,59 @@ def _layer_grads(parts) -> list:
     the loss does not reach one)."""
     return [torch.zeros_like(p) if p.grad is None else p.grad
             for p in parts]
+
+
+class FlatRun:
+    """Device ``n``'s run ``[lo, hi)`` of blocks of a flat stacked leaf on a
+    model axis above 1, as AdamW reads and writes it
+    (``adamw.FlatParts``' protocol, in flat indices of the leaf): read
+    from the model blocks of device ``n``'s data replica (``reps``, the
+    models' stacked leaves; ``regions``, their per-layer model-only
+    placements), gathered at the step's start; written into the parameter
+    pieces on device ``n``'s model index that hold the elements (``x``,
+    the leaf's per-layer ``Sharded`` pieces; where the blocks are not cut
+    over ``data``, device ``n``'s own piece alone)."""
+
+    def __init__(self, dp, n: int, x, regions, reps, run, cut_data: bool):
+        m = dp.model
+        self.layers = x if isinstance(x, list) else [x]
+        self.regions = regions if isinstance(regions, list) else [regions]
+        self.shape = tuple(self.layers[0].shape)
+        self.layer_n = math.prod(self.shape)
+        self.cut = bool(sh.axes_of(self.regions[0]))
+        first = n - n % m
+        # the model blocks holding the run: every piece's where the leaf is
+        # cut over model, else device n's own (each holds it whole)
+        self.sources = [(r, reps[r] if isinstance(reps[r], list) else
+                         [reps[r]]) for r in (range(first, first + m)
+                                              if self.cut else (n,))]
+        self.targets = range(n % m, len(dp.devices), m) if cut_data \
+            else (n,)
+        self.device, self.lo, self.hi = dp.devices[n], *run
+        self.dtype = self.sources[0][1][0].dtype
+
+    def _span(self, a: int, b: int):
+        for i in _layer_span(a, b, self.layer_n, len(self.layers)):
+            yield i, a - i * self.layer_n, max(a - i * self.layer_n, 0), \
+                min(b - i * self.layer_n, self.layer_n)
+
+    @torch.no_grad()
+    def read(self, a: int, b: int) -> torch.Tensor:
+        out = torch.empty(b - a, dtype=self.dtype, device=self.device)
+        for i, base, lo, hi in self._span(a, b):
+            for r, parts in self.sources:
+                _into_run(out, base, self.shape, parts[i],
+                          self.regions[i].block(r, self.shape), lo, hi,
+                          False)
+        return out
+
+    @torch.no_grad()
+    def write(self, a: int, b: int, values: torch.Tensor) -> None:
+        for i, base, lo, hi in self._span(a, b):
+            xi = self.layers[i]
+            for t in self.targets:
+                copy_flat_range(xi.pieces[t], values, xi.placement.block(
+                    t, xi.shape), lo, hi, self.shape, base)
 
 
 class DataParallel:
@@ -240,7 +329,9 @@ class DataParallel:
     ran and their bytes on one device (the output's: a gathered tensor, a
     float32 gradient piece, a parameter piece filled by the exchange, a
     sum over the model pieces), as the reference's dry run counts them in
-    a device's program; :meth:`reset_collectives` zeroes it."""
+    a device's program: the data axis's, and the model axis's of data
+    replica 0's group (``groups[0]`` alone carries the counter);
+    :meth:`reset_collectives` zeroes it."""
 
     def __init__(self, model, shd):
         """Split ``model`` over ``shd``'s mesh.  With a model axis above 1
@@ -252,7 +343,6 @@ class DataParallel:
             raise ValueError("the model carries no logical axes (build it "
                              "with lm.init_model, or pass axes= to "
                              "convert.lm_params_from_numpy)")
-        tp.check(model.cfg, mesh)
         self.shd, self.cfg = shd, model.cfg
         self.collectives = tp.zero_collectives()
         self.devices = tuple(mesh.devices)
@@ -280,7 +370,8 @@ class DataParallel:
                 for n, d in enumerate(self.devices)]
             count = functools.partial(tp.count_into, self.collectives)
             self.groups = [tp.Group(self.models[i * m:(i + 1) * m],
-                                    self.devices[i * m:(i + 1) * m], count)
+                                    self.devices[i * m:(i + 1) * m],
+                                    count if i == 0 else None)
                            for i in range(self.data)]
             with torch.no_grad():
                 for p in model.parameters():
@@ -345,24 +436,58 @@ class DataParallel:
         nb = -(-math.prod(pr.stacked_shape(leaf)) // q_block)
         return sh.blocks_placement(self.shd, nb, q_block)
 
+    def _run(self, n: int, pl: sh.Placement, nb: int, q_block: int,
+             n_el: int) -> tuple[int, int]:
+        """Device ``n``'s run ``[lo, hi)`` of a flat stacked leaf of
+        ``n_el`` elements in ``nb`` blocks placed by ``pl``."""
+        bs = pl.block(n, (nb, q_block))[0]
+        return bs.start * q_block, min(bs.stop * q_block, n_el)
+
     def flat_params(self, q_block: int) -> dict:
         """The parameters as AdamW takes them beside 8-bit moments: the
         stacked tree, each leaf a ``Sharded`` over its moments' block
-        placement whose piece ``n`` is replica ``n``'s per-layer tensors
-        of the leaf (device ``n``'s whole copy, refilled by
-        :meth:`gather`; no copy is made)."""
-        return pr.stacked_map(
-            lambda x, *reps: sh.Sharded(
-                self._blocks(x, q_block),
-                [r if isinstance(r, list) else [r] for r in reps],
-                pr.stacked_shape(x)), *self._stacked())
+        placement.  With a model axis of 1 its piece ``n`` is replica
+        ``n``'s per-layer tensors of the leaf (device ``n``'s whole copy,
+        refilled by :meth:`gather`; no copy is made), and :meth:`exchange`
+        puts the new values into the pieces.  Above 1 it is a
+        :class:`FlatRun` of device ``n``'s run of blocks, which reads them
+        from its data replica's model blocks (an all-gather over
+        ``model`` where the leaf is cut over it) and writes the new values
+        straight into the parameter pieces (the exchange, an all-to-all
+        over ``data`` where the blocks are cut over it)."""
+        if self.blocks is None:
+            return pr.stacked_map(
+                lambda x, *reps: sh.Sharded(
+                    self._blocks(x, q_block),
+                    [r if isinstance(r, list) else [r] for r in reps],
+                    pr.stacked_shape(x)), *self._stacked())
+
+        def one(x, regions, *reps):
+            pl, shape = self._blocks(x, q_block), pr.stacked_shape(x)
+            nb, n_el = -(-math.prod(shape) // q_block), math.prod(shape)
+            cut = sh.data_cut(pl) > 1
+            runs = [FlatRun(self, n, x, regions, reps,
+                            self._run(n, pl, nb, q_block, n_el), cut)
+                    for n in range(len(self.devices))]
+            first = runs[0]
+            if first.cut:
+                self._count("all-gather", (first.hi - first.lo) *
+                            first.dtype.itemsize)
+            if cut:
+                for xi in first.layers:
+                    self._count("all-to-all", xi.pieces[0].numel() *
+                                xi.pieces[0].element_size())
+            return sh.Sharded(pl, runs, shape)
+        return pr.stacked_map(one, pr.stack_tree(self.params),
+                              pr.stack_tree(self.blocks),
+                              *(pr.stack_tree(x.tree()) for x in self.models))
 
     @torch.no_grad()
     def exchange(self, flat: dict, q_block: int) -> None:
-        """After AdamW's update of :meth:`flat_params`: copy each
-        device's blocks' new elements from its replica into the
-        parameter pieces that hold them (an all-to-all; where the blocks
-        are replicated, each piece from its own device's copy)."""
+        """After AdamW's update of :meth:`flat_params` (a model axis of
+        1): copy each device's blocks' new elements from its replica into
+        the parameter pieces that hold them (an all-to-all; where the
+        blocks are replicated, each piece from its own device's copy)."""
         def one(x, fp):
             parts = x if isinstance(x, list) else [x]
             pl, layer_n = fp.placement, math.prod(parts[0].shape)
@@ -416,7 +541,11 @@ class DataParallel:
         of ``Sharded`` pieces, or adds it into ``into``.  With ``q_block``
         (8-bit moments) the tree is the stacked one and each piece holds
         its device's run of ``(nblocks, q_block)`` blocks of the flat
-        stacked gradient (zero past its end)."""
+        stacked gradient (zero past its end): with a model axis above 1,
+        summed over ``data`` and assembled from its data replica's model
+        pieces (an all-gather over ``model`` where the leaf is cut over
+        it, an all-reduce where several pieces computed with a whole
+        leaf)."""
         def count(pl, numel):
             if split and self.data > 1:
                 self._count("reduce-scatter" if sh.data_cut(pl) > 1
@@ -452,21 +581,38 @@ class DataParallel:
             count(x.placement, pieces[0].numel())
             return sh.Sharded(x.placement, pieces, x.shape)
 
-        def flat(x, *reps):
+        def flat(x, *reps, regions=None):
             pl = self._blocks(x, q_block)
             parts = [r if isinstance(r, list) else [r] for r in reps]
             n_el, pieces = math.prod(pr.stacked_shape(x)), []
-            nb = -(-n_el // q_block)
+            nb, m = -(-n_el // q_block), self.model
+            layer = tuple((x[0] if isinstance(x, list) else x).shape)
+            layer_n = math.prod(layer)
             for n, dev in enumerate(self.devices):
-                bs = pl.block(n, (nb, q_block))[0]
-                lo, hi = bs.start * q_block, min(bs.stop * q_block, n_el)
-                acc = torch.zeros((bs.stop - bs.start, q_block),
+                lo, hi = self._run(n, pl, nb, q_block, n_el)
+                acc = torch.zeros((-(-(hi - lo) // q_block), q_block),
                                   dtype=torch.float32, device=dev)
                 run = acc.view(-1)[:hi - lo]
-                for r in (range(len(parts)) if split else (n,)):
-                    g = adamw.read_range(_layer_grads(parts[r]), lo, hi)
-                    run.add_(g.to(dev, torch.float32))
+                if regions is None:
+                    for r in (range(len(parts)) if split else (n,)):
+                        g = adamw.read_range(_layer_grads(parts[r]), lo, hi)
+                        run.add_(g.to(dev, torch.float32))
+                for r in (() if regions is None else
+                          range(len(parts)) if split else
+                          range(n - n % m, n - n % m + m)):
+                    for i in _layer_span(lo, hi, layer_n, len(parts[r])):
+                        p = parts[r][i]
+                        if p.grad is not None:
+                            _into_run(run, lo - i * layer_n, layer, p.grad,
+                                      regions[i].block(r, layer),
+                                      max(lo - i * layer_n, 0),
+                                      min(hi - i * layer_n, layer_n), True)
                 pieces.append(acc)
+            if regions is not None:
+                if sh.axes_of(regions[0]):
+                    self._count("all-gather", pieces[0].numel() * 4)
+                elif sum(parts[j][0].grad is not None for j in range(m)) > 1:
+                    self._count("all-reduce", pieces[0].numel() * 4)
             for ps in parts:
                 for p in ps:
                     p.grad = None
@@ -480,8 +626,14 @@ class DataParallel:
         elif q_block is None:
             g = pr.tree_map(one, self.params,
                             *(m.tree() for m in self.models))
-        else:
+        elif self.blocks is None:
             g = pr.stacked_map(flat, *self._stacked())
+        else:
+            g = pr.stacked_map(
+                lambda x, b, *reps: flat(
+                    x, *reps, regions=b if isinstance(b, list) else [b]),
+                pr.stack_tree(self.params), pr.stack_tree(self.blocks),
+                *self._stacked()[1:])
         if into is not None:
             pr.tree_map(lambda acc, x: [a.add_(b) for a, b in
                                         zip(acc.pieces, x.pieces)], into, g)
@@ -559,7 +711,7 @@ def _data_parallel_step(cfg, opt_cfg, shd, microbatches: int):
             g = dp.reduce_scatter(split, q_block=q)
         params = dp.params if q is None else dp.flat_params(q)
         opt_state, opt_metrics = adamw.update(params, g, opt_state, opt_cfg)
-        if q is not None:
+        if q is not None and dp.blocks is None:
             dp.exchange(params, q)
         return opt_state, dict(metrics, **opt_metrics)
 
@@ -594,7 +746,6 @@ class Trainer:
         lm.check_family(model_cfg)
         self.shd = None
         if mesh is not None:
-            tp.check(model_cfg, mesh, tc.opt.quantize_moments)
             if not mesh.devices:
                 raise ValueError("the mesh holds no device")
             for d in set(mesh.devices):

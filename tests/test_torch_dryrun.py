@@ -16,7 +16,14 @@ against the JAX package's ``launch/dryrun.py`` and ``hlo_analysis.py``.
 * ``abstract_init`` shapes, dtypes and axes, ``cache_axes`` and
   ``should_skip`` equal the reference's;
 * the reckoned collective bytes equal those ``DataParallel`` counts in a
-  step on simulated CPU meshes (exact), float32 and 8-bit moments;
+  step on simulated CPU meshes (exact), float32 and 8-bit moments; on
+  ``(1, 2)`` and ``(2, 2)`` meshes, where one data replica's program is
+  traced over its model pieces, for every family's train step (float32
+  and 8-bit), prefill and decode step, the model axis's too
+  (``DataParallel`` / ``ModelPieces``' counters);
+* over the pieces, piece 0's traced flops equal an analytic count of its
+  products (granite and zamba2 at ``(1, 2)``); records on a model axis of
+  1 are what they were before the pieces were traced (pinned numbers);
 * the CLI writes a cell's JSON in a subprocess that never imports JAX,
   and a cell that raises records ``status: "error"``.
 """
@@ -45,10 +52,13 @@ from repro_torch.data.pipeline import batch_struct, synth_batch
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import step_analysis as sa
-from repro_torch.launch.mesh import make_shard_mesh, production_mesh
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import (ShardMesh, make_shard_mesh,
+                                     make_simulated_mesh, production_mesh)
 from repro_torch.models import lm
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
+from repro_torch.serve import engine
 from repro_torch.train import loop
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -333,6 +343,202 @@ def test_reckoned_collectives_equal_the_counted_ones(arch, k, q_block, batch,
         assert rec["collectives"] == want
 
 
+def _with(coll: dict, more: dict) -> dict:
+    out = {k: dict(v) for k, v in coll.items() if isinstance(v, dict)}
+    for kind, v in more.items():
+        out[kind]["count"] += v["count"]
+        out[kind]["bytes"] += v["bytes"]
+    return out
+
+
+FAMILY_ARCHS = ["granite_3_2b", "qwen3_moe_235b_a22b", "rwkv6_3b",
+                "zamba2_1p2b", "whisper_small", "paligemma_3b"]
+PIECE_KINDS = [("train", None), ("train", 32), ("prefill", None),
+               ("decode", None)]
+
+
+@pytest.mark.parametrize("kind,q_block", PIECE_KINDS,
+                         ids=["train", "train_8bit", "prefill", "decode"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_reckoned_collectives_over_model_pieces_equal_the_counted_ones(
+        arch, mesh, kind, q_block):
+    """``reckon`` traces one data replica's program over its model pieces:
+    its collectives equal the data axes' (``reckon_collectives``) plus
+    the model axis's that ``DataParallel`` counts in a train step (8-bit:
+    the run's assembly too), or ``ModelPieces`` in ``engine.prefill`` /
+    ``lm.decode_step`` at the last slot of a full cache, exactly.  zamba2
+    at 2 layers, the shared block after the second (its program at a
+    third of the trace's cost)."""
+    cfg = get_config(arch).reduced()
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(num_layers=2, shared_attn_every=2)
+    m = make_simulated_mesh(*mesh, device="cpu")
+    shd = sh.Shd(m, sh.default_rules(m))
+    opt = {"quantize_moments": True, "q_block": q_block} if q_block else None
+    rec = dr.reckon(cfg, kind, {"seq_len": 12, "global_batch": 4}, m,
+                    shd.rules, opt)
+    model = lm.init_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+    leaves = sa.stacked_leaves(model.tree(), model.axes)
+    data = {k: torch.as_tensor(x) for k, x in
+            synth_batch(cfg, 4, 12, 0).items()}
+    if kind == "train":
+        dp = loop.DataParallel(model, shd)
+        oc = adamw.AdamWConfig(**(opt or {}))
+        state = adamw.init(dp.tree(), oc, shd=shd)
+        dp.reset_collectives()
+        loop.make_train_step(cfg, oc, shd=shd)(dp, state, data)
+        counted = dp.collectives
+    else:
+        mp = tp.ModelPieces(model, shd)
+        with torch.no_grad():
+            if kind == "prefill":
+                engine.prefill(mp, cfg, {k: v for k, v in data.items()
+                                         if k not in ("labels", "loss_mask")},
+                               max_len=12 + lm.prefix_slots(cfg))
+            else:
+                cache = lm.init_cache_pieces(mp, 4, 12)
+                mp.reset_collectives()
+                lm.decode_step(mp, cfg, cache, torch.zeros(
+                    (4, 1), dtype=torch.int32), 11,
+                    prefix_len=lm.prefix_slots(cfg))
+        counted = _with(sa.reckon_collectives(shd, leaves, kind),
+                        mp.collectives)
+    assert {k: v for k, v in rec["collectives"].items()
+            if k != "total_bytes"} == counted
+    assert rec["collectives"]["total_bytes"] == sum(
+        v["bytes"] for v in counted.values())
+    assert any(v["count"] for v in rec["traced"]["model_collectives"]
+               .values())
+    # one fake device a traced piece (every replica where qwen3-moe's one
+    # dispatch group spans both), and host scalars and shapes beside them
+    devices, k = rec["traced"]["devices"], rec["traced"]["replicas"]
+    assert k == (2 if (arch, mesh) == ("qwen3_moe_235b_a22b", (2, 2))
+                 else 1)
+    pieces = [d for d in devices if ":" in d]
+    assert sorted(pieces) == [f"cpu:{j}" for j in range(k * mesh[1])]
+    assert all(devices[d]["flops"] == 0 for d in devices if ":" not in d)
+    assert rec["cost"]["flops"] == devices["cpu:0"]["flops"]
+    assert rec["traced"]["mesh_flops"] == mesh[0] // k * sum(
+        d["flops"] for d in devices.values())
+
+
+def _piece_products(cfg, B: int, S: int):
+    """Piece 0's forward flops at (1, 2) of granite (q heads, mlp and
+    vocab cut in two, the one kv head whole in every piece) or zamba2
+    (``in_proj`` columns, heads, ``out_proj`` rows, the shared block's
+    heads, kv heads and mlp, and the vocabulary cut in two; every piece
+    reads all of ``B`` and ``C``), and the products autograd skips."""
+    t, d, h, hd = B * S, cfg.d_model, cfg.num_heads // 2, cfg.head_dim
+    kv = cfg.num_kv_heads // 2 if cfg.num_kv_heads % 2 == 0 else \
+        cfg.num_kv_heads
+    attn = (_mm(t, d, h * hd) + 2 * _mm(t, d, kv * hd)
+            + 2 * _mm(B * h, S, hd, S) + _mm(t, h * hd, d)
+            + 2 * _mm(t, d, cfg.d_ff // 2) + _mm(t, cfg.d_ff // 2, d))
+    logits = _mm(t, d, cfg.vocab_size // 2)
+    if cfg.family == "dense":
+        return cfg.num_layers * attn + logits, 0
+    q, n, heads, p = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads // 2, \
+        cfg.ssm_head_dim
+    width = 2 * cfg.d_inner + 2 * n + cfg.ssm_heads
+    chunk = (_mm(B, q, n, q) + _mm(B * heads, q, q, p)
+             + 2 * _mm(B, q, n, heads * p))
+    layer = (_mm(t, d, width // 2) + _mm(t, cfg.d_inner // 2, d)
+             + (S // q) * chunk)
+    applied = cfg.num_layers // cfg.shared_attn_every
+    return (cfg.num_layers * layer + applied * attn + logits,
+            cfg.num_layers * 3 * _mm(B, q, n, heads * p))
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "zamba2_1p2b"])
+def test_piece_flops_equal_an_analytic_count_of_their_products(arch):
+    """A train step at (1, 2), tokens (2, 16) (two SSD chunks of 8):
+    device 0's flops are piece 0's products, forward and backward (twice
+    each forward product but the skipped boundaries of the SSD's chunk
+    scan); the two pieces' sum is the mesh's."""
+    cfg = get_config(arch).reduced()
+    mesh = make_simulated_mesh(1, 2, device="cpu")
+    rec = dr.reckon(cfg, "train", {"seq_len": 16, "global_batch": 2}, mesh,
+                    sh.default_rules(mesh))
+    fwd, skipped = _piece_products(cfg, 2, 16)
+    assert rec["cost"]["flops"] == 3 * fwd - skipped
+    assert rec["traced"]["mesh_flops"] == rec["traced"]["flops"]
+
+
+@pytest.mark.parametrize("arch,layers,mesh,kind", [
+    ("granite_3_2b", 12, (2, 2), "train"),
+    ("qwen3_moe_235b_a22b", 10, (2, 2), "decode"),
+    ("zamba2_1p2b", 20, (1, 2), "decode")])
+def test_a_deep_model_traced_at_two_depths_equals_its_whole_trace(
+        arch, layers, mesh, kind, monkeypatch):
+    """Past ``TRACE_LAYERS`` a model is traced at two cut depths, a
+    period of its layers apart (granite and qwen3-moe 2 and 3 layers,
+    zamba2, whose shared block follows every 6th, 8 and 14), and
+    extrapolated: device 0's flops, bytes accessed and peak of
+    temporaries (the record's), every device's flops and bytes accessed,
+    the collectives and the mesh's flops equal the whole trace's."""
+    cfg = get_config(arch).reduced().replace(num_layers=layers)
+    m = make_simulated_mesh(*mesh, device="cpu")
+    shape = {"seq_len": 16, "global_batch": 4}
+    cut = dr.reckon(cfg, kind, shape, m, sh.default_rules(m))
+    assert cut["traced"]["depths"] == ([8, 14] if arch == "zamba2_1p2b"
+                                       else [2, 3])
+    monkeypatch.setattr(dr, "TRACE_LAYERS", layers)
+    whole = dr.reckon(cfg, kind, shape, m, sh.default_rules(m))
+    assert "depths" not in whole["traced"]
+    for key in ("cost", "memory", "collectives"):
+        assert cut[key] == whole[key], key
+    for key in ("mesh_flops", "model_collectives"):
+        assert cut["traced"][key] == whole["traced"][key], key
+    for dev, d in whole["traced"]["devices"].items():
+        for key in ("flops", "memory_bytes"):
+            assert cut["traced"]["devices"][dev][key] == d[key], (dev, key)
+
+
+# a model axis of 1: (argument, output, temp bytes; flops, bytes
+# accessed; the trace's flops, bytes accessed and peak, its divisor; the
+# collective bytes), as the single-device trace reckoned them before the
+# pieces were traced (reduced(), tokens (4, 12))
+MODEL_AXIS_1 = [
+    ("granite_3_2b", "train", 2, None,
+     (520228, 519960, 467604, 12828672, 13601124, 25657344, 27202248,
+      935208, 2, 517376)),
+    ("granite_3_2b", "train", 2, {"quantize_moments": True, "q_block": 32},
+     (270732, 270464, 501396, 12828672, 18284852, 25657344, 36569704,
+      1002792, 2, 690048)),
+    ("qwen3_moe_235b_a22b", "prefill", 1, None,
+     (1004992, 16384, 234492, 8388608, 3855664, 8388608, 3855664, 234492,
+      1, 0)),
+    ("rwkv6_3b", "decode", 2, None,
+     (252428, 20480, 39936, 434176, 609256, 868352, 1218512, 79872, 2,
+      396800)),
+    ("zamba2_1p2b", "train", 4, None,
+     (736084, 735960, 1249434, 17662464, 26467474, 70649856, 105869896,
+      4997736, 4, 1125952)),
+]
+
+
+@pytest.mark.parametrize("arch,kind,k,opt,want", MODEL_AXIS_1,
+                         ids=[f"{a}-{kd}-{k}" for a, kd, k, _, _ in
+                              MODEL_AXIS_1])
+def test_records_on_a_model_axis_of_1_are_unchanged(arch, kind, k, opt,
+                                                    want):
+    cfg = get_config(arch).reduced()
+    mesh = make_shard_mesh(k, device="cpu", simulate=True) if k > 1 else \
+        ShardMesh(devices=(torch.device("cpu"),), data=1)
+    rec = dr.reckon(cfg, kind, {"seq_len": 12, "global_batch": 4}, mesh,
+                    sh.default_rules(mesh), opt)
+    m, t = rec["memory"], rec["traced"]
+    assert (m["argument_bytes"], m["output_bytes"], m["temp_bytes"],
+            rec["cost"]["flops"], rec["cost"]["bytes_accessed"],
+            t["flops"], t["memory_bytes"], t["peak_bytes"], t["divisor"],
+            rec["collectives"]["total_bytes"]) == want
+    assert set(t) == {"flops", "memory_bytes", "peak_bytes", "trace_s",
+                      "divisor"}
+
+
 def test_reckoned_argument_bytes_equal_what_a_device_holds():
     """The data-parallel state on a simulated 2-shard mesh: a device's
     pieces of the parameters, moments (float32 and 8-bit), step and batch
@@ -379,7 +585,10 @@ def test_the_cli_writes_a_cell_without_jax(tmp_path):
         v["bytes"] for v in rec["collectives"].values() if isinstance(v, dict))
     assert (rec["seq_len"], rec["global_batch"], rec["kind"]) == \
         (4096, 256, "train")
-    assert rec["cost"]["flops"] == rec["traced"]["flops"] // 512
+    # one data replica's 16 pieces traced; a device is piece 0
+    assert len(rec["traced"]["devices"]) == 16
+    assert rec["cost"]["flops"] == rec["traced"]["devices"]["cpu:0"]["flops"]
+    assert rec["traced"]["mesh_flops"] == rec["traced"]["flops"] * 32
 
 
 def test_cells_record_skips_and_errors(tmp_path, monkeypatch):

@@ -33,12 +33,16 @@ the reference's on one element of 2,048):
   teacher-forced on them the prefill's and each decode step's logits
   against the reference's, past the window for gemma3 and danube;
 * the all-reduces, all-gathers and reduce-scatters a step counts equal to
-  an analytic count (``remat="full"`` re-runs each layer's forward, and
-  its sums, in the backward);
+  an analytic count of one device's program (``remat="full"`` re-runs
+  each layer's forward, and its sums, in the backward), with float32 and
+  with 8-bit moments (the flat run's data-axis sum and its assembly from
+  the model pieces);
 * elastic restarts from ``(2, 2)`` onto ``(1, 1)``, ``(1, 2)`` and
   ``(2, 1)``;
-* 8-bit moments on a model axis refused for every family, citing ROADMAP
-  item 25.
+* ``copy_flat_range`` into a piece cut in two dimensions.
+
+8-bit moments over model pieces are held to the reference in
+``test_torch_tensor_parallel_q8.py``.
 
 The ssm, hybrid, encdec and vlm families over the model axis are held in
 ``test_torch_tensor_parallel_families.py``.
@@ -185,9 +189,9 @@ def test_forward_logits_match_reference(name, mesh):
     assert tuple(got.shape) == ref.logits.shape
     _close(got, ref.logits, f"{name} {mesh} logits")
     if mesh is not None:       # the vocab blocks were gathered once
-        n = mesh[0] if ref.cfg.vocab_size % mesh[1] == 0 else 0
+        n = 1 if ref.cfg.vocab_size % mesh[1] == 0 else 0
         assert p.collectives["all-gather"]["count"] == n + (
-            mesh[0] * ref.cfg.num_layers if ref.cfg.family == "moe" else 0)
+            ref.cfg.num_layers if ref.cfg.family == "moe" else 0)
 
 
 def _step_grads(ref, mesh, monkeypatch):
@@ -450,10 +454,13 @@ def _reference_decode(name):
 
 
 # ------------------------------------------------------------ collectives
-def _model_axis_counts(cfg, mesh, remat: str, batch: int) -> dict:
+def _model_axis_counts(cfg, mesh, remat: str, batch: int,
+                       whole_leaves: bool = True) -> dict:
     """The sums over the model pieces of one train step of ``cfg`` on a
-    ``(data, model)`` mesh, reckoned from the program: (count, bytes) by
-    kind."""
+    ``(data, model)`` mesh in one device's program (data replica 0's
+    group), reckoned from the program: (count, bytes) by kind.
+    ``whole_leaves``: with the float32 moments' all-reduce of the
+    gradients of leaves whole in every piece."""
     d, m = mesh
     out = {"all-reduce": [0, 0], "all-gather": [0, 0]}
 
@@ -466,30 +473,30 @@ def _model_axis_counts(cfg, mesh, remat: str, batch: int) -> dict:
     twice = 2 if remat == "full" else 1     # the layer forward, recomputed
     vocab = cfg.vocab_size % m == 0
     heads = cfg.num_heads % m == 0
-    for _ in range(d):
-        if vocab:
-            add("all-reduce", 1, act, 4)             # lookup
-            add("all-reduce", 1, act, 4)             # logits' copy-in
-            add("all-reduce", 3, (b, S), 4)          # max, sum, label logit
-        for _ in range(cfg.num_layers):
-            if heads:
-                add("all-reduce", twice + 1, act, 4)
-            if cfg.family == "moe":
-                e_cut = cfg.num_experts % m == 0
-                if e_cut:    # the rows' and gates' copy-in, the logits
-                    add("all-reduce", 1, (b * S, cfg.d_model), 4)
-                    add("all-reduce", 1, (b * S, cfg.top_k), 4)
-                    add("all-gather", twice, (b * S, cfg.num_experts), 4)
-            elif cfg.d_ff % m == 0:
-                add("all-reduce", twice + 1, act, 4)
+    if vocab:
+        add("all-reduce", 1, act, 4)             # lookup
+        add("all-reduce", 1, act, 4)             # logits' copy-in
+        add("all-reduce", 3, (b, S), 4)          # max, sum, label logit
+    for _ in range(cfg.num_layers):
+        if heads:
+            add("all-reduce", twice + 1, act, 4)
+        if cfg.family == "moe":
+            e_cut = cfg.num_experts % m == 0
+            if e_cut:    # the rows' and gates' copy-in, the logits
+                add("all-reduce", 1, (b * S, cfg.d_model), 4)
+                add("all-reduce", 1, (b * S, cfg.top_k), 4)
+                add("all-gather", twice, (b * S, cfg.num_experts), 4)
+        elif cfg.d_ff % m == 0:
+            add("all-reduce", twice + 1, act, 4)
     if cfg.family == "moe" and cfg.num_experts % m == 0:
-        t = batch * S                       # each dispatch group's shares
+        t = batch * S          # the shares of the groups replica 0 holds
         g = moe._group_count(t, cfg.moe_group_size)
-        add("all-reduce", twice * g * cfg.num_layers, (t // g,
-                                                       cfg.d_model), 4)
-    if heads and cfg.num_kv_heads % m:      # kv heads whole in every piece
-        add("all-reduce", 2 * cfg.num_layers,
-            (cfg.d_model, cfg.num_kv_heads, cfg.head_dim), 4)
+        mine = min(g, -(-(t // d) // (t // g)))
+        add("all-reduce", twice * mine * cfg.num_layers, (t // g,
+                                                          cfg.d_model), 4)
+    if whole_leaves and heads and cfg.num_kv_heads % m:
+        add("all-reduce", 2 * cfg.num_layers,    # kv heads whole in every
+            (cfg.d_model, cfg.num_kv_heads, cfg.head_dim), 4)   # piece
     return out
 
 
@@ -521,23 +528,88 @@ def test_counted_collectives_equal_an_analytic_count(arch, mesh, remat):
     assert dp.collectives == {c: want[c] for c in sa.COLLECTIVES}
 
 
-# ---------------------------------------------------------------- refused
-@pytest.mark.parametrize("arch", ["granite_3_2b", "rwkv6_3b", "zamba2_1p2b",
-                                  "whisper_small", "paligemma_3b"])
-def test_8_bit_moments_on_a_model_axis_raise_item_25(arch, tmp_path):
-    """Every family trains on a model axis above 1; 8-bit AdamW moments
-    there are refused, citing ROADMAP item 25."""
-    cfg = get_config(arch).reduced()
-    q8 = adamw.AdamWConfig(**OCFG, quantize_moments=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
-        loop.Trainer(cfg, _tc(tmp_path, "t", opt=q8), **_mesh_kw((1, 2)))
-    shd = _shd((1, 2))
-    dp = loop.DataParallel(lm.init_model(cfg, device="cpu"), shd)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
-        adamw.init(dp.tree(), q8, shd=shd)
-    with pytest.raises(NotImplementedError, match="dimensions"):
-        loop.copy_flat_range(torch.zeros(2, 2), torch.zeros(4, 4),
-                             (slice(0, 2), slice(0, 2)), 0, 4)
+def _assembly_counts(cfg, shd, leaves, q_block: int) -> dict:
+    """The model axis's collectives of the 8-bit update on device 0: per
+    stacked leaf cut over ``model``, its float32 gradient run and its
+    parameter run gathered from the pieces; per leaf whole in every piece
+    that several pieces compute with (the kv heads where the q heads are
+    cut and they are not), its gradient run summed."""
+    out = {"all-reduce": [0, 0], "all-gather": [0, 0]}
+    heads = cfg.num_heads % shd.mesh.shape["model"] == 0
+    for shape, _, dtype, axes in leaves:
+        n_el = math.prod(shape)
+        nb = -(-n_el // q_block)
+        acc = sa.piece_numel(sh.blocks_placement(shd, nb, q_block),
+                             (nb, q_block))
+        item = torch.empty((), dtype=dtype).element_size()
+        sums = []
+        if "model" in shd.spec(axes, shape):
+            sums = [("all-gather", acc * 4),
+                    ("all-gather", min(acc, n_el) * item)]
+        elif heads and "kv_heads" in axes:
+            sums = [("all-reduce", acc * 4)]
+        for kind, nbytes in sums:
+            out[kind][0] += 1
+            out[kind][1] += nbytes
+    return out
+
+
+@pytest.mark.parametrize("q_block", [32, 48])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=_mesh_id)
+@pytest.mark.parametrize("arch", ["granite_3_2b", "qwen3_moe_235b_a22b"])
+def test_counted_8_bit_collectives_equal_an_analytic_count(arch, mesh,
+                                                           q_block):
+    """One 8-bit step's counted collectives = the data axis's flat
+    reduce-scatter and all-to-all (``reckon_collectives``) + the model
+    axis's sums of the program + the assembly of each device's run."""
+    cfg = get_config(arch).reduced().replace(remat="full")
+    shd = _shd(mesh)
+    model = lm.init_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+    leaves = sa.stacked_leaves(model.tree(), model.axes)
+    dp = loop.DataParallel(model, shd)
+    oc = adamw.AdamWConfig(quantize_moments=True, q_block=q_block)
+    step = loop.make_train_step(cfg, oc, shd=shd)
+    state = adamw.init(dp.tree(), oc, shd=shd)
+    data = {k: torch.as_tensor(x) for k, x in
+            synth_batch(cfg, B, S, 0).items()}
+    dp.reset_collectives()
+    step(dp, state, data)
+    want = sa.reckon_collectives(shd, leaves, "train", q_block=q_block,
+                                 split=True)
+    for counts in (_model_axis_counts(cfg, mesh, "full", B,
+                                      whole_leaves=False),
+                   _assembly_counts(cfg, shd, leaves, q_block)):
+        for kind, (n, nbytes) in counts.items():
+            want[kind]["count"] += n
+            want[kind]["bytes"] += nbytes
+    assert dp.collectives == {c: want[c] for c in sa.COLLECTIVES}
+
+
+def test_copy_flat_range_fills_a_piece_cut_in_two_dimensions():
+    """Every flat range of a (4, 6, 5) tensor copied into each piece of a
+    (2, 3) cut of its first two dimensions (as ``data`` on ``embed`` and
+    ``model`` on heads cut a parameter) writes exactly the range's
+    elements of that block, from the whole tensor and from a flat run of
+    it alike."""
+    src = torch.arange(120, dtype=torch.float32).reshape(4, 6, 5)
+    flat = src.reshape(-1)
+    for a in range(2):
+        for b in range(3):
+            block = (slice(2 * a, 2 * a + 2), slice(2 * b, 2 * b + 2),
+                     slice(0, 5))
+            ids = src[block]
+            for lo, hi in ((0, 120), (7, 61), (33, 34), (50, 119),
+                           (60, 60)):
+                want = torch.where((ids >= lo) & (ids < hi), ids, -1.0)
+                for run in (None, (lo, flat[lo:hi].clone())):
+                    got = torch.full((2, 2, 5), -1.0)
+                    if run is None:
+                        loop.copy_flat_range(got, src, block, lo, hi)
+                    else:
+                        loop.copy_flat_range(got, run[1], block, lo, hi,
+                                             src.shape, run[0])
+                    assert torch.equal(got, want), (a, b, lo, hi)
 
 
 def test_replicated_rules_give_the_single_device_program(monkeypatch):

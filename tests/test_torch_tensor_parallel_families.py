@@ -211,9 +211,9 @@ def test_forward_logits_match_reference(name, mesh):
         got, _ = lm.forward(mp, ref.cfg, _tbatch(_inputs(ref.batch)))
     assert tuple(got.shape) == ref.logits.shape
     _close(got, ref.logits, f"{name} {mesh} logits", atol=_atol(ref.cfg))
-    # the vocab blocks gathered once a replica (zamba2: and in each layer
-    # its in_proj's and conv's blocks)
-    assert mp.collectives["all-gather"]["count"] == mesh[0] * (
+    # one device's program gathers the vocab blocks once (zamba2: and in
+    # each layer its in_proj's and conv's blocks)
+    assert mp.collectives["all-gather"]["count"] == (
         1 + (2 * ref.cfg.num_layers if ref.cfg.family == "hybrid" else 0))
 
 
@@ -627,8 +627,9 @@ def test_zamba2_decode_over_pieces_runs_every_layer(mesh):
 def _model_axis_counts(cfg, mesh, remat: str, batch: int) -> dict:
     """The collectives over the model pieces of one train step of ``cfg``
     on a ``(data, model)`` mesh at ``reduced()`` widths (every block cut
-    by 2 and 4 there, but paligemma's one kv head), reckoned from the
-    program: (count, bytes) by kind."""
+    by 2 and 4 there, but paligemma's one kv head) in one device's
+    program (data replica 0's group), reckoned from the program: (count,
+    bytes) by kind."""
     d, m = mesh
     out = {"all-reduce": [0, 0], "all-gather": [0, 0]}
 
@@ -640,35 +641,34 @@ def _model_axis_counts(cfg, mesh, remat: str, batch: int) -> dict:
     pre = cfg.num_prefix if cfg.family == "vlm" else 0
     act, rows = (b, pre + S, cfg.d_model), (b, S, 1)
     twice = 2 if remat == "full" else 1     # the layer forward, recomputed
-    for _ in range(d):
-        add("all-reduce", 2, (b, S, cfg.d_model))   # lookup, logits' copy
-        add("all-reduce", 3, (b, S))                # max, sum, label logit
-        for _ in range(cfg.num_layers):
-            if cfg.family == "ssm":     # ln_x's sum, wo's and the FFN's
-                add("all-reduce", twice, rows)
-                add("all-reduce", 2 * twice, act)
-                add("all-reduce", 1, rows)          # backward: ln_x's sum,
-                add("all-reduce", 2, act)           # both mixes' copy-in
-            elif cfg.family == "hybrid":
-                width = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
-                conv = cfg.d_inner + 2 * cfg.ssm_state
-                add("all-gather", twice, (b, S, width))    # in_proj blocks
-                add("all-gather", twice, (b, S, conv))     # conv channels
-                add("all-reduce", twice, rows)             # gated norm
-                add("all-reduce", twice, act)              # out_proj
-                add("all-reduce", 1, rows)                 # backward
-                for shape in (act, (b, S, width), (b, S, conv)):
-                    add("all-reduce", 1, shape)            # the copies in
-            else:                    # attention (and cross) and the MLP
-                n = 3 if cfg.family == "encdec" else 2
-                add("all-reduce", n * (twice + 1), act)
-        if lm._has_shared(cfg):
-            for _ in range(cfg.num_layers // cfg.shared_attn_every):
-                add("all-reduce", 2 * (twice + 1), act)
-        if cfg.family == "encdec":
-            enc = (b, cfg.enc_len, cfg.d_model)
-            add("all-reduce", 2 * (twice + 1) * cfg.enc_layers, enc)
-            add("all-reduce", 1, enc)      # the encoder output's copy-in
+    add("all-reduce", 2, (b, S, cfg.d_model))   # lookup, logits' copy
+    add("all-reduce", 3, (b, S))                # max, sum, label logit
+    for _ in range(cfg.num_layers):
+        if cfg.family == "ssm":     # ln_x's sum, wo's and the FFN's
+            add("all-reduce", twice, rows)
+            add("all-reduce", 2 * twice, act)
+            add("all-reduce", 1, rows)          # backward: ln_x's sum,
+            add("all-reduce", 2, act)           # both mixes' copy-in
+        elif cfg.family == "hybrid":
+            width = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+            conv = cfg.d_inner + 2 * cfg.ssm_state
+            add("all-gather", twice, (b, S, width))    # in_proj blocks
+            add("all-gather", twice, (b, S, conv))     # conv channels
+            add("all-reduce", twice, rows)             # gated norm
+            add("all-reduce", twice, act)              # out_proj
+            add("all-reduce", 1, rows)                 # backward
+            for shape in (act, (b, S, width), (b, S, conv)):
+                add("all-reduce", 1, shape)            # the copies in
+        else:                    # attention (and cross) and the MLP
+            n = 3 if cfg.family == "encdec" else 2
+            add("all-reduce", n * (twice + 1), act)
+    if lm._has_shared(cfg):
+        for _ in range(cfg.num_layers // cfg.shared_attn_every):
+            add("all-reduce", 2 * (twice + 1), act)
+    if cfg.family == "encdec":
+        enc = (b, cfg.enc_len, cfg.d_model)
+        add("all-reduce", 2 * (twice + 1) * cfg.enc_layers, enc)
+        add("all-reduce", 1, enc)      # the encoder output's copy-in
     # leaves whole in every piece that several pieces compute with
     d_, per_layer = cfg.d_model, []
     if cfg.family == "ssm":

@@ -355,7 +355,8 @@ def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
     and the recurrent family (tensor parallel;
     ``test_torch_tensor_parallel.py`` and
     ``test_torch_tensor_parallel_families.py`` hold them to the
-    reference) and refuses 8-bit moments, citing ROADMAP item 25."""
+    reference), with 8-bit moments too (``test_torch_tensor_parallel_q8.py``
+    holds them to the reference)."""
     cfg = get_config("granite_3_2b").reduced()
     two = make_shard_mesh(2, device="cpu", simulate=True)
     out = loop.Trainer(cfg, _tc(tmp_path, steps=3), mesh=two,
@@ -384,8 +385,12 @@ def test_trainer_trains_on_a_mesh_and_refuses_a_model_axis(tmp_path):
     assert [tuple(p.shape) for p in wr.pieces] == \
         [(rwkv.d_model, rwkv.d_model // 2)] * 2
     q8 = adamw.AdamWConfig(quantize_moments=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
-        loop.Trainer(rwkv, _tc(tmp_path, opt=q8), mesh=tp)
+    out = loop.Trainer(rwkv, _tc(tmp_path / "q8", steps=3, opt=q8),
+                       mesh=tp).run()
+    assert len(out["metrics"]) == 3 and all(
+        np.isfinite(m["loss"]) for m in out["metrics"])
+    q = out["opt"]["m"]["layers"]["time_mix"]["wr"]["q"]
+    assert len(q.pieces) == 2 and torch.equal(q.pieces[0], q.pieces[1])
     one = ShardMesh(devices=(torch.device("cpu"),), data=1)
     assert loop.Trainer(cfg, _tc(tmp_path), mesh=one).device.type == "cpu"
 
