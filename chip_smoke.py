@@ -79,7 +79,20 @@ entry points of the three standalone kernels at real sizes, and fails
    frames; paligemma's with all 256 patch tokens, in float64 on the same
    weights at that rule (its float32 rounding alone passes the bound), and
    in float32 its decode no farther from the float64 forward than
-   ``VLM_ROUNDING`` times its float32 forward;
+   ``VLM_ROUNDING`` times its float32 forward.  Then the sliding windows
+   and kimi-k2's experts at the published widths: gemma3-27b whole (62
+   layers, 52 of them local with a window of 1,024, 10 global; 27.0 B
+   parameters) at prompt 1,152 and h2o-danube-3-4b whole (24 layers,
+   window 4,096; 3.84 B) at prompt 4,224, each past its window so the
+   rings wrap in prefill and in decode, and kimi-k2-1t-a32b at 1 of its 61
+   layers (384 experts, top 8, an untied vocabulary of 163,840; 19.4 B),
+   prompt 128, its row gathers held and timed as qwen3-moe's; batch 4, 8
+   steps, each parameter count equal to the reference's; their float32
+   decode == forward at gemma3's 7 layers (a global layer after five local
+   ones) past its window, danube's 4 layers past its window (held as
+   paligemma's, in float64 on the same weights: its float32 rounding
+   alone passes the bound), kimi's layer at 128 of its experts (dropless;
+   top 8 and every width kept);
 7. graph apps: ``BFS``, ``SSSP`` (the case's weights, uniform in 0.1-1.0),
    ``ConnectedComponents`` (on the symmetrized edges) and ``PageRank`` (20
    iterations, damping 0.85) through ``from_edges(..., backend="cuda",
@@ -301,7 +314,7 @@ entry points of the three standalone kernels at real sizes, and fails
    as AdamW's first step on its own moments.
    ``engine.generate`` over ``ModelPieces`` on (1, 2): gemma-7b whole
    (vocabulary 256,000, 16 heads and the GeGLU ``d_ff`` of 24,576 cut in
-   two), batch 4, prompt 128, 16 greedy steps: at least
+   two), batch 4, prompt 128, 8 greedy steps: at least
    ``TP_TOKENS_MIN`` (0.75) of the greedy tokens equal one device's, the
    prefill's and first decode step's bf16 logits no farther from the same
    weights in float32 than ``TP_ROUNDING`` (1.25) times one device's bf16
@@ -345,6 +358,7 @@ line; the last line is ``{"ok": true, "device": {...}}``.  (The tuner's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -372,9 +386,10 @@ CARD_TESTS_S = 900             # time limit of a share of the card tests
 # 3-4, share 1 beside [dryrun]'s host work and the graph phase's
 # generation and plan builds, share 2 beside the [shard] phase's graph
 # builds (a share's wait is logged).  Share i takes the tests whose index
-# modulo 50 lies in its slots, sized to the untimed work beside it (~56,
-# ~110 and ~90 s on the H100's host)
-CARD_TEST_SLOTS = ((0, 12), (12, 40), (40, 50))
+# modulo 50 lies in its slots, sized to the untimed work beside it (~50,
+# ~170 and ~95 s on the H100's host: shares of 51, 106 and 47 s before
+# slots 40-41 moved to share 1)
+CARD_TEST_SLOTS = ((0, 12), (12, 42), (42, 50))
 CARD_TEST_SHARES = len(CARD_TEST_SLOTS)
 # beside a host-clock reading taken while a share runs: such a reading is
 # not comparable with one taken with the card and the CPU to this process
@@ -421,13 +436,32 @@ LM_CELLS = (     # decode steps halved for the [tp] phase's time
     # 1,500 encoder frames; 256 patch tokens in front of the prompt
     dict(arch="whisper-small", layers=None, batch=4, prompt=128, steps=16),
     dict(arch="paligemma-3b", layers=None, batch=4, prompt=128, steps=16),
+    # sliding windows and kimi-k2's 384 experts at the published widths:
+    # gemma3-27b whole (52 local layers, window 1,024, 10 global; 54.0 GB
+    # of weights) and h2o-danube-3-4b whole (window 4,096), each prompt
+    # past the window, so the rings wrap in prefill and in decode;
+    # kimi-k2 at 1 of 61 layers (38.8 GB).  "check" cuts the float32
+    # decode == forward check (LM_CHECK's prompt and depth; kimi's experts:
+    # its one layer whole is 77.5 GB in float32; "float64": held against
+    # the same weights in float64, as paligemma is)
+    *(dict(arch=arch, layers=layers, batch=4, prompt=prompt, steps=8,
+           check=check)
+      for arch, layers, prompt, check in (
+          ("gemma3-27b", None, 1152, dict(layers=7, prompt=1032)),
+          ("h2o-danube-3-4b", None, 4224, dict(layers=4, prompt=4100,
+                                               float64=True)),
+          ("kimi-k2-1t-a32b", 1, 128, dict(num_experts=128)))),
 )
 # the JAX package's parameter count of each whole model of the recurrent,
-# encoder-decoder and vlm cells (jax.eval_shape of its init_model at the
-# published config)
+# encoder-decoder, vlm and sliding-window cells, and of kimi-k2 cut to 1 layer
+# ("name@layers") (jax.eval_shape of its init_model at the published
+# config; tests/test_torch_lm_cells.py holds them to the reference)
 REFERENCE_PARAMS = {"rwkv6-3b": 2695825920, "zamba2-1.2b": 1104937856,
                     "whisper-small": 294683904,
-                    "paligemma-3b": 2508662784}
+                    "paligemma-3b": 2508662784,
+                    "gemma3-27b": 27008319744,
+                    "h2o-danube-3-4b": 3838959360,
+                    "kimi-k2-1t-a32b@1": 19378623488}
 LM_CHECK = dict(batch=2, prompt=8, decoded=4)  # decode == forward, float32
 LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
 # zamba2's float32 readings (Smoke.hybrid_decode_check): at full width its
@@ -435,9 +469,11 @@ LM_TOL = dict(rtol=2e-2, atol=2e-3)            # tests/test_serve.py
 # forward of the same weights (H100, PERF.md), so float32 decode and
 # forward, each that far from it, are held at twice LM_TOL
 HYBRID_DECODE_TOL = dict(rtol=2 * LM_TOL["rtol"], atol=2 * LM_TOL["atol"])
-# paligemma's float32 rounding alone passes LM_TOL's bound (Smoke.
-# vlm_decode_check): its float32 decode is held to lie no farther from the
-# float64 forward than VLM_ROUNDING times its float32 forward does
+# paligemma's float32 rounding alone passes LM_TOL's bound, and so does
+# h2o-danube-3-4b's past its window (Smoke.float64_decode_check; danube's
+# float32 decode == forward read 1.864 of the bound on the H100): their
+# float32 decode is held to lie no farther from the float64 forward than
+# VLM_ROUNDING times their float32 forward does
 VLM_ROUNDING = 2.0
 # the [train] phase: LM training through repro_torch.train.loop.Trainer at
 # the published widths, weights and data from SEED; "layers" cuts the depth
@@ -551,21 +587,19 @@ BF16_TOKENS_UNHELD = ("zamba2-1.2b", "whisper-small")
 PLANTED_SERVE = {"rwkv6-3b": True, "zamba2-1.2b": "read",
                  "whisper-small": "read", "paligemma-3b": "read"}
 # the four families served whole in bf16 (whisper's 1,500 frames,
-# paligemma's 256 patches) and at 2 layers (whisper 2 + 2) in float32;
-# fewer timing repeats than gemma-7b's cells, no warm-up (the checked
-# serving run warmed every path), a profiled decode step once
+# paligemma's 256 patches) and at 2 layers (whisper 2 + 2) in float32
 FAMILY_ARCHS = ("rwkv6-3b", "zamba2-1.2b", "whisper-small", "paligemma-3b")
 TP_SERVE = (
-    dict(arch="gemma-7b", layers=None, batch=4, prompt=128, steps=16,
+    dict(arch="gemma-7b", layers=None, batch=4, prompt=128, steps=8,
          model=2, float32=False, planted=True),
-    dict(arch="gemma-7b", layers=2, batch=4, prompt=128, steps=16,
+    dict(arch="gemma-7b", layers=2, batch=4, prompt=128, steps=8,
          model=2, float32=True),
     *(dict(arch=arch, layers=None, batch=4, prompt=128, steps=4, model=2,
-           float32=False, reps=((0, 1), (0, 3)), planted=PLANTED_SERVE[arch],
+           float32=False, planted=PLANTED_SERVE[arch],
            tokens=arch not in BF16_TOKENS_UNHELD)
       for arch in FAMILY_ARCHS),
     *(dict(arch=arch, layers=2, batch=4, prompt=128, steps=4, model=2,
-           float32=True, reps=((0, 1), (0, 3)))
+           float32=True)
       for arch in FAMILY_ARCHS),
 )
 # bf16 logits over model pieces round each piece's partial sum apart from
@@ -642,6 +676,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+@contextlib.contextmanager
+def cell_seconds(phase: str, what: str):
+    """Log the host seconds of one cell of a phase (``[cell]`` lines split
+    a ``[phase]`` line's time)."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[cell] {phase} {what} {time.perf_counter() - t0:.1f} s")
+
+
 def host_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     """End-to-end time of one call as a caller sees it: median over
     ``reps`` of the host clock around ``fn`` and a synchronize."""
@@ -691,10 +734,12 @@ def device_ms(fn, reps: int = 20, repeats: int = 5,
     return statistics.median(samples)
 
 
-def profile_breakdown(fn, reps: int = 5):
+def profile_breakdown(fn, reps: int = 5, warm: bool = False):
     """Device time per call under ``torch.profiler``: (wall ms, device-busy
     ms, top kernels as (name, ms, launches), kernel launches) per call, or
-    None when the profiler records no device activity.  Wall time includes the
+    None when the profiler records no device activity; one call first,
+    unprofiled, unless ``warm`` (the caller ran the same work just
+    before).  Wall time includes the
     profiler's own overhead, so the idle share it implies is an upper
     bound.  The device events are summed from the profiler's raw event
     list: ``key_averages()`` builds the whole event tree first, which for
@@ -703,7 +748,8 @@ def profile_breakdown(fn, reps: int = 5):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -726,8 +772,9 @@ def profile_breakdown(fn, reps: int = 5):
         sum(count for _, count in by_name.values()) // reps
 
 
-def log_profile(tag: str, what: str, fn, reps: int = 5) -> None:
-    prof = profile_breakdown(fn, reps)
+def log_profile(tag: str, what: str, fn, reps: int = 5,
+                warm: bool = False) -> None:
+    prof = profile_breakdown(fn, reps, warm)
     if prof is None:
         log(f"[profile] {tag} {what}: no device time recorded (not "
             "measured)")
@@ -1550,13 +1597,28 @@ class Smoke:
         with torch.inference_mode():
             for spec in LM_CELLS:
                 cfg = self.lm_config(spec)
-                self.lm_serve(cfg, spec)
-                self.lm_decode_check(cfg)
+                with cell_seconds("[lm]", cfg.name):
+                    self.lm_serve(cfg, spec)
+                    self.lm_decode_check(cfg, spec.get("check", {}))
         log(f"[lm] phase in {time.perf_counter() - t0:.1f} s")
+
+    @staticmethod
+    def reference_params(cfg):
+        """``REFERENCE_PARAMS``'s count of ``cfg`` where it has one: the
+        published config whole ("name") or cut in depth ("name@layers"),
+        in any dtype; None for any other change."""
+        from repro_torch.configs import get_config
+        pub = get_config(cfg.name)
+        if cfg.replace(num_layers=pub.num_layers,
+                       param_dtype=pub.param_dtype,
+                       compute_dtype=pub.compute_dtype) != pub:
+            return None
+        return REFERENCE_PARAMS.get(
+            cfg.name if cfg.num_layers == pub.num_layers
+            else f"{cfg.name}@{cfg.num_layers}")
 
     def lm_model(self, cfg):
         torch = self.torch
-        from repro_torch.configs import get_config
         from repro_torch.models import lm
         gen = torch.Generator(self.dev).manual_seed(SEED)
         t0 = time.perf_counter()
@@ -1564,8 +1626,7 @@ class Smoke:
         torch.cuda.synchronize()
         n = sum(p.numel() for p in model.parameters())
         nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-        want = REFERENCE_PARAMS.get(cfg.name) if cfg.num_layers == \
-            get_config(cfg.name).num_layers else None
+        want = self.reference_params(cfg)
         check(want in (None, n), f"{cfg.name}: {n} parameters, the "
               f"reference has {want}")
         log(f"[lm] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
@@ -1594,6 +1655,8 @@ class Smoke:
         from repro_torch.serve import engine
         b, s, steps = spec["batch"], spec["prompt"], spec["steps"]
         base = torch.cuda.memory_allocated()    # held by earlier phases
+        log(f"[lm] {cfg.name}: {base} B held by earlier phases, "
+            f"{torch.cuda.mem_get_info()[0]} B free on the card")
         torch.cuda.reset_peak_memory_stats()
         model, gen = self.lm_model(cfg)
         tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
@@ -1659,10 +1722,11 @@ class Smoke:
                 "bitwise the same tokens, final logits and cache")
             del p_out, p_logits, p_cache
         peak = torch.cuda.max_memory_allocated() - base
+        # no warm-up: the checked run above warmed every path timed here
         prefill_ms = host_ms(lambda: engine.prefill(model, cfg, batch,
-                                                    max_len), 1, 5)
+                                                    max_len), 0, 2)
         gen_ms = host_ms(lambda: engine.generate(model, cfg, batch, steps,
-                                                 max_len), 1, 3)
+                                                 max_len), 0, 1)
         decode_ms = (gen_ms - prefill_ms) / (steps - 1)
         log(f"[time] {self.tag} {cfg.name} serve batch {b} prompt {s}: "
             f"prefill {prefill_ms:.4f} ms, decode {decode_ms:.4f} ms per "
@@ -1671,10 +1735,12 @@ class Smoke:
             f"{b * steps / gen_ms * 1e3:.1f} tokens/s; peak memory {peak} B "
             f"(above the {base} B held before the model)")
         log_profile(self.tag, f"{cfg.name} prefill (batch {b}, {s} tokens)",
-                    lambda: engine.prefill(model, cfg, batch, max_len))
+                    lambda: engine.prefill(model, cfg, batch, max_len),
+                    1, warm=True)
         log_profile(self.tag, f"{cfg.name} decode step (batch {b})",
                     lambda: lm.decode_step(model, cfg, cache, out[:, -1:],
-                                           pl + s + steps - 1, pl))
+                                           pl + s + steps - 1, pl),
+                    1, warm=True)
         if is_moe:
             for what, src, ids in gathers:
                 self.lm_gather_time(cfg, f"prefill {what}", src, ids)
@@ -1701,33 +1767,45 @@ class Smoke:
         if what == "prefill dispatch":
             self.kernel_entry("row_gather", ms, plain_ms, nbytes, 0.0, lib_ms)
 
-    def lm_decode_check(self, cfg) -> None:
+    def lm_decode_check(self, cfg, cut) -> None:
         """decode == forward (``tests/test_serve.py``'s rule) in float32;
-        MoE in the dropless regime, where no capacity couples tokens.  The
-        hybrid family goes on to :meth:`hybrid_decode_check`, vlm to
-        :meth:`vlm_decode_check`."""
+        MoE in the dropless regime, where no capacity couples tokens.
+        ``cut`` (a cell's "check") sets the depth, the experts and the
+        prompt, and with "float64" it goes on as vlm does.  The hybrid
+        family goes on to :meth:`hybrid_decode_check`, vlm to
+        :meth:`float64_decode_check`."""
         torch = self.torch
+        from repro_torch.models import lm
+        cfg = cfg.replace(num_layers=cut.get("layers", cfg.num_layers),
+                          num_experts=cut.get("num_experts",
+                                              cfg.num_experts))
         if cfg.family == "moe":
             cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
         f32 = cfg.replace(param_dtype=torch.float32,
                           compute_dtype=torch.float32)
-        b, s, n = LM_CHECK["batch"], LM_CHECK["prompt"], LM_CHECK["decoded"]
+        b, n = LM_CHECK["batch"], LM_CHECK["decoded"]
+        s = cut.get("prompt", LM_CHECK["prompt"])
         model, gen = self.lm_model(f32)
         toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
                              device=self.dev, dtype=torch.int32)
         batch = self.lm_batch(f32, toks, gen)
-        got, want = self.decode_vs_forward(model, f32, batch)
+        got, want = self.decode_vs_forward(model, f32, batch, s)
         if cfg.family == "hybrid":
             self.hybrid_decode_check(model, cfg, toks, got, want)
-        elif cfg.family == "vlm":
-            self.vlm_decode_check(model, cfg, batch, got, want)
+        elif cfg.family == "vlm" or cut.get("float64"):
+            self.float64_decode_check(model, cfg, batch, got, want, s)
         else:
             err, ratio, ok = tol_ratio(got, want, LM_TOL)
             check(ok, f"{cfg.name}: decode differs from forward in float32 "
                   f"(max abs err {err}, {ratio:.3f} of the bound)")
-            note = {"moe": ", dropless", "vlm": f", after {cfg.num_prefix} "
-                    "patch tokens", "encdec": f", {cfg.enc_len} encoder "
+            note = {"moe": f", {cfg.num_experts} experts, dropless",
+                    "vlm": f", after {cfg.num_prefix} patch tokens",
+                    "encdec": f", {cfg.enc_len} encoder "
                     "frames"}.get(cfg.family, "")
+            if cfg.window:
+                note += (f", {cfg.num_layers} layers of kinds "
+                         f"{''.join(map(str, lm.layer_kinds(cfg)))}, "
+                         f"window {cfg.window}")
             log(f"[lm] {cfg.name} float32 decode == forward (prompt {s}, "
                 f"{n} decoded, batch {b}{note}): max abs err {err:.3e}, "
                 f"{ratio:.3f} of the bound of rtol {LM_TOL['rtol']}, atol "
@@ -1772,26 +1850,36 @@ class Smoke:
                 f"{tol['atol']} ({lm_ratio:.3f} of LM_TOL's; logits' scale "
                 f"{float(np.abs(want).max()):.1f})")
 
-    def vlm_decode_check(self, model, cfg, batch, got32, fwd32) -> None:
-        """paligemma with all its patch tokens.  Its float32 rounding alone
-        passes ``LM_TOL``'s bound: the scaled tied embedding gives each
-        token's own logit ~d_model, and an absolute error of that scale's
-        float32 rounding lands on the logits near 0 (on the CPU at full
-        width and depth, ``d_ff`` 2048 and a vocabulary of 8192, the
-        reference's own float32 forward lies 36.6 of the bound from a
-        float64 one, the port's 25.7).  So the same weights in float64 give
-        the yardstick: float64 decode == forward at ``LM_TOL``; the float32
-        decode no farther from the float64 forward than ``VLM_ROUNDING``
-        times the float32 forward is; every reading also as a share of
-        ``LM_TOL``'s bound."""
+    def float64_decode_check(self, model, cfg, batch, got32, fwd32,
+                             s=LM_CHECK["prompt"]) -> None:
+        """paligemma with all its patch tokens, and h2o-danube-3-4b past
+        its window.  Their float32 rounding alone passes ``LM_TOL``'s
+        bound: a tied embedding gives each token's own logit a scale of
+        hundreds to thousands (paligemma's scaled by sqrt(d_model)), and an
+        absolute error of that scale's float32 rounding lands on the logits
+        near 0 (on the CPU at full width and depth, ``d_ff`` 2048 and a
+        vocabulary of 8192, paligemma's reference float32 forward lies 36.6
+        of the bound from a float64 one, the port's 25.7; danube at
+        ``reduced()`` widths and its 4,096 window, the reference's 0.739,
+        the port's 0.094).  So the same weights in float64 (the attention
+        scores and softmax stay float32, as ``attention._sdpa`` defines
+        them) give the yardstick: float64 decode == forward at ``LM_TOL``;
+        the float32 decode no farther from the float64 forward than
+        ``VLM_ROUNDING`` times the float32 forward is; every reading also
+        as a share of ``LM_TOL``'s bound."""
         torch = self.torch
+        from repro_torch.models import lm
         f64 = cfg.replace(param_dtype=torch.float64,
                           compute_dtype=torch.float64)
         model.double()
-        got64, fwd64 = self.decode_vs_forward(model, f64, batch)
-        where = (f"prompt {LM_CHECK['prompt']}, {LM_CHECK['decoded']} "
-                 f"decoded, batch {LM_CHECK['batch']}, after "
-                 f"{cfg.num_prefix} patch tokens")
+        got64, fwd64 = self.decode_vs_forward(model, f64, batch, s)
+        where = (f"prompt {s}, {batch['tokens'].shape[1] - s} decoded, "
+                 f"batch {batch['tokens'].shape[0]}, " + (
+                     f"after {cfg.num_prefix} patch tokens"
+                     if cfg.family == "vlm" else
+                     f"{cfg.num_layers} layers of kinds "
+                     f"{''.join(map(str, lm.layer_kinds(cfg)))}, window "
+                     f"{cfg.window}"))
         errs = {}
         for what, got, want in (
                 ("float64 decode == forward", got64, fwd64),
@@ -1816,16 +1904,15 @@ class Smoke:
             f"forward {dec / own:.3f} of the float32 forward's (held <= "
             f"{VLM_ROUNDING})")
 
-    def decode_vs_forward(self, model, cfg, batch):
-        """Prefill of ``LM_CHECK["prompt"]`` tokens (after vlm's patch
-        prefix; whisper's frames in the encoder) and decode of the rest
-        against the forward over all of ``batch["tokens"]``: the decoded
-        logits and the forward's at the same positions, as numpy
-        arrays."""
+    def decode_vs_forward(self, model, cfg, batch, s=LM_CHECK["prompt"]):
+        """Prefill of ``s`` tokens (after vlm's patch prefix; whisper's
+        frames in the encoder) and decode of the rest against the forward
+        over all of ``batch["tokens"]``: the decoded logits and the
+        forward's at the same positions, as numpy arrays."""
         from repro_torch.models import lm
         from repro_torch.serve import engine
-        s, n = LM_CHECK["prompt"], LM_CHECK["decoded"]
         toks = batch["tokens"]
+        n = toks.shape[1] - s
         pl = lm.prefix_slots(cfg)
         full, _ = lm.forward(model, cfg, batch)
         cache, last = engine.prefill(model, cfg, dict(batch,
@@ -1860,10 +1947,12 @@ class Smoke:
         shutil.rmtree(ROOT / "build" / "train_ckpt", ignore_errors=True)
         for spec in TRAIN_CELLS:
             cfg = self.lm_config(spec)
-            if cfg.family == "moe":
-                self.train_gradients(cfg, spec)
-            self.train_run(cfg, spec)
-        self.train_resume(self.lm_config(TRAIN_RESUME))
+            with cell_seconds("[train]", cfg.name):
+                if cfg.family == "moe":
+                    self.train_gradients(cfg, spec)
+                self.train_run(cfg, spec)
+        with cell_seconds("[train]", "resume"):
+            self.train_resume(self.lm_config(TRAIN_RESUME))
         shutil.rmtree(ROOT / "build" / "train_ckpt", ignore_errors=True)
         log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
@@ -2012,7 +2101,8 @@ class Smoke:
         def one_step():
             state[0], _ = step_fn(model, state[0], batch)
         log_profile(self.tag, f"{cfg.name} train step (batch "
-                    f"{spec['batch']}, seq {spec['seq']})", one_step, reps=2)
+                    f"{spec['batch']}, seq {spec['seq']})", one_step, reps=1,
+                    warm=True)
         if spec is TRAIN_CELLS[0]:          # for [dryrun]
             from torch.utils.flop_counter import FlopCounterMode
             torch.cuda.synchronize()
@@ -2098,11 +2188,16 @@ class Smoke:
         t0 = time.perf_counter()
         shutil.rmtree(ROOT / "build" / "dp_ckpt", ignore_errors=True)
         for spec in DP_CELLS:
-            self.dp_train(self.lm_config(spec), spec)
-        self.dp_q8_state(self.float32(self.lm_config(DP_Q8_STATE)))
-        self.dp_state(self.float32(self.lm_config(DP_STATE)))
-        self.dp_resume(self.float32(self.lm_config(DP_RESUME)))
-        self.dp_decode(self.lm_config(DP_DECODE))
+            with cell_seconds("[dp]", f"{spec['arch']}"
+                              f"{' 8-bit' if spec.get('q8') else ''}"):
+                self.dp_train(self.lm_config(spec), spec)
+        for what, fn, spec in (("8-bit state", self.dp_q8_state, DP_Q8_STATE),
+                               ("state", self.dp_state, DP_STATE),
+                               ("resume", self.dp_resume, DP_RESUME)):
+            with cell_seconds("[dp]", what):
+                fn(self.float32(self.lm_config(spec)))
+        with cell_seconds("[dp]", "psum decode"):
+            self.dp_decode(self.lm_config(DP_DECODE))
         shutil.rmtree(ROOT / "build" / "dp_ckpt", ignore_errors=True)
         log(f"[dp] phase in {time.perf_counter() - t0:.1f} s")
 
@@ -2266,7 +2361,7 @@ class Smoke:
         if not q8:
             log_profile(self.tag, f"{cfg.name} dp train step ({k} simulated "
                         f"shards, batch {spec['batch']}, seq {spec['seq']})",
-                        one_step, reps=1)
+                        one_step, reps=1, warm=True)
         dp.reset_collectives()
         one_step()
         self.dp_counted[q8] = {c: dict(v) for c, v in dp.collectives.items()}
@@ -2835,13 +2930,17 @@ class Smoke:
         t0 = time.perf_counter()
         shutil.rmtree(ROOT / "build" / "tp_ckpt", ignore_errors=True)
         for spec in TP_TRAIN:
-            self.tp_train(self.lm_config(spec), spec)
+            with cell_seconds("[tp]", f"{spec['arch']} train"):
+                self.tp_train(self.lm_config(spec), spec)
         for spec in TP_STATES:
-            self.tp_state(self.float32(self.lm_config(spec)), spec)
+            with cell_seconds("[tp]", f"{spec['arch']} state"):
+                self.tp_state(self.float32(self.lm_config(spec)), spec)
         for spec in TP_SERVE:
             cfg = self.lm_config(spec)
-            self.tp_serve(self.float32(cfg) if spec["float32"] else cfg,
-                          spec)
+            with cell_seconds("[tp]", f"{spec['arch']} serve "
+                              f"{'float32' if spec['float32'] else 'bf16'}"):
+                self.tp_serve(self.float32(cfg) if spec["float32"] else cfg,
+                              spec)
         shutil.rmtree(ROOT / "build" / "tp_ckpt", ignore_errors=True)
         log(f"[tp] phase in {time.perf_counter() - t0:.1f} s")
 
@@ -3112,7 +3211,7 @@ class Smoke:
             self.lm_gather_time(cfg, f"tp {what}", src, ids)
         log_profile(self.tag, f"{cfg.name} tp train step (({d}, {m}) "
                     f"simulated, batch {spec['batch']}, seq {spec['seq']})",
-                    one_step, reps=1)
+                    one_step, reps=1, warm=True)
         del state, dp
         gc.collect()
         torch.cuda.empty_cache()
@@ -3519,8 +3618,6 @@ class Smoke:
         from repro_torch.serve import engine
         b, s, steps, m = spec["batch"], spec["prompt"], spec["steps"], \
             spec["model"]
-        (p_warm, p_reps), (d_warm, d_reps) = spec.get("reps",
-                                                      ((1, 3), (2, 10)))
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         model, gen = self.lm_model(cfg)
@@ -3596,18 +3693,20 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated() - base
         timed = {}
         with torch.inference_mode():
+            # one prefill and 3 decode steps, no warm-up: the checked
+            # serving run above warmed every path
             for name, p in (("one device", model), ("pieces", mp)):
                 prefill_ms = host_ms(lambda: engine.prefill(
-                    p, cfg, batch, max_len), p_warm, p_reps)
+                    p, cfg, batch, max_len), 0, 1)
                 cache, _ = engine.prefill(p, cfg, batch, max_len)
                 decode_ms = host_ms(lambda: lm.decode_step(
-                    p, cfg, cache, tok, pos, pl), d_warm, d_reps)
+                    p, cfg, cache, tok, pos, pl), 0, 3)
                 timed[name] = (prefill_ms, decode_ms, b / decode_ms * 1e3)
                 del cache
         (p1, d1, t1), (p2, d2, t2) = timed.values()
         log(f"[time] {self.tag} {cfg.name} tp serve (1, {m}) batch {b} "
             f"prompt {s}: prefill {p2:.4f} ms, decode {d2:.4f} ms a step "
-            f"(a decode step at position {pos}, median of {d_reps}), "
+            f"(a decode step at position {pos}, median of 3), "
             f"{t2:.1f} tokens/s; one device prefill {p1:.4f} ms, decode "
             f"{d1:.4f} ms a step, {t1:.1f} tokens/s ({d2 / d1:.3f}x a "
             f"decode step); peak memory {peak} B (above the {base} B held "
@@ -3621,7 +3720,7 @@ class Smoke:
             log_profile(self.tag, f"{cfg.name} tp decode step ((1, {m}) "
                         f"simulated, batch {b})",
                         lambda: lm.decode_step(mp, cfg, cache, tok, pos, pl),
-                        reps=1 if spec.get("reps") else 5)
+                        reps=1, warm=True)
         planted = self.tp_planted(mp, cfg, batch, max_len, tok) \
             if spec.get("planted") else None
         del mp, cache

@@ -1254,6 +1254,99 @@ def test_modality_loss_and_backward_on_card_match_cpu(arch):
                                    err_msg=k)
 
 
+# --------------------- sliding windows, local:global layers, kimi's MoE
+# reduced() float32, cut as tests/test_torch_tensor_parallel.py holds them
+# on the CPU: gemma3 at 7 layers (kinds 1 1 1 1 1 0 1: a global layer
+# after five local ones), kimi-k2 at top-8 of 16 experts, capacity factor
+# 16; gemma-7b and h2o-danube-3-4b whole
+SERVED = {"gemma-7b": {}, "gemma3-27b": {"num_layers": 7},
+          "h2o-danube-3-4b": {},
+          "kimi-k2-1t-a32b": {"num_experts": 16, "top_k": 8,
+                              "capacity_factor": 16.0}}
+SERVED_PROMPT = 12      # past the reduced window of 8: the rings wrap
+
+
+def _served_case(arch):
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(**SERVED[arch])
+    cpu = lm.init_model(cfg, generator=torch.Generator().manual_seed(7),
+                        device="cpu")
+    return dev, cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_served_generate_on_card_matches_cpu(arch):
+    """Greedy ``generate`` of a reduced float32 gemma-7b / gemma3 / danube /
+    kimi on the card and on the CPU from the same weights: the prefill's
+    logits and the final cache within ``tests/test_serve.py``'s rule, the
+    tokens equal; the prompt past the window, so the sliding-window
+    layers' rings wrap in prefill and in decode; kimi's dispatch and
+    combine launched on the row gather."""
+    from repro_torch.serve import engine
+    dev, cfg, cpu, card = _served_case(arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, SERVED_PROMPT),
+                         generator=torch.Generator().manual_seed(8),
+                         dtype=torch.int32)
+    max_len = SERVED_PROMPT + 8 + 4
+    RG.row_gather.launches = 0
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        cache, last = engine.prefill(model, cfg,
+                                     {"tokens": toks.to(where)}, max_len)
+        out, fin = engine.generate(model, cfg, {"tokens": toks.to(where)},
+                                   steps=8, max_len=max_len)
+        if where == dev:
+            torch.cuda.synchronize()
+            launched = RG.row_gather.launches
+            got = (last.cpu(), out.cpu(), {k: v.cpu() for k, v in
+                                           fin.items()})
+    # a dispatch and a combine a MoE layer in each of 2 prefills and 7
+    # decode steps
+    assert launched == (2 * 9 * cfg.num_layers if cfg.family == "moe"
+                        else 0)
+    if cfg.attn_kind in ("swa", "local_global"):
+        assert fin["k_local"].shape[2] == cfg.window < SERVED_PROMPT
+    np.testing.assert_allclose(got[0].numpy(), last.numpy(), **SERVE_TOL)
+    assert torch.equal(got[1], out)
+    assert sorted(got[2]) == sorted(fin)
+    for k, v in fin.items():
+        np.testing.assert_allclose(got[2][k].float().numpy(),
+                                   v.float().numpy(), **SERVE_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", list(SERVED))
+def test_served_loss_and_backward_on_card_match_cpu(arch):
+    """``loss_fn`` + backward of a reduced float32 gemma-7b / gemma3 /
+    danube / kimi on the card and on the CPU over 16 tokens (past the
+    window): the loss and every gradient leaf within
+    ``tests/test_serve.py``'s rule (atol times the leaf's scale)."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import lm
+    dev, cfg, cpu, card = _served_case(arch)
+    batch = synth_batch(cfg, 2, 16, step=0)
+    grads = []
+    for model, where in ((card, dev), (cpu, torch.device("cpu"))):
+        model.requires_grad_(True)
+        loss, _ = lm.loss_fn(model, cfg, {k: torch.as_tensor(v, device=where)
+                                          for k, v in batch.items()})
+        loss.backward()
+        grads.append((float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                             model.named_parameters()}))
+    (lc, gc), (lw, gw) = grads
+    np.testing.assert_allclose(lc, lw, **SERVE_TOL)
+    assert sorted(gc) == sorted(gw)
+    for k, w in gw.items():
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(gc[k].numpy(), w.numpy(),
+                                   rtol=SERVE_TOL["rtol"],
+                                   atol=SERVE_TOL["atol"] * scale,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("block", [True, False])
 def test_checkpoint_round_trip_of_card_tensors(block, tmp_path):
     from repro_torch.checkpoint import checkpoint as ck

@@ -14,7 +14,8 @@ encoder layers over 16 frames, paligemma 8 patch tokens) for every arch:
   every layer asserted equal first): ``allclose(rtol=1e-4, atol=1e-5 *
   scale)``, ``scale`` the largest magnitude of the reference's array (at
   least 1), as in ``test_torch_lm.py``: both sum float32 products in other
-  orders;
+  orders (zamba2's and whisper's gradients at ``HYBRID_GRAD_ATOL x scale``,
+  where the reference's own float32 rounding passes the dense rule);
 * 5 steps of ``make_train_step`` against the reference's jitted
   ``step_fn`` at ``microbatches`` 1 and 2: each step's loss and gradient
   norm at that tolerance (AdamW's first steps move each weight by about
@@ -62,8 +63,10 @@ LM_ARCHS = ["granite_3_2b", "gemma_7b", "gemma3_27b", "h2o_danube_3_4b",
             "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b", "rwkv6_3b",
             "zamba2_1p2b", "whisper_small", "paligemma_3b"]
 RTOL, ATOL = 1e-4, 1e-5
-# zamba2's whole-model gradients (see test_gradients_match_reference)
+# zamba2's and whisper's whole-model gradients (see
+# test_gradients_match_reference)
 HYBRID_GRAD_ATOL = 1e-4
+WIDE_GRAD_FAMILIES = ("hybrid", "encdec")
 B, S = 2, 12
 
 
@@ -199,7 +202,14 @@ def test_gradients_match_reference(case, monkeypatch):
     test_hybrid_gradient_rounding_exceeds_the_dense_rule``).  So the
     hybrid family is held here at ``atol=HYBRID_GRAD_ATOL * scale``, and
     layer by layer, where no amplification enters, at ``ATOL``
-    (``test_torch_recurrent.py::test_layer_gradients_match_reference``)."""
+    (``test_torch_recurrent.py::test_layer_gradients_match_reference``).
+    whisper too (``test_torch_tensor_parallel_families.py``'s encdec
+    rule): its random tied embedding's large logits give its reference
+    gradients up to 1.9e-5 of a leaf's scale from the same weights'
+    float64 gradients, the port's up to 1.4e-5, so on some hosts one
+    ``/embed`` element of 16,384 parts by 1.7x the dense rule.  For both
+    families the reference's own float32 distance from the port's float64
+    gradients is asserted past the dense rule here."""
     model = _model(case)
     if case.cfg.family == "moe":   # the routing first: equal top-k choices
         tokens = case.batch["tokens"]
@@ -221,10 +231,31 @@ def test_gradients_match_reference(case, monkeypatch):
     _, _, got = _port_grads(model, case.cfg, case.batch)
     got, want = _flat(got), _flat(want)
     assert sorted(got) == sorted(want)
-    atol = HYBRID_GRAD_ATOL if case.cfg.family == "hybrid" else ATOL
+    atol = ATOL
+    if case.cfg.family in WIDE_GRAD_FAMILIES:
+        atol = HYBRID_GRAD_ATOL
+        exact = _float64_grads(case)
+        assert max(float(np.abs(np.asarray(w, np.float64) - exact[p]).max())
+                   / max(1.0, float(np.abs(w).max()))
+                   for p, w in want.items()) > ATOL
     for path in want:
         assert tuple(got[path].shape) == want[path].shape, path
         _close(got[path], want[path], path, atol=atol)
+
+
+def _float64_grads(case) -> dict:
+    """The port's gradients of the reference's weights and batch in
+    float64, flat, as numpy."""
+    cfg = case.cfg.replace(param_dtype=torch.float64,
+                           compute_dtype=torch.float64)
+    vals = jax.tree.map(lambda a: a.astype(np.float64)
+                        if np.issubdtype(a.dtype, np.floating) else a,
+                        case.vals)
+    batch = {k: v.astype(np.float64) if np.issubdtype(v.dtype, np.floating)
+             else v for k, v in case.batch.items()}
+    _, _, grads = _port_grads(convert.lm_params_from_numpy(
+        cfg, vals, device="cpu"), cfg, batch)
+    return {p: g.numpy() for p, g in _flat(grads).items()}
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
